@@ -1,0 +1,186 @@
+"""Apply a compression policy to the dense LM: LayerSpec enumeration,
+cspec building (quant bits + ℓ1 pruning masks), and the model adapter the
+search and the sensitivity analysis call.
+
+Bits in a cspec are host ints (the scalar engine builds one cspec per
+policy on the host); masks are float tensors on the model's device.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass, field
+from typing import Any, List, Optional, Sequence
+
+import torch
+
+from ..configs.base import ArchConfig
+from ..models import model as M
+from . import pruning
+from .policy import Policy
+from .spec import LayerCMP, LayerSpec, effective_bits
+
+
+def _lcm(a: int, b: int) -> int:
+    return a * b // math.gcd(a, b)
+
+
+def _head_granularity(head_dim: int, lane: int = 128) -> int:
+    return _lcm(lane, head_dim) // head_dim if head_dim else 1
+
+
+def lm_layer_specs(cfg: ArchConfig) -> List[LayerSpec]:
+    """The compressible units of a dense LM, in the JAX package's order:
+    embed, then per layer qkv / out / mlp up / mlp down, then head."""
+    if set(cfg.layer_kinds) != {"attn"} or cfg.moe is not None \
+            or cfg.frontend == "audio_stub":
+        raise NotImplementedError(
+            f"{cfg.name}: only the dense attention family is ported")
+    specs: List[LayerSpec] = []
+    d = cfg.d_model
+    specs.append(LayerSpec(
+        name="embed", kind="embed", layer_idx=-1, in_dim=cfg.vocab_size,
+        out_dim=d, quantizable=True, mix_supported=False,
+        weight_elems=cfg.vocab_size * d, act_elems_per_token=1))
+    for i in range(cfg.num_layers):
+        H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        specs.append(LayerSpec(
+            name=f"L{i}.attn_qkv", kind="attn_qkv", layer_idx=i,
+            in_dim=d, out_dim=(H + 2 * KV) * hd,
+            prunable=True, prune_dim=H,
+            prune_granularity=_head_granularity(hd),
+            flops_per_token=2.0 * d * (H + 2 * KV) * hd,
+            weight_elems=d * (H + 2 * KV) * hd,
+            act_elems_per_token=d,
+            extra={"head_dim": hd, "kv_heads": KV}))
+        specs.append(LayerSpec(
+            name=f"L{i}.attn_out", kind="attn_out", layer_idx=i,
+            in_dim=H * hd, out_dim=d, dep_group=f"L{i}.heads",
+            flops_per_token=2.0 * H * hd * d,
+            weight_elems=H * hd * d, act_elems_per_token=H * hd))
+        ff = cfg.d_ff
+        gated = 2 if cfg.mlp in ("swiglu", "geglu") else 1
+        specs.append(LayerSpec(
+            name=f"L{i}.mlp_up", kind="mlp_up", layer_idx=i,
+            in_dim=d, out_dim=ff, prunable=True, prune_dim=ff,
+            prune_granularity=128,
+            flops_per_token=2.0 * d * ff * gated,
+            weight_elems=d * ff * gated, act_elems_per_token=d))
+        specs.append(LayerSpec(
+            name=f"L{i}.mlp_down", kind="mlp_down", layer_idx=i,
+            in_dim=ff, out_dim=d, dep_group=f"L{i}.ff",
+            flops_per_token=2.0 * ff * d,
+            weight_elems=ff * d, act_elems_per_token=ff))
+    specs.append(LayerSpec(
+        name="head", kind="head", layer_idx=cfg.num_layers,
+        in_dim=d, out_dim=cfg.vocab_size, quantizable=True,
+        mix_supported=False,
+        flops_per_token=2.0 * d * cfg.vocab_size,
+        weight_elems=d * cfg.vocab_size, act_elems_per_token=d))
+    return specs
+
+
+# ===========================================================================
+# cspec building (quant bits + ℓ1 masks)
+# ===========================================================================
+
+def _qs(cmp: Optional[LayerCMP]) -> dict:
+    """QS dict; a missing CMP is FP32 pass-through."""
+    w, a = effective_bits(cmp) if cmp is not None else (32, 32)
+    return {"w_bits": w, "a_bits": a}
+
+
+def _unit_prune_scores(cfg: ArchConfig, p_l, kind: str) -> torch.Tensor:
+    """ℓ1 scores of one unit's prunable dim."""
+    if kind == "attn_qkv":
+        return pruning.head_scores(p_l["attn"]["wq"]["w"], cfg.num_heads)
+    if kind == "mlp_up":
+        ws = [p_l["mlp"]["w_up"]["w"]]
+        if "w_gate" in p_l["mlp"]:
+            ws.append(p_l["mlp"]["w_gate"]["w"])
+        return pruning.l1_scores(ws)
+    raise ValueError(kind)
+
+
+def build_lm_cspec(cfg: ArchConfig, params, policy: Policy,
+                   specs: Sequence[LayerSpec], scores=None) -> dict:
+    """The cspec of ``policy``: per layer ``{"attn": {"qkv", "o",
+    "head_mask"}, "mlp": {"up", "down", "ff_mask"}}`` plus the embed and
+    head bits. Masks are always present (ones when unpruned), as in the
+    JAX package. ``scores`` may hold precomputed ``(layer, kind) -> ℓ1
+    scores``; they do not depend on the policy."""
+    by_layer: dict[int, dict[str, LayerCMP]] = {}
+    embed_bits = head_bits = None
+    for s, c in zip(specs, policy.cmps):
+        if s.kind == "embed":
+            embed_bits = effective_bits(c)[0]
+        elif s.kind == "head":
+            head_bits = effective_bits(c)[0]
+        else:
+            by_layer.setdefault(s.layer_idx, {})[s.kind] = c
+
+    def mask(i, kind, cmp, dim):
+        device = params["embed"].device
+        if cmp is None or cmp.keep >= dim:
+            return torch.ones((dim,), dtype=torch.float32, device=device)
+        sc = scores.get((i, kind)) if scores is not None else None
+        if sc is None:
+            sc = _unit_prune_scores(cfg, params["blocks"][i], kind)
+        return pruning.keep_mask(sc, cmp.keep)
+
+    layer_cspecs = []
+    for i in range(cfg.num_layers):
+        cm = by_layer.get(i, {})
+        cq, co = cm.get("attn_qkv"), cm.get("attn_out")
+        cu, cd = cm.get("mlp_up"), cm.get("mlp_down")
+        layer_cspecs.append({
+            "attn": {"qkv": _qs(cq), "o": _qs(co),
+                     "head_mask": mask(i, "attn_qkv", cq, cfg.num_heads)},
+            "mlp": {"up": _qs(cu), "down": _qs(cd),
+                    "ff_mask": mask(i, "mlp_up", cu, cfg.d_ff)}})
+    out: dict[str, Any] = {"blocks": layer_cspecs}
+    if embed_bits is not None:
+        out["embed_bits"] = embed_bits
+    if head_bits is not None:
+        out["head_bits"] = head_bits
+    return out
+
+
+# ===========================================================================
+# Model adapter (the interface of the search / sensitivity analysis)
+# ===========================================================================
+
+@dataclass
+class CompressibleLM:
+    """Adapter: ArchConfig LM + params -> the search interface. All work
+    runs on the device the params live on."""
+    cfg: ArchConfig
+    params: Any
+    _scores: dict = field(default_factory=dict, init=False, repr=False)
+
+    def __post_init__(self):
+        self.specs = lm_layer_specs(self.cfg)
+        for i in range(self.cfg.num_layers):
+            for kind in ("attn_qkv", "mlp_up"):
+                self._scores[(i, kind)] = _unit_prune_scores(
+                    self.cfg, self.params["blocks"][i], kind)
+
+    @property
+    def device(self) -> torch.device:
+        return self.params["embed"].device
+
+    def build_cspec(self, policy: Policy) -> dict:
+        return build_lm_cspec(self.cfg, self.params, policy, self.specs,
+                              self._scores)
+
+    @torch.no_grad()
+    def logits(self, batch: dict, cspec=None) -> torch.Tensor:
+        return M.forward(self.cfg, self.params, batch["tokens"], cspec)
+
+    def log_probs(self, batch: dict, cspec=None) -> torch.Tensor:
+        return torch.log_softmax(self.logits(batch, cspec), -1)
+
+    def accuracy(self, batch: dict, cspec=None) -> torch.Tensor:
+        """Next-token top-1 accuracy (a 0-d tensor on the device)."""
+        lg = self.logits(batch, cspec)[:, :-1]
+        tgt = batch["tokens"][:, 1:]
+        return torch.mean((torch.argmax(lg, -1) == tgt).float())

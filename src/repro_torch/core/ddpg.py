@@ -1,0 +1,339 @@
+"""DDPG (Lillicrap et al. 2015) in PyTorch — the paper's agent core.
+
+Paper hyperparameters: actor/critic MLPs with hidden (400, 300); sigmoid-
+bounded actions in [0,1]; Adam lr 1e-4 (actor) / 1e-3 (critic),
+β1=0.9 β2=0.999; γ=0.99; batch 128; replay 2000; exploration via truncated
+normal σ0=0.5, decay 0.95/episode; rewards in each sampled batch normalized
+with a moving average; states standardized with running mean/var estimates.
+
+Layout follows the JAX package: all learnable/learning state lives in an
+``AgentState`` (networks as lists of ``{"w", "b"}`` layers, ``[in, out]``
+weights), manipulated by plain functions (``update_step``,
+``update_chunk``); ``DDPGAgent`` is the stateful shim the search calls.
+
+Kernels: the actor/critic trunk runs through K2
+(``kernels.ops.fused_mlp3``, whose backward is plain tensor ops) and the
+soft target update through K3 (``kernels.ops.fused_polyak``). Acting stays
+host numpy with ``np.random.default_rng(seed)``, as in the JAX package, so
+exploration draws match it bit for bit.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..kernels import ops
+
+
+@dataclass(frozen=True)
+class DDPGConfig:
+    state_dim: int = 16
+    action_dim: int = 1
+    hidden: Tuple[int, int] = (400, 300)
+    actor_lr: float = 1e-4
+    critic_lr: float = 1e-3
+    gamma: float = 0.99
+    tau: float = 0.01                  # soft target update
+    batch_size: int = 128
+    buffer_size: int = 2000
+    sigma0: float = 0.5
+    sigma_decay: float = 0.95
+    warmup_episodes: int = 10
+    updates_per_episode: int = 32
+    reward_ma_decay: float = 0.95      # moving-average reward normalizer
+
+
+def _mlp_init(gen: torch.Generator, dims, device, final_scale=3e-3):
+    params = []
+    for i, (a, b) in enumerate(zip(dims[:-1], dims[1:])):
+        lim = final_scale if i == len(dims) - 2 else 1.0 / math.sqrt(a)
+        w = torch.rand((a, b), generator=gen, device=device) * (2 * lim) - lim
+        params.append({"w": w, "b": torch.zeros((b,), device=device)})
+    return params
+
+
+def _mlp(params, x: torch.Tensor, final: Optional[str] = None):
+    """The paper's 3-layer trunk on a 2-D batch, through K2 (the plain
+    version on a CPU tensor)."""
+    if len(params) != 3:
+        raise ValueError(f"the DDPG trunk has 3 layers, got {len(params)}")
+    return ops.fused_mlp3(params, x, final="sigmoid" if final else "linear")
+
+
+def actor_forward(params, state):
+    return _mlp(params, state, "sigmoid")   # actions in [0, 1]
+
+
+def _actor_forward_np(params, x: np.ndarray) -> np.ndarray:
+    """Host-side actor forward for acting (one state per call)."""
+    for i, layer in enumerate(params):
+        x = x @ layer["w"] + layer["b"]
+        if i < len(params) - 1:
+            x = np.maximum(x, 0.0)
+    return 1.0 / (1.0 + np.exp(-x))
+
+
+def critic_forward(params, state, action):
+    x = torch.cat([state, action], dim=-1)
+    return _mlp(params, x)[..., 0]
+
+
+# --- minimal Adam ---
+
+def adam_init(params):
+    return {"m": [{k: torch.zeros_like(v) for k, v in l.items()}
+                  for l in params],
+            "v": [{k: torch.zeros_like(v) for k, v in l.items()}
+                  for l in params],
+            "t": 0}
+
+
+def adam_step(params, grads, st, lr, b1=0.9, b2=0.999, eps=1e-8):
+    t = st["t"] + 1
+    new_p, new_m, new_v = [], [], []
+    for p_l, g_l, m_l, v_l in zip(params, grads, st["m"], st["v"]):
+        p2, m2, v2 = {}, {}, {}
+        for k in p_l:
+            g = g_l[k]
+            m = b1 * m_l[k] + (1 - b1) * g
+            v = b2 * v_l[k] + (1 - b2) * g * g
+            mh = m / (1 - b1 ** t)
+            vh = v / (1 - b2 ** t)
+            p2[k] = p_l[k] - lr * mh / (torch.sqrt(vh) + eps)
+            m2[k], v2[k] = m, v
+        new_p.append(p2)
+        new_m.append(m2)
+        new_v.append(v2)
+    return new_p, {"m": new_m, "v": new_v, "t": t}
+
+
+def polyak_update(target, online, tau: float):
+    """Soft-target update ``(1 - tau) * target + tau * online`` of a whole
+    network as one flat pass: K3 on the card, its plain version on the
+    CPU (the same arithmetic as the JAX package's per-leaf tree map)."""
+    return ops.fused_polyak(target, online, tau)
+
+
+@dataclass
+class RunningNorm:
+    """Standardize states with running mean/var (paper §Proposed Agents)."""
+    dim: int
+    count: float = 1e-4
+    mean: np.ndarray = None
+    var: np.ndarray = None
+
+    def __post_init__(self):
+        if self.mean is None:
+            self.mean = np.zeros(self.dim, np.float32)
+        if self.var is None:
+            self.var = np.ones(self.dim, np.float32)
+
+    def update(self, x: np.ndarray):
+        x = np.atleast_2d(x)
+        bc, bm, bv = x.shape[0], x.mean(0), x.var(0)
+        delta = bm - self.mean
+        tot = self.count + bc
+        self.mean = self.mean + delta * bc / tot
+        m_a = self.var * self.count
+        m_b = bv * bc
+        self.var = (m_a + m_b + delta ** 2 * self.count * bc / tot) / tot
+        self.count = tot
+
+    def normalize(self, x: np.ndarray) -> np.ndarray:
+        return (x - self.mean) / np.sqrt(self.var + 1e-8)
+
+
+# ===========================================================================
+# Functional core
+# ===========================================================================
+
+class AgentState(NamedTuple):
+    """Everything one DDPG agent learns or consumes while learning. The
+    networks, moments and statistics are tensors on the agent's device;
+    the Adam step counts ``opt_*["t"]`` are host ints. The replay
+    sampling stream is a ``torch.Generator`` held by ``DDPGAgent``."""
+    actor: list
+    critic: list
+    target_actor: list
+    target_critic: list
+    opt_a: dict
+    opt_c: dict
+    norm_count: torch.Tensor    # () f32   running-norm sample count
+    norm_mean: torch.Tensor     # (state_dim,) f32
+    norm_var: torch.Tensor      # (state_dim,) f32
+    reward_ma: torch.Tensor     # () f32   moving-average reward
+    reward_ma_init: torch.Tensor  # () f32  0 = uninitialized
+
+
+def agent_init(cfg: DDPGConfig, gen: torch.Generator, device) -> AgentState:
+    dims_a = (cfg.state_dim,) + cfg.hidden + (cfg.action_dim,)
+    dims_c = (cfg.state_dim + cfg.action_dim,) + cfg.hidden + (1,)
+    actor = _mlp_init(gen, dims_a, device)
+    critic = _mlp_init(gen, dims_c, device)
+    clone = lambda net: [{k: v.clone() for k, v in l.items()} for l in net]
+    f32 = dict(dtype=torch.float32, device=device)
+    return AgentState(
+        actor=actor, critic=critic,
+        target_actor=clone(actor), target_critic=clone(critic),
+        opt_a=adam_init(actor), opt_c=adam_init(critic),
+        norm_count=torch.tensor(1e-4, **f32),
+        norm_mean=torch.zeros((cfg.state_dim,), **f32),
+        norm_var=torch.ones((cfg.state_dim,), **f32),
+        reward_ma=torch.zeros((), **f32),
+        reward_ma_init=torch.zeros((), **f32))
+
+
+def _grad_leaves(net):
+    """Fresh leaf copies of a network that require grad."""
+    return [{k: v.detach().requires_grad_(True) for k, v in l.items()}
+            for l in net]
+
+
+def _grads(loss, net):
+    flat = [l[k] for l in net for k in l]
+    gs = iter(torch.autograd.grad(loss, flat))
+    return [{k: next(gs) for k in l} for l in net]
+
+
+def ddpg_step(cfg: DDPGConfig, actor, critic, t_actor, t_critic,
+              opt_a, opt_c, batch):
+    """One critic + actor + soft-target update on a prepared batch
+    (states already standardized, rewards already centered)."""
+    s, a, r, s2, done = batch
+    with torch.no_grad():
+        a2 = actor_forward(t_actor, s2)
+        q_target = r + cfg.gamma * (1.0 - done) * critic_forward(
+            t_critic, s2, a2)
+    cp = _grad_leaves(critic)
+    lc = torch.mean((critic_forward(cp, s, a) - q_target) ** 2)
+    critic, opt_c = adam_step(critic, _grads(lc, cp), opt_c, cfg.critic_lr)
+
+    ap = _grad_leaves(actor)
+    la = -torch.mean(critic_forward(critic, s, actor_forward(ap, s)))
+    actor, opt_a = adam_step(actor, _grads(la, ap), opt_a, cfg.actor_lr)
+
+    t_actor = polyak_update(t_actor, actor, cfg.tau)
+    t_critic = polyak_update(t_critic, critic, cfg.tau)
+    return (actor, critic, t_actor, t_critic, opt_a, opt_c, lc.detach(),
+            la.detach())
+
+
+def update_step(cfg: DDPGConfig, st: AgentState, batch):
+    """One full scalar-semantics update on an explicit sampled batch:
+    reward-MA advance -> reward centering -> state standardization with
+    the snapshot norm stats -> ``ddpg_step``."""
+    s, a, r, s2, done = batch
+    batch_mean = torch.mean(r)
+    d = cfg.reward_ma_decay
+    ma = torch.where(st.reward_ma_init > 0.0,
+                     d * st.reward_ma + (1.0 - d) * batch_mean, batch_mean)
+    r = r - ma
+    inv = 1.0 / torch.sqrt(st.norm_var + 1e-8)
+    s = (s - st.norm_mean) * inv
+    s2 = (s2 - st.norm_mean) * inv
+    actor, critic, t_actor, t_critic, opt_a, opt_c, lc, la = ddpg_step(
+        cfg, st.actor, st.critic, st.target_actor, st.target_critic,
+        st.opt_a, st.opt_c, (s, a, r, s2, done))
+    st = st._replace(actor=actor, critic=critic, target_actor=t_actor,
+                     target_critic=t_critic, opt_a=opt_a, opt_c=opt_c,
+                     reward_ma=ma, reward_ma_init=torch.ones_like(ma))
+    return st, (lc, la)
+
+
+def update_chunk(cfg: DDPGConfig, st: AgentState, replay, n: int,
+                 gen: Optional[torch.Generator] = None,
+                 indices: Optional[torch.Tensor] = None):
+    """n critic/actor/target updates, each on a uniform replay sample.
+    ``indices`` ((n, batch_size) ints) replaces the draws from ``gen``:
+    the parity tests feed the JAX package's replay indices. Returns the
+    new state and the (n,) critic and actor losses, left on the device."""
+    lcs, las = [], []
+    for i in range(n):
+        batch = replay.sample(cfg.batch_size, gen,
+                              idx=None if indices is None else indices[i])
+        st, (lc, la) = update_step(cfg, st, batch)
+        lcs.append(lc)
+        las.append(la)
+    return st, (torch.stack(lcs), torch.stack(las))
+
+
+# ===========================================================================
+# Stateful shim
+# ===========================================================================
+
+class DDPGAgent:
+    """Stateful facade over the functional core: host-numpy acting,
+    device-side update chunks. All parameters live in ``self.state``."""
+
+    def __init__(self, cfg: DDPGConfig, seed: int = 0, device="cuda"):
+        self.cfg = cfg
+        self.device = torch.device(device)
+        init_gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.state = agent_init(cfg, init_gen, self.device)
+        # replay sampling stream (the JAX package splits its agent key)
+        self.sample_gen = torch.Generator(
+            device=self.device).manual_seed(seed + 1)
+        self.norm = RunningNorm(cfg.state_dim)
+        self.np_rng = np.random.default_rng(seed)
+        self._actor_host = None            # numpy actor copy for rollouts
+
+    # ---------------- acting ----------------
+    def act(self, state: np.ndarray, sigma: float,
+            random: bool = False) -> np.ndarray:
+        if random:
+            return self.np_rng.uniform(0, 1, self.cfg.action_dim) \
+                .astype(np.float32)
+        s = self.norm.normalize(state.astype(np.float32))
+        mu = _actor_forward_np(self._host_actor(),
+                               np.atleast_2d(s))[0].astype(np.float32)
+        if sigma > 0:
+            # truncated normal on [0, 1] around mu (paper Eq. 7)
+            for _ in range(16):
+                a = self.np_rng.normal(mu, sigma)
+                if np.all((a >= 0) & (a <= 1)):
+                    return a.astype(np.float32)
+            a = np.clip(self.np_rng.normal(mu, sigma), 0, 1)
+            return a.astype(np.float32)
+        return mu.astype(np.float32)
+
+    def sigma_at(self, episode: int) -> float:
+        e = max(0, episode - self.cfg.warmup_episodes)
+        return self.cfg.sigma0 * (self.cfg.sigma_decay ** e)
+
+    def _host_actor(self):
+        """numpy copy of the actor params, refreshed after updates."""
+        if self._actor_host is None:
+            self._actor_host = [
+                {k: v.detach().cpu().numpy().astype(np.float32)
+                 for k, v in layer.items()}
+                for layer in self.state.actor]
+        return self._actor_host
+
+    def observe_states(self, states: np.ndarray):
+        self.norm.update(states)
+
+    # ---------------- learning ----------------
+    def state_for_dispatch(self) -> AgentState:
+        """The state with the host running-norm statistics synced in, so
+        an update chunk standardizes with the values acting used."""
+        f32 = dict(dtype=torch.float32, device=self.device)
+        return self.state._replace(
+            norm_count=torch.tensor(self.norm.count, **f32),
+            norm_mean=torch.as_tensor(self.norm.mean, **f32),
+            norm_var=torch.as_tensor(self.norm.var, **f32))
+
+    def update_chunk(self, replay, n: int,
+                     indices: Optional[torch.Tensor] = None):
+        """n updates (sampling included) against the ``DeviceReplay``;
+        returns the (n,) loss tensors without synchronizing."""
+        if n <= 0 or len(replay) < self.cfg.batch_size:
+            return None
+        st, losses = update_chunk(self.cfg, self.state_for_dispatch(),
+                                  replay, int(n), self.sample_gen, indices)
+        self.state = st
+        self._actor_host = None
+        return losses

@@ -1,0 +1,49 @@
+"""Structured pruning — ℓ1 channel selection (Li et al. 2017, paper §Pruning).
+
+Given a weight (or a group of weights sharing an output dim) and a kept
+count, produce a float 0/1 mask keeping the channels with the largest ℓ1
+norms. During search the mask multiplies activations (identical accuracy
+effect to removal, static shapes).
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+
+def l1_scores(ws: Sequence[torch.Tensor], axis: int = -1) -> torch.Tensor:
+    """Sum of ℓ1 norms over every weight in the group, reduced to the
+    channel axis (default: last = output channels)."""
+    total = None
+    for w in ws:
+        red = tuple(i for i in range(w.dim()) if i != (axis % w.dim()))
+        s = torch.sum(torch.abs(w.float()), dim=red)
+        total = s if total is None else total + s
+    return total
+
+
+def keep_mask(scores: torch.Tensor, keep: int) -> torch.Tensor:
+    """Float mask keeping the ``keep`` highest-scoring channels. Ties at
+    the threshold go to the lower channel index, as in the JAX package:
+    threshold at the keep-th largest score, then drop later-indexed
+    channels past the count."""
+    n = scores.shape[0]
+    keep = int(np.clip(keep, 0, n))
+    if keep >= n:
+        return torch.ones((n,), dtype=torch.float32, device=scores.device)
+    if keep == 0:
+        return torch.zeros((n,), dtype=torch.float32, device=scores.device)
+    thresh = torch.sort(scores).values[n - keep]
+    mask = (scores >= thresh).float()
+    excess = torch.cumsum(mask, 0) > keep
+    return torch.where(excess, torch.zeros_like(mask), mask)
+
+
+def head_scores(wq: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """ℓ1 score per attention head from wq [d, H*hd]."""
+    d, hhd = wq.shape
+    hd = hhd // num_heads
+    w = torch.abs(wq.float()).reshape(d, num_heads, hd)
+    return torch.sum(w, dim=(0, 2))

@@ -1,0 +1,73 @@
+"""Fake quantization (paper Eq. 3) — asymmetric uniform, dynamic per-channel
+range, straight-through estimator.
+
+The paper's three layer modes map to effective bit widths:
+    FP32 -> bits = 32 (pass-through)
+    INT8 -> bits = 8
+    MIX  -> bits in [1, MAX_MIX_BITS]  (weights and activations independent)
+
+Bits are host ints here (the scalar engine builds its compression spec on
+the host), so ``bits >= 32`` skips the quantizer outright. Every other
+call runs through ``kernels.ops.fused_fake_quant``: kernel K1 for a CUDA
+tensor, its plain version for a CPU one. The math is f32 inside and the
+result is cast back to the input's dtype, at the same points as the JAX
+package's ``core/quantization.py``.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+
+def _minmax(x: torch.Tensor, dims: Sequence[int]):
+    x_min = torch.amin(x, dim=tuple(dims), keepdim=True)
+    x_max = torch.amax(x, dim=tuple(dims), keepdim=True)
+    # Guard degenerate (constant) channels.
+    span = torch.clamp_min(x_max - x_min, 1e-8)
+    return x_min, x_min + span
+
+
+def quantize(x: torch.Tensor, bits: int, dims: Sequence[int]):
+    """Paper Eq. 3: Q(r) = clip(floor(s*r - z), -n, n).
+
+    Returns (q, scale, offset); all computed in f32. ``dims``: reduction
+    axes for the dynamic range (per-channel = all axes except the channel
+    one)."""
+    xf = x.float()
+    n = 2.0 ** bits - 1.0
+    x_min, x_max = _minmax(xf, dims)
+    # A tensor numerator: ``float / tensor`` is reciprocal-then-multiply in
+    # PyTorch, which is not the correctly rounded quotient the kernel uses.
+    s = torch.full_like(x_min, n) / (x_max - x_min)
+    z = torch.floor(s * x_min) + 2.0 ** (bits - 1.0)
+    q = torch.clamp(torch.floor(s * xf - z), -n, n)
+    return q, s, z
+
+
+def dequantize(q: torch.Tensor, s: torch.Tensor,
+               z: torch.Tensor) -> torch.Tensor:
+    return (q + z + 0.5) / s  # +0.5: mid-rise reconstruction of the floor
+
+
+def fake_quant(x: torch.Tensor, bits: int) -> torch.Tensor:
+    """Quantize-dequantize per channel (last axis, range over all other
+    axes) with straight-through gradients; ``bits >= 32`` passes x
+    through."""
+    if bits >= 32:
+        return x
+    from ..kernels import ops
+    xf = x.float()
+    xq = ops.fused_fake_quant(xf, bits)
+    # Straight-through estimator: forward quantized values, identity grad.
+    return (xf + (xq - xf).detach()).to(x.dtype)
+
+
+def fake_quant_weight(w: torch.Tensor, bits: int) -> torch.Tensor:
+    """Weights: per-OUTPUT-channel range (last axis is the out dim here)."""
+    return fake_quant(w, bits)
+
+
+def fake_quant_act(x: torch.Tensor, bits: int) -> torch.Tensor:
+    """Activations: per-channel over the feature (last) axis."""
+    return fake_quant(x, bits)

@@ -1,0 +1,101 @@
+"""Agent state construction (paper Fig. 2: model features X_t -> s_t).
+
+Features per time step (one compressible unit): position, unit kind,
+dimensions, FLOPs/weight shares, sensitivity probes, previous action, and
+latency-budget bookkeeping under the partial policy (AMC's reduced/rest
+features, computed against the hardware latency oracle instead of FLOPs).
+
+The scalar builder only; the batched and traced builders wait for the
+batched engines. Host numpy, so the features match the reference exactly.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+
+from .latency import (HardwareTarget, LatencyContext, PolicyLatency,
+                      fifo_cached, policy_latency)
+from .policy import Policy
+from .sensitivity import FEATURE_PROBES, SensitivityResult
+from .spec import LayerSpec
+
+KINDS = ("conv", "attn_qkv", "attn_out", "mlp_up", "mlp_down", "moe_up",
+         "moe_down", "ssm_in", "ssm_out", "rglru_in", "rglru_out", "embed",
+         "head")
+
+
+def state_dim(action_dim: int) -> int:
+    return (1 + len(KINDS) + 3 + 2 + 2 + len(FEATURE_PROBES)
+            + action_dim + 3)
+
+
+def build_state(specs: Sequence[LayerSpec], t: int, partial: Policy,
+                sens: SensitivityResult, prev_action: np.ndarray,
+                hw: HardwareTarget, ctx: LatencyContext,
+                ref_lat: PolicyLatency, window: int = 0) -> np.ndarray:
+    static, this_share, rest_share, ref_total = _static_features(
+        specs, t, sens, ref_lat)
+    cur = policy_latency(specs, partial, hw, ctx, window)
+    # latency of units decided so far (indices < t) under partial policy
+    # vs what remains at reference cost; policy_latency may interleave
+    # attention-extra entries, so map each unit back by name
+    decided = sum(u.time_s for u in cur.units
+                  if _unit_index(u.name, specs) < t)
+    tail = np.asarray([this_share, decided / ref_total, rest_share],
+                      np.float32)
+    return np.concatenate([static,
+                           np.asarray(prev_action, np.float32).ravel(),
+                           tail])
+
+
+_static_cache: dict = {}
+_STATIC_CACHE_MAX = 4096               # ~entries for dozens of searches
+
+
+def _static_features(specs, t, sens, ref_lat):
+    hit = fifo_cached(
+        _static_cache, _STATIC_CACHE_MAX, (id(specs), id(sens),
+                                           id(ref_lat), t),
+        lambda h: h[0] is specs and h[1] is sens and h[2] is ref_lat,
+        lambda: (specs, sens, ref_lat,
+                 _compute_static_features(specs, t, sens, ref_lat)))
+    return hit[3]
+
+
+def _compute_static_features(specs, t, sens, ref_lat):
+    s = specs[t]
+    total_flops = sum(x.flops_per_token for x in specs) or 1.0
+    total_weights = sum(x.weight_elems for x in specs) or 1.0
+    feats = [t / max(1, len(specs))]
+    feats += [1.0 if s.kind == k else 0.0 for k in KINDS]
+    feats += [np.log1p(s.in_dim) / 12.0, np.log1p(s.out_dim) / 12.0,
+              np.log1p(s.prune_dim) / 12.0]
+    feats += [s.flops_per_token / total_flops,
+              s.weight_elems / total_weights]
+    feats += [1.0 if s.prunable else 0.0, 1.0 if s.mix_supported else 0.0]
+    # array-form probe row (log1p KLs; MISSING_KL sentinel where a probe
+    # was not run — legality-aware, see SensitivityResult.feature_row)
+    static = np.concatenate([np.asarray(feats, np.float32),
+                             sens.feature_row(s.name)])
+    ref_total = ref_lat.total_s or 1.0
+    this_share = sum(u.time_s for u in ref_lat.units
+                     if _unit_index(u.name, specs) == t) / ref_total
+    rest_share = sum(u.time_s for u in ref_lat.units
+                     if _unit_index(u.name, specs) >= t) / ref_total
+    return (static, this_share, rest_share, ref_total)
+
+
+_name_cache: dict = {}
+
+
+def _unit_index(unit_name: str, specs: Sequence[LayerSpec]) -> int:
+    key = id(specs)
+    hit = _name_cache.get(key)
+    # identity-guard + strong ref, so a recycled list id cannot serve a
+    # stale table (same idiom as _static_cache / the oracle cache)
+    if hit is None or hit[0] is not specs:
+        hit = (specs, {s.name: i for i, s in enumerate(specs)})
+        _name_cache[key] = hit
+    base = unit_name[:-5] if unit_name.endswith(".attn") else unit_name
+    return hit[1].get(base, len(specs))

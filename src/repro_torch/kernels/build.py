@@ -1,0 +1,143 @@
+"""Build the hand-written CUDA kernels and bind them with ``ctypes``.
+
+Each ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into its own
+shared library with a plain C interface, at first use, into ``build/kernels``
+at the root of the checkout. The library's file name carries a hash of
+its source, so an edited source is rebuilt and an unchanged one reused.
+All sources are compiled at once, one ``nvcc`` process each.
+
+Nothing here runs at import: the CPU tests import every module of the
+port on a machine without ``nvcc`` or a card.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import re
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+SOURCES = ("fake_quant", "mlp3", "polyak")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    "fake_quant": {"fake_quant_launch": [_P, _P, _I, _I, _I, _P]},
+    "mlp3": {"mlp3_launch": [_P] * 10 + [_I] * 6 + [_P]},
+    "polyak": {"polyak_launch": [_P, _P, _P, ctypes.c_longlong,
+                                 ctypes.c_float, ctypes.c_float, _P]},
+}
+
+# Kernel launches per wrapper, counted where each wrapper launches its
+# kernel (never for the plain version on a CPU tensor).
+LAUNCHES = {"fake_quant": 0, "mlp3": 0, "polyak": 0}
+
+_libs: dict = {}
+build_report: dict = {}     # name -> {"seconds", "ptxas"} of the last build
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = Path(home) / "bin" / "nvcc"
+    return str(path) if path.exists() else "nvcc"
+
+
+def _lib_path(name: str) -> Path:
+    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()
+                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"{name}.{digest}.so"
+
+
+def build_all() -> dict:
+    """Compile every source whose library is missing, all in parallel.
+    Returns ``build_report``; raises with nvcc's output if one fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    t0 = time.perf_counter()
+    for name in SOURCES:
+        out = _lib_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        procs[name] = (subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            tmp, out)
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"--- {name}.cu ---\n{log}")
+            continue
+        os.replace(tmp, out)
+        build_report[name] = {"seconds": time.perf_counter() - t0,
+                              "ptxas": _ptxas_summary(log)}
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return build_report
+
+
+def _ptxas_summary(log: str) -> list:
+    """Registers, shared memory and spills per kernel from -Xptxas -v."""
+    rows, kernel = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            kernel = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and kernel:
+            smem = re.search(r"(\d+) bytes smem", line)
+            rows.append({"kernel": kernel, "registers": int(m.group(1)),
+                         "smem_bytes": int(smem.group(1)) if smem else 0})
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and rows:
+            rows[-1]["spill_store_bytes"] = int(m.group(1))
+    return rows
+
+
+def lib(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    if name not in _libs:
+        path = _lib_path(name)
+        if not path.exists():
+            build_all()
+        handle = ctypes.CDLL(str(path))
+        for fn, argtypes in _SIGNATURES[name].items():
+            getattr(handle, fn).argtypes = argtypes
+            getattr(handle, fn).restype = ctypes.c_int
+        _libs[name] = handle
+    return _libs[name]
+
+
+def check_operand(t: torch.Tensor, name: str, ndim: int) -> None:
+    """What every hand-written kernel takes: contiguous f32 on cuda:0."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: kernels take CUDA tensors, "
+                         f"got {t.device}")
+    if t.device.index not in (None, 0):
+        raise ValueError(f"{name}: kernels run on cuda:0, got {t.device}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name}: expected float32, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name}: expected {ndim}-D, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def check(err: int, what: str) -> None:
+    """Raise on a non-zero ``cudaError_t`` returned by a launch."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")

@@ -1,0 +1,83 @@
+"""Public ops over the kernel wrappers: reshape to the kernel's layout,
+attach a gradient, flatten a network. Each routes by the tensor it is
+given: the plain version for a CPU tensor, the kernel for a CUDA one.
+
+There is no padding to the TPU's (8, 128) tiles here: the CUDA kernels
+mask their own ragged edges.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import fake_quant as _fq
+from . import mlp_fused as _mlp
+
+
+def fused_fake_quant(x: torch.Tensor, bits: int) -> torch.Tensor:
+    """Per-channel (last axis) fake quant of an f32 tensor of any rank,
+    the range reduced over every other axis. No gradient (the caller's
+    straight-through estimator provides it)."""
+    shape = x.shape
+    out = _fq.fake_quant_2d(x.detach().reshape(-1, shape[-1]).contiguous(),
+                            bits)
+    return out.reshape(shape)
+
+
+class _MLP3(torch.autograd.Function):
+    """K2 forward; the backward is plain tensor ops over the residuals the
+    kernel emits (the JAX package's ``ops._mlp3_vjp_bwd``: relu' = h > 0,
+    sigmoid' = y (1 - y)), computing only the gradients autograd asks for
+    (the actor loss needs none for the critic's weights)."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, w3, b3, sigmoid):
+        y, h1, h2 = _mlp.mlp3(x, w1, b1, w2, b2, w3, b3, sigmoid=sigmoid)
+        ctx.save_for_backward(x, w1, w2, w3, h1, h2, y)
+        ctx.sigmoid = sigmoid
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w1, w2, w3, h1, h2, y = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        dz3 = dy * y * (1.0 - y) if ctx.sigmoid else dy
+        dw3 = h2.T @ dz3 if need[5] else None
+        db3 = dz3.sum(0) if need[6] else None
+        dz2 = (dz3 @ w3.T) * (h2 > 0)
+        dw2 = h1.T @ dz2 if need[3] else None
+        db2 = dz2.sum(0) if need[4] else None
+        dz1 = (dz2 @ w2.T) * (h1 > 0)
+        dw1 = x.T @ dz1 if need[1] else None
+        db1 = dz1.sum(0) if need[2] else None
+        dx = dz1 @ w1.T if need[0] else None
+        return dx, dw1, db1, dw2, db2, dw3, db3, None
+
+
+def fused_mlp3(params, x: torch.Tensor, final: str = "linear"):
+    """Fused 3-layer MLP forward, differentiable. ``params`` is the DDPG
+    layout, three ``{"w", "b"}`` layers; ``final`` is "linear" or
+    "sigmoid"."""
+    (l1, l2, l3) = params
+    return _MLP3.apply(x.contiguous(), l1["w"], l1["b"], l2["w"], l2["b"],
+                       l3["w"], l3["b"], final == "sigmoid")
+
+
+def fused_polyak(target, online, tau: float):
+    """Soft-target update of a whole network (a list of ``{"w", "b"}``
+    layers) as one kernel pass: both networks are flattened into one
+    buffer each, updated, and the result is split back into views of
+    the new buffer (no in-place update)."""
+    t_leaves = [l[k] for l in target for k in sorted(l)]
+    p_leaves = [l[k] for l in online for k in sorted(l)]
+    flat = _mlp.polyak_flat(torch.cat([t.reshape(-1) for t in t_leaves]),
+                            torch.cat([p.reshape(-1) for p in p_leaves]),
+                            tau)
+    out, off = [], 0
+    for layer in target:
+        new = {}
+        for k in sorted(layer):
+            n = layer[k].numel()
+            new[k] = flat[off:off + n].view(layer[k].shape)
+            off += n
+        out.append(new)
+    return out

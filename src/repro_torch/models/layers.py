@@ -1,0 +1,181 @@
+"""Layer primitives of the dense decoder LM.
+
+Every matmul-bearing primitive takes an optional quant spec ``qs`` —
+``{"w_bits": int, "a_bits": int}`` — and optional structured-pruning
+masks, so a Galen compression policy can flow through the whole model.
+With ``qs=None``/``mask=None`` the hooks vanish.
+
+Weight layout convention: ``[in, out]`` (biases ``[out]``), as in the JAX
+package, so fake-quant ranges are per output channel on the last axis.
+The large products stay ``torch.einsum``/``matmul``, as the JAX package
+leaves them to XLA.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from ..core.quantization import fake_quant_act, fake_quant_weight
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16,
+            "float16": torch.float16}[name]
+
+
+# ---------------------------------------------------------------------------
+# Linear (+ fake quant + masks)
+# ---------------------------------------------------------------------------
+
+def linear_init(gen: torch.Generator, d_in: int, d_out: int, dtype, device,
+                bias: bool = False, scale: Optional[float] = None) -> dict:
+    std = scale if scale is not None else 1.0 / math.sqrt(d_in)
+    w = (torch.randn((d_in, d_out), generator=gen, device=device) * std
+         ).to(dtype)
+    if bias:
+        return {"w": w, "b": torch.zeros((d_out,), dtype=dtype,
+                                         device=device)}
+    return {"w": w}
+
+
+def apply_quant(x: torch.Tensor, w: torch.Tensor, qs: Optional[dict]):
+    """Apply activation/weight fake quantization per the spec."""
+    if qs is not None:
+        x = fake_quant_act(x, qs["a_bits"])
+        w = fake_quant_weight(w, qs["w_bits"])
+    return x, w
+
+
+def materialize_weight(p):
+    """Resolve a weight container to a dense tensor (the raw ``"w"`` form;
+    the deployed int8/int4 containers wait for the deployment slice)."""
+    if not isinstance(p, dict):
+        return p
+    if "w" in p:
+        return p["w"]
+    raise KeyError(f"no raw weight in container: {list(p)}")
+
+
+def linear(p: dict, x: torch.Tensor, qs: Optional[dict] = None,
+           out_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    w = materialize_weight(p)
+    x, w = apply_quant(x, w, qs)
+    y = torch.einsum("...i,io->...o", x, w.to(x.dtype))
+    if "b" in p:
+        y = y + p["b"].to(y.dtype)
+    if out_mask is not None:
+        y = y * out_mask.to(y.dtype)
+    return y
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def norm_init(kind: str, d: int, dtype, device) -> dict:
+    if kind == "rmsnorm":
+        return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+    if kind == "layernorm":
+        return {"scale": torch.ones((d,), dtype=dtype, device=device),
+                "bias": torch.zeros((d,), dtype=dtype, device=device)}
+    if kind == "nonparametric_ln":
+        return {}
+    raise ValueError(kind)
+
+
+def apply_norm(kind: str, p: dict, x: torch.Tensor, eps: float = 1e-6):
+    xf = x.float()
+    if kind == "rmsnorm":
+        xf = xf * torch.rsqrt(torch.mean(xf * xf, -1, keepdim=True) + eps)
+        return (xf * p["scale"].float()).to(x.dtype)
+    mu = torch.mean(xf, -1, keepdim=True)
+    var = torch.var(xf, -1, keepdim=True, unbiased=False)
+    xf = (xf - mu) * torch.rsqrt(var + eps)
+    if kind == "layernorm":
+        xf = xf * p["scale"].float() + p["bias"].float()
+    return xf.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float) -> torch.Tensor:
+    """x: [..., S, H, D]; positions: [..., S] (broadcastable)."""
+    d = x.shape[-1]
+    half = d // 2
+    freqs = torch.exp(-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device)
+                      * (math.log(theta) / half))
+    ang = positions.float()[..., None] * freqs        # [..., S, half]
+    ang = ang[..., None, :]                           # [..., S, 1, half]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention — the dense block (S <= 512). The chunked online-softmax branch
+# for longer sequences waits for its own slice (kernel K6).
+# ---------------------------------------------------------------------------
+
+NEG_INF = -1e30
+
+
+def _attn_scores_mask(qpos, kpos, causal: bool, window: int):
+    """qpos [Q], kpos [K] -> bool mask [Q, K] (True = attend)."""
+    qp = qpos[:, None]
+    kp = kpos[None, :]
+    m = torch.ones((qpos.shape[0], kpos.shape[0]), dtype=torch.bool,
+                   device=qpos.device)
+    if causal:
+        m &= kp <= qp
+    if window > 0:
+        m &= kp > qp - window
+    m &= kp >= 0
+    return m
+
+
+def attention(q, k, v, *, causal: bool, window: int = 0,
+              q_chunk: int = 512,
+              head_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """GQA attention. q: [B,S,H,D]; k,v: [B,S,KV,D]. window=0 -> unlimited.
+    One dense block; raises for S > max(q_chunk, 512), where the JAX
+    package switches to its chunked path."""
+    B, S, H, D = q.shape
+    if S > max(q_chunk, 512):
+        raise NotImplementedError(
+            f"S={S}: the chunked attention branch is not ported yet")
+    KV = k.shape[2]
+    G = H // KV
+    scale = 1.0 / math.sqrt(D)
+    qq = q.reshape(B, S, KV, G, D)
+    positions = torch.arange(S, device=q.device)
+    s = torch.einsum("bqkgd,blkd->bkgql", qq, k).float() * scale
+    mask = _attn_scores_mask(positions, positions, causal, window)
+    s = torch.where(mask[None, None, None], s,
+                    torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, -1)
+    o = torch.einsum("bkgql,blkd->bqkgd", p.to(v.dtype), v)
+    o = o.reshape(B, S, H, D)
+    if head_mask is not None:
+        o = o * head_mask[None, None, :, None].to(o.dtype)
+    return o
+
+
+# ---------------------------------------------------------------------------
+# Activations
+# ---------------------------------------------------------------------------
+
+def mlp_act(kind: str, gate: torch.Tensor, up: Optional[torch.Tensor]):
+    if kind == "swiglu":
+        return gate * torch.sigmoid(gate) * up
+    if kind == "geglu":
+        return torch.nn.functional.gelu(gate, approximate="tanh") * up
+    if kind == "gelu":
+        return torch.nn.functional.gelu(gate, approximate="tanh")
+    raise ValueError(kind)

@@ -1,0 +1,79 @@
+"""Dense decoder LM: ``init`` and ``forward`` (train / prefill).
+
+The JAX package stacks homogeneous layers on a leading axis and scans over
+them; here ``params["blocks"]`` is a list with one dict per layer and the
+forward is a Python loop. ``cspec["blocks"]`` is the matching list.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from ..configs.base import ArchConfig
+from . import blocks as B
+from . import layers as L
+
+
+def _check_supported(cfg: ArchConfig) -> None:
+    if set(cfg.layer_kinds) != {"attn"} or cfg.moe is not None \
+            or cfg.frontend != "none":
+        raise NotImplementedError(
+            f"{cfg.name}: only the dense attention family is ported")
+
+
+def init(cfg: ArchConfig, seed: int = 0, device="cuda") -> dict:
+    """Seeded random weights from the port's own ``torch.Generator`` (a
+    different stream from the JAX package's keys: to hold the two against
+    each other, carry the JAX weights over with ``repro_torch.convert``)."""
+    _check_supported(cfg)
+    dtype = L.dtype_of(cfg.param_dtype)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params: dict[str, Any] = {
+        "embed": (torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
+                              device=device)
+                  / (cfg.d_model ** 0.5)).to(dtype)}
+    params["blocks"] = [
+        {"attn_norm": L.norm_init(cfg.norm, cfg.d_model, dtype, device),
+         "attn": B.init_attention(gen, cfg, dtype, device),
+         "mlp_norm": L.norm_init(cfg.norm, cfg.d_model, dtype, device),
+         "mlp": B.init_mlp(gen, cfg, dtype, device)}
+        for _ in range(cfg.num_layers)]
+    params["final_norm"] = L.norm_init(cfg.norm, cfg.d_model, dtype, device)
+    if not cfg.tie_embeddings:
+        params["unembed"] = L.linear_init(gen, cfg.d_model, cfg.vocab_size,
+                                          dtype, device)["w"]
+    return params
+
+
+def _apply_block(p, x, cfg: ArchConfig, cspec, positions):
+    cs = cspec or {}
+    h = L.apply_norm(cfg.norm, p["attn_norm"], x)
+    x = x + B.apply_attention(p["attn"], h, cfg, cs.get("attn"), positions)
+    h = L.apply_norm(cfg.norm, p["mlp_norm"], x)
+    return x + B.apply_mlp(p["mlp"], h, cfg, cs.get("mlp"))
+
+
+def forward(cfg: ArchConfig, params, tokens, cspec=None,
+            positions=None) -> torch.Tensor:
+    """tokens [B, S] int64 -> logits [B, S, vocab] (f32)."""
+    _check_supported(cfg)
+    compute = L.dtype_of(cfg.compute_dtype)
+    table = params["embed"]
+    ebits = None if cspec is None else cspec.get("embed_bits")
+    if ebits is not None:
+        table = L.fake_quant_weight(table, ebits)
+    x = table[tokens].to(compute)
+    if positions is None:
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    blocks_cs = None if cspec is None else cspec.get("blocks")
+    for i, p_l in enumerate(params["blocks"]):
+        x = _apply_block(p_l, x, cfg,
+                         None if blocks_cs is None else blocks_cs[i],
+                         positions)
+    x = L.apply_norm(cfg.norm, params["final_norm"], x)
+    w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    hbits = None if cspec is None else cspec.get("head_bits")
+    if hbits is not None:
+        w = L.fake_quant_weight(w, hbits)
+    return torch.einsum("bsd,dv->bsv", x, w.to(x.dtype)).float()

@@ -1,0 +1,236 @@
+"""The port's kernel modules (K1 fake-quant, K2 fused 3-layer MLP, K3
+Polyak) against the JAX package, and against their plain versions on a
+card.
+
+On the CPU each wrapper takes its plain version, so these tests hold the
+plain versions (the functions the CUDA kernels compute) against the JAX
+ops as the JAX package's own tests run them here: ``ops.fused_*`` in
+Pallas interpret mode, and the jnp path of ``core.quantization``.
+Inputs are made from a seed with numpy and kept above the subnormal range
+(XLA on the CPU flushes subnormals; CUDA keeps them).
+
+Tolerances:
+  * fake_quant vs the JAX ``fake_quant`` (jnp path): exact.
+  * fake_quant vs the JAX Pallas kernel: ≤2 ulp up to 8 bits. The Pallas
+    kernel takes the scale as n / span, the jnp path (which the port
+    follows) as n / ((min + span) - min); the two differ in the last bit
+    of s. At 31 bits, ≤4 ulp of the offset z ~ 2^30 carried back through
+    1/s: the f32 sum q + z + 0.5 drops the low bits on both sides.
+  * K2 forward and backward vs ``ops.fused_mlp3``: ≤1e-5.
+  * K3 vs ``ops.fused_polyak``: ≤1e-6.
+
+The kernels themselves are held against their plain versions on a card
+in ``test_torch_gpu.py``.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.core.quantization import fake_quant as j_fake_quant  # noqa: E402
+from repro.kernels import ops as jops  # noqa: E402
+
+from repro_torch.core import quantization as tq  # noqa: E402
+from repro_torch.kernels import build, ops as tops  # noqa: E402
+from repro_torch.kernels.fake_quant import fake_quant_2d  # noqa: E402
+from repro_torch.kernels.mlp_fused import mlp3, polyak_flat  # noqa: E402
+from repro_torch.kernels.ref import (fake_quant_ref, mlp3_ref,  # noqa: E402
+                                     polyak_ref)
+
+
+def _normal(seed, shape, scale=1.0):
+    return (np.random.default_rng(seed).standard_normal(shape)
+            * scale).astype(np.float32)
+
+
+# --------------------------------------------------------------------------
+# K1 fake-quant
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(64, 32), (384, 256), (7, 257),
+                                   (4, 6, 40)])
+@pytest.mark.parametrize("bits", [1, 2, 4, 6, 8, 31, 32])
+def test_fake_quant_matches_jax(shape, bits):
+    x = _normal(bits, shape, scale=3.0)
+    want = np.asarray(j_fake_quant(jnp.asarray(x), bits))
+    got = tq.fake_quant(torch.from_numpy(x), bits).numpy()
+    np.testing.assert_array_equal(got, want)
+    if len(shape) == 2:
+        kernel = np.asarray(jops.fused_fake_quant(jnp.asarray(x), bits))
+        got = fake_quant_2d(torch.from_numpy(x), bits).numpy()
+        if bits <= 8:
+            np.testing.assert_array_max_ulp(got, kernel, maxulp=2)
+        elif bits < 32:
+            # 4 ulp of the offset z ~ 2^(b-1), carried back through 1/s
+            inv_s = (x.max(0) - x.min(0)) / (2.0 ** bits - 1)
+            tol = 4 * np.spacing(np.float32(2.0 ** (bits - 1))) * inv_s
+            assert np.all(np.abs(got - kernel) <= tol)
+        else:
+            np.testing.assert_array_equal(got, kernel)
+
+
+def test_fake_quant_bf16_and_ste():
+    """bf16 activations are quantized in f32 and cast back, as in the
+    JAX package (exact); the gradient is the identity (STE)."""
+    x = _normal(0, (32, 48))
+    xb = jnp.asarray(x).astype(jnp.bfloat16)
+    want = np.asarray(j_fake_quant(xb, 4).astype(jnp.float32))
+    tx = torch.from_numpy(x).to(torch.bfloat16).requires_grad_(True)
+    out = tq.fake_quant(tx, 4)
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_array_equal(out.detach().float().numpy(), want)
+    (g,) = torch.autograd.grad(out.float().sum(), tx)
+    np.testing.assert_array_equal(g.float().numpy(), np.ones_like(x))
+
+
+def test_fake_quant_constant_channel():
+    """A constant channel takes the 1e-8 span guard on both sides."""
+    x = _normal(5, (16, 8))
+    x[:, 3] = 0.75
+    want = np.asarray(j_fake_quant(jnp.asarray(x), 4))
+    np.testing.assert_array_equal(
+        tq.fake_quant(torch.from_numpy(x), 4).numpy(), want)
+
+
+# --------------------------------------------------------------------------
+# K2 fused 3-layer MLP
+# --------------------------------------------------------------------------
+
+def _mlp_params(seed, dims):
+    rng = np.random.default_rng(seed)
+    return [{"w": rng.uniform(-0.3, 0.3, (a, b)).astype(np.float32),
+             "b": rng.uniform(-0.1, 0.1, (b,)).astype(np.float32)}
+            for a, b in zip(dims[:-1], dims[1:])]
+
+
+def _torch_params(params, grad=False):
+    return [{k: torch.from_numpy(v.copy()).requires_grad_(grad)
+             for k, v in l.items()} for l in params]
+
+
+@pytest.mark.parametrize("B,dims,final", [
+    (16, (33, 400, 300, 3), "sigmoid"),     # paper actor trunk (pq)
+    (16, (36, 400, 300, 1), "linear"),      # paper critic trunk (pq)
+    (13, (33, 32, 24, 3), "sigmoid"),       # the tests' hidden (32, 24)
+    (13, (36, 32, 24, 1), "linear"),
+])
+def test_mlp3_forward_matches_jax(B, dims, final):
+    params = _mlp_params(B, dims)
+    x = _normal(B + 1, (B, dims[0]))
+    want = np.asarray(jops.fused_mlp3(
+        jax.tree.map(jnp.asarray, params), jnp.asarray(x), final=final))
+    got = tops.fused_mlp3(_torch_params(params), torch.from_numpy(x),
+                          final=final)
+    np.testing.assert_allclose(got.detach().numpy(), want, rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("final", ["linear", "sigmoid"])
+def test_mlp3_backward_matches_jax(final):
+    dims = (9, 40, 30, 3)
+    params = _mlp_params(7, dims)
+    x = _normal(8, (24, dims[0]))
+
+    def loss(p, x):
+        return jnp.sum(jops.fused_mlp3(p, x, final=final) ** 2)
+
+    jg_p, jg_x = jax.grad(loss, argnums=(0, 1))(
+        jax.tree.map(jnp.asarray, params), jnp.asarray(x))
+    tp = _torch_params(params, grad=True)
+    tx = torch.from_numpy(x).requires_grad_(True)
+    y = tops.fused_mlp3(tp, tx, final=final)
+    leaves = [tx] + [l[k] for l in tp for k in ("w", "b")]
+    grads = torch.autograd.grad((y ** 2).sum(), leaves)
+    want = [jg_x] + [jg_p[i][k] for i in range(3) for k in ("w", "b")]
+    for g, w in zip(grads, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_mlp3_backward_skips_unrequested_grads():
+    """Frozen weights (the critic inside the actor loss) get no gradient,
+    and the input's gradient is the one the full backward gives."""
+    dims = (9, 40, 30, 1)
+    params = _mlp_params(5, dims)
+    x = _normal(6, (24, dims[0]))
+    full = _torch_params(params, grad=True)
+    tx = torch.from_numpy(x).requires_grad_(True)
+    want = torch.autograd.grad(tops.fused_mlp3(full, tx).sum(), tx)[0]
+    frozen = _torch_params(params, grad=False)
+    tx2 = torch.from_numpy(x).requires_grad_(True)
+    tops.fused_mlp3(frozen, tx2).sum().backward()
+    assert torch.equal(tx2.grad, want)
+    assert all(l[k].grad is None for l in frozen for k in ("w", "b"))
+
+
+def test_mlp3_emits_hidden_activations():
+    dims = (5, 12, 8, 2)
+    params = _mlp_params(3, dims)
+    x = torch.from_numpy(_normal(4, (6, 5)))
+    flat = [torch.from_numpy(l[k]) for l in params for k in ("w", "b")]
+    y, h1, h2 = mlp3(x, *flat, sigmoid=True)
+    assert (y.shape, h1.shape, h2.shape) == ((6, 2), (6, 12), (6, 8))
+    assert bool((h1 >= 0).all()) and bool((h2 >= 0).all())
+
+
+# --------------------------------------------------------------------------
+# K3 Polyak
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dims", [(33, 400, 300, 3), (36, 32, 24, 1)])
+def test_polyak_matches_jax(dims):
+    target, online = _mlp_params(1, dims), _mlp_params(2, dims)
+    want = jops.fused_polyak(jax.tree.map(jnp.asarray, target),
+                             jax.tree.map(jnp.asarray, online), 0.01)
+    got = tops.fused_polyak(_torch_params(target), _torch_params(online),
+                            0.01)
+    for wl, gl in zip(want, got):
+        for k in wl:
+            assert gl[k].shape == wl[k].shape
+            np.testing.assert_allclose(gl[k].numpy(), np.asarray(wl[k]),
+                                       rtol=1e-6, atol=1e-6)
+
+
+# --------------------------------------------------------------------------
+# Routing: a CPU tensor takes the plain version, nothing else does
+# --------------------------------------------------------------------------
+
+def test_wrappers_route_cpu_to_plain_without_launching():
+    build.reset_launches()
+    x = torch.from_numpy(_normal(0, (8, 4)))
+    assert torch.equal(fake_quant_2d(x, 4), fake_quant_ref(x, 4))
+    t, p = torch.ones(10), torch.zeros(10)
+    assert torch.equal(polyak_flat(t, p, 0.5), polyak_ref(t, p, 0.5))
+    params = _mlp_params(0, (4, 6, 5, 2))
+    flat = [torch.from_numpy(l[k]) for l in params for k in ("w", "b")]
+    for a, b in zip(mlp3(x, *flat, sigmoid=False),
+                    mlp3_ref(x, *flat, False)):
+        assert torch.equal(a, b)
+    assert build.LAUNCHES == {"fake_quant": 0, "mlp3": 0, "polyak": 0}
+
+
+def test_wrappers_refuse_other_devices():
+    """A tensor off the CPU never takes the plain version: a non-CUDA
+    device (here ``meta``) is refused before any launch."""
+    x = torch.empty((8, 4), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        fake_quant_2d(x, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        polyak_flat(torch.empty(4, device="meta"),
+                    torch.empty(4, device="meta"), 0.1)
+    with pytest.raises(ValueError, match="CUDA"):
+        mlp3(x, *[torch.empty(s, device="meta") for s in
+                  ((4, 6), (6,), (6, 5), (5,), (5, 2), (2,))])
+
+
+def test_kernel_sources_carry_their_notes():
+    for name in build.SOURCES:
+        src = (build.CSRC / f"{name}.cu").read_text()
+        assert "Replaces: src/repro/kernels/" in src, name
+        assert "Bound on the H100" in src, name
+        assert "Design:" in src, name
+        assert 'extern "C" int' in src, name
+    assert "--use_fast_math" not in build.NVCC_FLAGS
+    assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
