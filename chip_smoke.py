@@ -7,19 +7,31 @@ Phases, each fatal on failure (non-zero exit, no result line):
 
 1. Device: requires CUDA (no CPU fallback); prints the card.
 2. Build: compiles the hand-written kernels (K1 fake-quant, K2 fused
-   3-layer MLP, K3 Polyak) from ``src/repro_torch/kernels/csrc`` and
-   prints nvcc's registers / shared memory per kernel.
+   3-layer MLP, K3 Polyak, K4/K5 int8 and packed-int4 quantized matmul)
+   from ``src/repro_torch/kernels/csrc``, one nvcc per source, all at
+   once, and prints nvcc's registers / shared memory per kernel.
 3. Kernels: each kernel against its plain PyTorch version on the card at
-   the main path's shapes, with its tolerance, and timed with CUDA events
-   (kernel, plain version, one library call where one computes the same
-   function) beside its bound.
+   the shapes its path gives it, with its tolerance, and timed with CUDA
+   events (kernel, plain version, one library call where one computes
+   the same function) beside its bound. K4/K5 also: the asymmetric
+   zero-point case with its SUBTRACT-convention canary, a padded K with
+   ``k_true``, and ``torch._int_mm`` on the same codes as a yardstick for
+   the int8 product alone.
 4. Main path: the joint ("pq") ``CompressionSearch`` on the full-width LM
-   testbed (seeded random weights, bf16 compute): sensitivity analysis,
-   then episodes of rollout, validation, reward and DDPG updates. The
-   launch counts are reset just before and read just after; every kernel
-   must have launched. The best policy's validation is checked against
-   the plain CPU path on a small batch.
-5. Lines before the last: the kernels as JSON, then ``nvidia-smi``'s name
+   testbed (seeded random weights, bf16 compute, analytic oracle):
+   sensitivity analysis, then episodes of rollout, validation, reward and
+   DDPG updates. The launch counts are reset just before and read just
+   after; K1-K3 must have launched. The best policy's validation is
+   checked against the plain CPU path on a small batch.
+5. Calibration path: ``repro_torch.launch.calibrate.run`` at full width
+   (unit, kernel and whole-model deploy-path timings, the fitted table,
+   the int8/int4 demo rows), launch counts reset before and read after;
+   K4 and K5 must have launched and every time must be finite.
+6. Measured search: a pq ``CompressionSearch`` with
+   ``oracle_mode="measured"`` on the fitted table; its top-K rows
+   (predicted vs measured ratio) must be finite and its reference
+   latency the calibrated oracle's.
+7. Lines before the last: the kernels as JSON, then ``nvidia-smi``'s name
    and power limit. Last line: ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -36,6 +48,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOPS = 67e12              # f32 outside the tensor cores
+INT8_OPS = 1979e12             # int8 tensor cores, dense
 
 KERNELS = {
     "fake_quant": {"source": "src/repro_torch/kernels/csrc/fake_quant.cu",
@@ -44,7 +57,15 @@ KERNELS = {
              "replaces": "src/repro/kernels/mlp_fused.py:32"},
     "polyak": {"source": "src/repro_torch/kernels/csrc/polyak.cu",
                "replaces": "src/repro/kernels/mlp_fused.py:85"},
+    "quant_matmul_int8": {
+        "source": "src/repro_torch/kernels/csrc/quant_matmul.cu",
+        "replaces": "src/repro/kernels/quant_matmul.py:53"},
+    "quant_matmul_int4": {
+        "source": "src/repro_torch/kernels/csrc/quant_matmul.cu",
+        "replaces": "src/repro/kernels/quant_matmul.py:90"},
 }
+MAIN_PATH_KERNELS = ("fake_quant", "mlp3", "polyak")
+CALIBRATION_KERNELS = ("quant_matmul_int8", "quant_matmul_int4")
 
 
 def log(msg: str = "") -> None:
@@ -77,9 +98,9 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> tuple:
     return tuple(out)
 
 
-def bound_ms(n_bytes: float, n_ops: float):
+def bound_ms(n_bytes: float, n_ops: float, peak: float = F32_FLOPS):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_FLOPS * 1e3
+    t_ops = n_ops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -197,6 +218,130 @@ def check_polyak(sizes, tau, device) -> dict:
     if err > 0.0:
         raise AssertionError(f"polyak disagrees with its plain version: "
                              f"max abs err {err}")
+    return out
+
+
+def quant_matmul_shapes(cfg) -> tuple:
+    """(M, K, N) of K4/K5's checks, as (timed, checked only): the
+    ``measure_kernel_rows`` shape and every unit (k, n) of the testbed at
+    the calibration's tokens; the JAX tests' ragged shapes and one odd
+    K."""
+    from repro_torch.configs.testbed import VAL_SEQ
+    from repro_torch.core.compress import lm_layer_specs
+    from repro_torch.core.measure import _unit_dims
+    from repro_torch.launch.calibrate import CALIB_SEQS
+    m = CALIB_SEQS * VAL_SEQ
+    timed = [(256, 256, 256)] + [(m,) + _unit_dims(s)
+                                 for s in lm_layer_specs(cfg)]
+    return (list(dict.fromkeys(timed)),
+            [(33, 512, 257), (200, 300, 130), (64, 301, 96)])
+
+
+def _rel(a, b) -> float:
+    return float((a - b).norm() / b.norm())
+
+
+def check_quant_matmul(cfg, device) -> dict:
+    """K4 and K5 against their plain version on the card; tolerance: exact
+    (int32 products are exact in both, and the epilogue is the same
+    correctly rounded f32 steps in the same order). At every shape of
+    ``quant_matmul_shapes`` with k_true = K; then the asymmetric case
+    (x + 3, w − 1) with the SUBTRACT-convention canary, and a K padded
+    from 300 to 512 with k_true = 300. ``ops.quantized_matmul`` must stay
+    within the JAX tests' bounds of the f32 product (0.03 relative at
+    int8, 0.2 at int4)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.quant_matmul import quant_matmul
+    gen = torch.Generator(device=device).manual_seed(4)
+    timed, ragged = quant_matmul_shapes(cfg)
+    out = {}
+    for bits, name in ((8, "quant_matmul_int8"), (4, "quant_matmul_int4")):
+        packed = bits == 4
+        err, units, res = 0.0, [], {}
+        for (M, K, N) in timed + ragged:
+            x = torch.randn((M, K), generator=gen, device=device)
+            w = torch.randn((K, N), generator=gen, device=device)
+            args, _ = ops.quantize_operands(x, w, bits)
+            got = quant_matmul(*args, packed=packed, k_true=K)
+            want = ref.quant_matmul_ref(*args, packed=packed, k_true=K)
+            err = max(err, float((got - want).abs().max()))
+            rel = _rel(ops.quantized_matmul(x, w, w_bits=bits), x @ w)
+            log(f"  {name} ({M}, {K}, {N}): max |kernel - plain| so far "
+                f"{err:.3g}; |quantized - f32| / |f32| = {rel:.4f}")
+            if rel > (0.2 if packed else 0.03):
+                raise AssertionError(f"{name} ({M}, {K}, {N}): quantized "
+                                     f"product off the f32 one by {rel}")
+            if (M, K, N) not in timed:
+                continue
+            ms, paced = cuda_ms(lambda: quant_matmul(*args, packed=packed,
+                                                     k_true=K))
+            plain, _ = cuda_ms(lambda: ref.quant_matmul_ref(
+                *args, packed=packed, k_true=K))
+            codes = ref.unpack_int4_ref(args[1]) if packed else args[1]
+            int_mm, _ = cuda_ms(lambda: torch._int_mm(args[0], codes))
+            n_bytes = (M * K + (K * N // 2 if packed else K * N)
+                       + 4 * M * N + 8 * (M + N))
+            bound, by = bound_ms(n_bytes, 2.0 * M * N * K, INT8_OPS)
+            row = dict(shape=[M, K, N], ms=ms, paced_ms=paced, plain_ms=plain,
+                       int_mm_ms=int_mm, bound_ms=bound, bound_by=by)
+            log(f"    {[M, K, N]}: {ms * 1e3:.2f} us kernel, {plain * 1e3:.2f}"
+                f" us plain, {int_mm * 1e3:.2f} us torch._int_mm (the int8 "
+                f"product alone), bound {bound * 1e3:.3f} us ({by})")
+            if (M, K, N) == (256, 256, 256):
+                res.update(row)
+            else:
+                units.append(row)
+        res.update(units=units, library_ms=None)
+
+        # asymmetric zero points: large correction terms, so a sign slip
+        # in the epilogue is a gross miss
+        x = torch.randn((64, 128), generator=gen, device=device) + 3.0
+        w = torch.randn((128, 96), generator=gen, device=device) - 1.0
+        (xq, wq, sx, zx, sw, zw), _ = ops.quantize_operands(x, w, bits)
+        got = quant_matmul(xq, wq, sx, zx, sw, zw, packed=packed)
+        err = max(err, float((got - ref.quant_matmul_ref(
+            xq, wq, sx, zx, sw, zw, packed=packed)).abs().max()))
+        codes = ref.unpack_int4_ref(wq) if packed else wq
+        truth = ref.dequant_matmul_ref(xq, codes, sx, zx, sw, zw)
+        torch.testing.assert_close(got, truth, rtol=1e-3, atol=0.1)
+        rel = _rel(truth, x @ w)
+        wrong = _rel(ref.int8_matmul_ref(xq, codes, sx, -zx, sw, -zw), x @ w)
+        log(f"  {name} asymmetric (64, 128, 96): |kernel - dequantized "
+            f"truth| ok; rel vs f32 {rel:.4f}, SUBTRACT convention {wrong:.3g}")
+        if not rel < (0.2 if packed else 0.03) or not wrong > 10 * rel:
+            raise AssertionError(f"{name}: asymmetric case rel {rel}, "
+                                 f"SUBTRACT canary {wrong}")
+
+        # K padded 300 -> 512 with zero codes; k_true keeps the true count
+        x = torch.randn((32, 300), generator=gen, device=device) + 1.0
+        w = torch.randn((300, 64), generator=gen, device=device)
+        xq, sx, zx = ref.quantize_rows(x, 8)
+        codes, sw, zw = ref.quantize_cols(w, bits)
+        truth = ref.dequant_matmul_ref(xq, codes, sx, zx, sw, zw)
+        xq_p = torch.zeros((32, 512), dtype=torch.int8, device=device)
+        xq_p[:, :300] = xq
+        wq_p = torch.zeros((512, 64), dtype=torch.int8, device=device)
+        wq_p[:300] = codes
+        wq_p = ref.pack_int4(wq_p) if packed else wq_p
+        got = quant_matmul(xq_p, wq_p, sx, zx, sw, zw, packed=packed,
+                           k_true=300)
+        err = max(err, float((got - ref.quant_matmul_ref(
+            xq_p, wq_p, sx, zx, sw, zw, packed=packed, k_true=300)
+        ).abs().max()))
+        torch.testing.assert_close(got, truth, rtol=1e-3, atol=0.1)
+        bad = float((quant_matmul(xq_p, wq_p, sx, zx, sw, zw, packed=packed)
+                     - truth).abs().max())
+        log(f"  {name} K padded 300 -> 512: k_true ok; without it off by "
+            f"{bad:.3g}")
+        if not bad > 1.0:
+            raise AssertionError(f"{name}: k_true has no effect ({bad})")
+
+        res.update(max_abs_err=err, tolerance=0.0)
+        if err > 0.0:
+            raise AssertionError(f"{name} disagrees with its plain version: "
+                                 f"max abs err {err}")
+        out[name] = res
     return out
 
 
@@ -373,6 +518,104 @@ def profile_episodes(search, first: int, n: int) -> dict:
             "top": sorted(rows, reverse=True)[:8]}
 
 
+# ---------------------------------------------------------------------------
+# Phases 5 and 6: the calibration path and the measured search
+# ---------------------------------------------------------------------------
+
+def _positive(x) -> bool:
+    return isinstance(x, float) and math.isfinite(x) and x > 0
+
+
+def run_calibration(cfg, device, verbose: bool = True) -> dict:
+    """``launch.calibrate.run`` (no file written); prints its rows and
+    fails on a time that is not finite and positive."""
+    from repro_torch.launch import calibrate
+    out = calibrate.run(out_path=None, device=device, cfg=cfg,
+                        verbose=False)
+    for r in out["units"]:
+        if "skipped" in r:
+            log(f"  unit {r['kind']:9s} {r['container']:4s} skipped: "
+                f"{r['skipped']}")
+            continue
+        if verbose:
+            log(f"  unit {r['kind']:9s} {r['container']:4s} m={r['m']} "
+                f"k={r['k']} n={r['n']}: {r['measured_s'] * 1e6:.2f} us "
+                f"measured, {r['analytic_s'] * 1e6:.4f} us analytic, "
+                f"ratio {r['ratio']:.4g}")
+        if not (_positive(r["measured_s"]) and _positive(r["ratio"])):
+            raise AssertionError(f"bad unit row {r}")
+    for r in out["kernels"]:
+        log(f"  kernel row {r['kernel']} {r['M']}x{r['K']}x{r['N']}: "
+            f"{r['measured_s'] * 1e6:.2f} us (host clock, quantization "
+            f"steps included, best of 5)")
+    for c, r in out["model"].items():
+        log(f"  model {c}: {r['measured_s'] * 1e3:.4f} ms per deployed "
+            f"forward ({out['meta']['ctx']['batch']} x "
+            f"{out['meta']['ctx']['seq_ctx']} tokens)")
+    for k, d in sorted(out["ratios"].items()):
+        log(f"  ratio {k:9s} " + " ".join(
+            f"{c}={v:.4g}" for c, v in sorted(d.items())))
+    log(f"  extra (attention / overhead) factor "
+        f"{out['extra']['attn']:.4g}")
+    for r in out["demo"]:
+        log(f"  demo {r['container']}: predicted_ratio "
+            f"{r['predicted_ratio']:.4f}, measured_ratio "
+            f"{r['measured_ratio']:.4f}, within_tol={r['within_tol']} "
+            f"(tolerance {r['tolerance']}; a finding, not a check)")
+    times = [r["measured_s"] for r in out["kernels"]] + \
+        [r["measured_s"] for r in out["model"].values()] + \
+        [r["predicted_s"] for r in out["demo"]]
+    if not all(_positive(t) for t in times) \
+            or not math.isfinite(out["extra"]["attn"]):
+        raise AssertionError("a calibration time is not finite and positive")
+    return out
+
+
+def run_measured_search(cfg, device, table_dict: dict, *, episodes: int,
+                        warmup: int, updates: int, batch_size: int):
+    """A pq search in ``oracle_mode="measured"`` on the fitted table, at
+    the table's own context and token batch (so that the predicted and
+    the measured ratios describe the same forward). Checks the top-K rows
+    and that the reference latency is the calibrated oracle's."""
+    from repro_torch.core.compress import CompressibleLM
+    from repro_torch.core.ddpg import DDPGConfig
+    from repro_torch.core.latency import V5E, LatencyContext, policy_latency
+    from repro_torch.core.measure import CalibrationTable
+    from repro_torch.core.policy import Policy
+    from repro_torch.core.reward import RewardConfig
+    from repro_torch.core.search import CompressionSearch, SearchConfig
+    from repro_torch.launch.calibrate import SEED, calibration_batch
+    from repro_torch.models import model as M
+
+    top_k = 3
+    table = CalibrationTable.from_dict(table_dict)
+    ctx = LatencyContext(**table.meta["ctx"])
+    batch = calibration_batch(cfg, device)
+    cm = CompressibleLM(cfg, M.init(cfg, seed=SEED, device=device))
+    scfg = SearchConfig(
+        methods="pq", episodes=episodes, seed=SEED,
+        reward=RewardConfig(target_ratio=0.5, beta=-3.0),
+        ddpg=DDPGConfig(warmup_episodes=warmup, updates_per_episode=updates,
+                        batch_size=batch_size, buffer_size=2000),
+        oracle_mode="measured", measure_top_k=top_k)
+    search = CompressionSearch(cm, batch, scfg, ctx, calib=table)
+    result = search.run()
+    want = policy_latency(cm.specs, Policy.reference(cm.specs), V5E, ctx,
+                          calib=table).total_s
+    if search.ref_lat.total_s != want:
+        raise AssertionError(f"reference latency {search.ref_lat.total_s} "
+                             f"is not the calibrated oracle's {want}")
+    rows = result.measured or []
+    if len(rows) != min(top_k, episodes):
+        raise AssertionError(f"{len(rows)} measured rows, wanted {top_k}")
+    for r in rows:
+        if not all(_positive(float(r[k])) for k in (
+                "predicted_s", "predicted_ratio", "measured_s",
+                "measured_ref_s", "measured_ratio")):
+            raise AssertionError(f"bad measured row {r}")
+    return result
+
+
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
@@ -427,6 +670,7 @@ def main() -> int:
         "fake_quant": check_fake_quant(LM_CFG, device),
         "mlp3": check_mlp3(S, A, ddpg.hidden, batch, device),
         "polyak": check_polyak((actor_n, critic_n), ddpg.tau, device),
+        **check_quant_matmul(LM_CFG, device),
     }
     for name, r in results.items():
         lib_ms = r["library_ms"]
@@ -449,7 +693,7 @@ def main() -> int:
     launches = dict(build.LAUNCHES)
     log(f"  sensitivity {t_sens:.3f} s; {episodes} episodes in {t_eps:.3f} s "
         f"= {episodes / t_eps:.3f} episodes/s; launches {launches}")
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in MAIN_PATH_KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
@@ -471,6 +715,39 @@ def main() -> int:
     else:
         log("  profiler: no device time recorded (device busy share not "
             "measured)")
+
+    log(f"[calibration path] launch.calibrate.run on {LM_CFG.name} at full "
+        f"width (deploy-path units, K4/K5 kernel rows, raw/int8/int4 "
+        f"deployed forwards, fit)")
+    build.reset_launches()
+    t0 = time.perf_counter()
+    calib = run_calibration(LM_CFG, device)
+    calib_launches = dict(build.LAUNCHES)
+    log(f"  {time.perf_counter() - t0:.2f} s; launches {calib_launches}")
+    missing = [k for k in CALIBRATION_KERNELS if calib_launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the calibration "
+                             f"path: {missing}")
+    launches.update({k: calib_launches[k] for k in CALIBRATION_KERNELS})
+
+    m_eps, m_warm = 8, 4
+    log(f"[measured search] pq CompressionSearch, oracle_mode='measured' on "
+        f"the fitted table, {m_eps} episodes, warmup {m_warm}, top 3 "
+        f"re-timed")
+    build.reset_launches()
+    t0 = time.perf_counter()
+    res = run_measured_search(LM_CFG, device, calib, episodes=m_eps,
+                              warmup=m_warm, updates=4, batch_size=batch)
+    log(f"  {time.perf_counter() - t0:.2f} s; reference latency "
+        f"{res.ref_latency_s * 1e3:.4f} ms (calibrated oracle); launches "
+        f"{dict(build.LAUNCHES)}")
+    for r in res.measured:
+        log(f"  top-K episode {r['episode']} reward {r['reward']:+.4f}: "
+            f"predicted {r['predicted_s'] * 1e3:.4f} ms (ratio "
+            f"{r['predicted_ratio']:.4f}), measured "
+            f"{r['measured_s'] * 1e3:.4f} ms vs reference "
+            f"{r['measured_ref_s'] * 1e3:.4f} ms (ratio "
+            f"{r['measured_ratio']:.4f})")
 
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", **KERNELS[name],

@@ -8,8 +8,11 @@ KV-cache traffic and MoE active-expert traffic.
 The modelled target is the JAX package's ``V5E`` table (a TPU v5e data
 sheet), kept as it is so the port's latencies match the reference's. It
 is reference data for the model, not a measurement of any chip the port
-runs on. The batched, traced and calibrated oracle forms wait for the
-batched engines.
+runs on. ``calib=`` takes a ``core.measure.CalibrationTable`` measured on
+the card the port runs on: it rescales each unit term by its fitted
+(kind, container) factor, and the attention extras and the dispatch
+overhead by the lumped residual factors. The batched and traced oracle
+forms wait for the batched engines.
 """
 from __future__ import annotations
 
@@ -58,6 +61,21 @@ def _weight_bytes_per_elem(w_bits: int) -> float:
 
 def _act_bytes_per_elem(a_bits: int) -> float:
     return 1.0 if a_bits <= 8 else 2.0
+
+
+# Weight-container buckets, in the fixed order calibration tables use:
+# column 0 = raw (bf16/f32), 1 = int8 container, 2 = packed int4.
+CONTAINERS = ("raw", "int8", "int4")
+
+
+def container_for_bits(w_bits: int) -> str:
+    """Deployment container a ``w_bits``-wide weight ships in — the same
+    thresholds as ``_weight_bytes_per_elem`` (>=9 raw, 5..8 int8, <=4
+    packed int4). Calibration tables (core/measure.py) are keyed by
+    (layer kind, container)."""
+    if w_bits >= 9:
+        return "raw"
+    return "int8" if w_bits >= 5 else "int4"
 
 
 def _pad(x: float, align: int) -> float:
@@ -217,23 +235,41 @@ def _attention_extra(spec: LayerSpec, cmp: LayerCMP, hw: HardwareTarget,
     return UnitLatency(spec.name + ".attn", comp, mem)
 
 
+def _scale_unit(u: UnitLatency, f: float) -> UnitLatency:
+    return UnitLatency(u.name, u.compute_s * f, u.memory_s * f,
+                       u.collective_s * f)
+
+
 def policy_latency(specs: Sequence[LayerSpec], policy: Policy,
                    hw: HardwareTarget = V5E,
                    ctx: Optional[LatencyContext] = None,
-                   window: int = 0) -> PolicyLatency:
-    """The analytic oracle: per-unit roofline terms under ``policy``."""
+                   window: int = 0, calib=None) -> PolicyLatency:
+    """The analytic oracle: per-unit roofline terms under ``policy``.
+    ``calib``: optional measured-vs-analytic correction table
+    (``core.measure.CalibrationTable``); unit terms are scaled by the
+    fitted (kind, container) factor, attention extras and dispatch
+    overhead by the lumped residual factors."""
     ctx = ctx or LatencyContext(tokens=1, seq_ctx=1, mode="decode")
     fracs = _resolve_keep_fracs(specs, policy)
     out = PolicyLatency()
     n_ops = 0
     for s, c in zip(specs, policy.cmps):
         in_frac = fracs.get(s.dep_group, 1.0) if s.dep_group else 1.0
-        out.units.append(unit_latency(s, c, in_frac, hw, ctx))
+        u = unit_latency(s, c, in_frac, hw, ctx)
+        if calib is not None:
+            w_bits, _ = effective_bits(c)
+            u = _scale_unit(u, calib.factor(s.kind,
+                                            container_for_bits(w_bits)))
+        out.units.append(u)
         n_ops += 1
         if s.kind == "attn_qkv" and ctx.seq_ctx > 0:
-            out.units.append(_attention_extra(s, c, hw, ctx, window))
+            e = _attention_extra(s, c, hw, ctx, window)
+            if calib is not None:
+                e = _scale_unit(e, calib.extra_factor())
+            out.units.append(e)
             n_ops += 1
-    out.overhead_s = n_ops * hw.op_overhead
+    out.overhead_s = n_ops * hw.op_overhead \
+        * (calib.overhead_factor() if calib is not None else 1.0)
     return out
 
 

@@ -10,8 +10,12 @@ probes the analytic latency oracle under the partial policy), act on the
 host, map the continuous action to a legal CMP, then validate the finished
 policy on the device (fake-quantized, pruned forward: kernel K1), reward,
 push the episode's transitions into the device replay ring and run the
-episode's DDPG updates (kernels K2 and K3). The batched, fused, epoch,
-population and fleet engines wait for later slices.
+episode's DDPG updates (kernels K2 and K3). The latency oracle is the
+analytic roofline, or in ``oracle_mode="calibrated"`` / ``"measured"`` the
+roofline rescaled by a ``core.measure.CalibrationTable`` taken on the
+card; "measured" also times the deployed forward of the top-K finalists
+(``SearchResult.measured``). The batched, fused, epoch, population and
+fleet engines wait for later slices.
 """
 from __future__ import annotations
 
@@ -39,9 +43,15 @@ class SearchConfig:
     seed: int = 0
     window: int = 0                    # attention window for the oracle
     track_bops: bool = True
-    # latency oracle flavor; only "analytic" is ported (the calibrated and
-    # measured oracles come with the deployment slice)
+    # latency oracle flavor (core/measure.py):
+    #   analytic   — pure roofline (the default, no measurement)
+    #   calibrated — roofline terms rescaled by the fitted per-(kind,
+    #                container) factors of a CalibrationTable
+    #   measured   — calibrated search + wall-clock re-timing of the
+    #                top-K final candidates (SearchResult.measured)
     oracle_mode: str = "analytic"
+    calibration_path: str = ""         # "" -> measure.DEFAULT_CALIBRATION_PATH
+    measure_top_k: int = 3             # distinct candidates re-timed
 
 
 @dataclass
@@ -63,6 +73,9 @@ class SearchResult:
     best: EpisodeRecord
     ref_latency_s: float
     ref_accuracy: float
+    # oracle_mode="measured": wall-clock rows for the top-K candidates
+    # (predicted vs measured seconds and ratios vs the reference model)
+    measured: Optional[List[dict]] = None
 
     def best_under_budget(self, tol: float = 0.05) -> Optional[EpisodeRecord]:
         c = None
@@ -89,12 +102,18 @@ class CompressionSearch:
     def __init__(self, cmodel, val_batch, search_cfg: SearchConfig,
                  ctx: LatencyContext, hw: HardwareTarget = V5E,
                  sens: Optional[SensitivityResult] = None,
-                 calib_batch=None):
-        if search_cfg.oracle_mode != "analytic":
-            raise NotImplementedError(
-                f"oracle_mode={search_cfg.oracle_mode!r}: the calibrated "
-                f"and measured oracles come with the deployment slice "
-                f"(ROADMAP slice 4); only 'analytic' is ported")
+                 calib_batch=None, calib=None):
+        # latency-oracle flavor: a CalibrationTable rescales the oracle's
+        # terms in calibrated/measured mode; analytic ignores it
+        mode = search_cfg.oracle_mode
+        if mode not in ("analytic", "calibrated", "measured"):
+            raise ValueError(
+                f"SearchConfig.oracle_mode must be analytic|calibrated|"
+                f"measured, got {mode!r}")
+        if mode != "analytic" and calib is None:
+            from .measure import load_calibration
+            calib = load_calibration(search_cfg.calibration_path or None)
+        self.calib = calib if mode != "analytic" else None
         self.cmodel = cmodel
         self.specs = cmodel.specs
         self.cfg = search_cfg
@@ -118,7 +137,7 @@ class CompressionSearch:
             cmodel, calib_batch if calib_batch is not None else val_batch)
         self.ref_policy = Policy.reference(self.specs)
         self.ref_lat = policy_latency(self.specs, self.ref_policy, hw, ctx,
-                                      search_cfg.window)
+                                      search_cfg.window, calib=self.calib)
         self.ref_acc = float(cmodel.accuracy(
             val_batch, cmodel.build_cspec(self.ref_policy)))
         self.steps = [i for i, s in enumerate(self.specs)
@@ -154,7 +173,7 @@ class CompressionSearch:
         acc = float(self.cmodel.accuracy(self.val_batch,
                                          self.cmodel.build_cspec(policy)))
         lat = policy_latency(self.specs, policy, self.hw, self.ctx,
-                             cfg.window)
+                             cfg.window, calib=self.calib)
         reward = compute_reward(cfg.reward, acc, lat.total_s,
                                 self.ref_lat.total_s)
         # push transitions — one shared episode reward (paper §Schema),
@@ -195,6 +214,32 @@ class CompressionSearch:
                       f"acc={rec.accuracy:.3f} "
                       f"lat_ratio={rec.latency_ratio:.3f} "
                       f"sigma={rec.sigma:.3f}")
-        return SearchResult(history=history, best=best,
-                            ref_latency_s=self.ref_lat.total_s,
-                            ref_accuracy=self.ref_acc)
+        result = SearchResult(history=history, best=best,
+                              ref_latency_s=self.ref_lat.total_s,
+                              ref_accuracy=self.ref_acc)
+        if self.cfg.oracle_mode == "measured":
+            result.measured = self._measure_top_k(history)
+        return result
+
+    def _measure_top_k(self, history: List[EpisodeRecord]) -> List[dict]:
+        """Wall-clock the deployed forward of the top-K candidates (the
+        paper's measure-on-target step, applied only to finalists). The
+        measurement memo is keyed by container signature, so candidates
+        sharing a deployment are timed once."""
+        from . import measure
+        k = max(1, self.cfg.measure_top_k)
+        top = sorted(history, key=lambda r: r.reward, reverse=True)[:k]
+        ref_s = measure.measure_policy(self.cmodel, self.ref_policy,
+                                       self.val_batch)
+        rows = []
+        for r in top:
+            t = measure.measure_policy(self.cmodel, r.policy,
+                                       self.val_batch)
+            rows.append({
+                "episode": r.episode, "reward": r.reward,
+                "predicted_s": r.latency_s,
+                "predicted_ratio": r.latency_s / self.ref_lat.total_s,
+                "measured_s": t, "measured_ref_s": ref_s,
+                "measured_ratio": t / ref_s if ref_s > 0 else float("inf"),
+            })
+        return rows

@@ -25,7 +25,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = ("fake_quant", "mlp3", "polyak")
+SOURCES = ("fake_quant", "mlp3", "polyak", "quant_matmul")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -34,11 +34,14 @@ _SIGNATURES = {
     "mlp3": {"mlp3_launch": [_P] * 10 + [_I] * 6 + [_P]},
     "polyak": {"polyak_launch": [_P, _P, _P, ctypes.c_longlong,
                                  ctypes.c_float, ctypes.c_float, _P]},
+    "quant_matmul": {"quant_matmul_int8_launch": [_P] * 7 + [_I] * 4 + [_P],
+                     "quant_matmul_int4_launch": [_P] * 7 + [_I] * 4 + [_P]},
 }
 
 # Kernel launches per wrapper, counted where each wrapper launches its
 # kernel (never for the plain version on a CPU tensor).
-LAUNCHES = {"fake_quant": 0, "mlp3": 0, "polyak": 0}
+LAUNCHES = {"fake_quant": 0, "mlp3": 0, "polyak": 0,
+            "quant_matmul_int8": 0, "quant_matmul_int4": 0}
 
 _libs: dict = {}
 build_report: dict = {}     # name -> {"seconds", "ptxas"} of the last build
@@ -122,15 +125,17 @@ def lib(name: str) -> ctypes.CDLL:
     return _libs[name]
 
 
-def check_operand(t: torch.Tensor, name: str, ndim: int) -> None:
-    """What every hand-written kernel takes: contiguous f32 on cuda:0."""
+def check_operand(t: torch.Tensor, name: str, ndim: int,
+                  dtype: torch.dtype = torch.float32) -> None:
+    """What every hand-written kernel takes: a contiguous tensor of
+    ``dtype`` on cuda:0."""
     if t.device.type != "cuda":
         raise ValueError(f"{name}: kernels take CUDA tensors, "
                          f"got {t.device}")
     if t.device.index not in (None, 0):
         raise ValueError(f"{name}: kernels run on cuda:0, got {t.device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: expected float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{name}: expected {ndim}-D, got {tuple(t.shape)}")
     if not t.is_contiguous():

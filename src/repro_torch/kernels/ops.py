@@ -8,9 +8,41 @@ mask their own ragged edges.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from . import fake_quant as _fq
 from . import mlp_fused as _mlp
+from . import quant_matmul as _qm
+from . import ref as _ref
+
+
+def quantize_operands(x: torch.Tensor, w: torch.Tensor, w_bits: int = 8):
+    """The codes and scales ``quantized_matmul`` hands the kernel:
+    ``((xq, wq, sx, zx, sw, zw), packed)``. x is quantized per row at 8
+    bits, w per column at 4 bits (``w_bits <= 4``: packed two per byte,
+    K5) or 8 (K4). The JAX op pads every dim to a multiple of 256; the
+    kernels mask ragged M and N instead, and an odd K gets one zero
+    column on xq and one zero row on wq before packing int4 (the
+    caller's ``k_true`` keeps the true count), so the function is the
+    same."""
+    xq, sx, zx = _ref.quantize_rows(x, 8)
+    packed = w_bits <= 4
+    wq, sw, zw = _ref.quantize_cols(w, 4 if packed else 8)
+    if packed:
+        if x.shape[1] % 2:
+            xq = F.pad(xq, (0, 1))
+            wq = F.pad(wq, (0, 0, 0, 1))
+        wq = _ref.pack_int4(wq)
+    return (xq.contiguous(), wq.contiguous(), sx, zx, sw, zw), packed
+
+
+def quantized_matmul(x: torch.Tensor, w: torch.Tensor,
+                     w_bits: int = 8) -> torch.Tensor:
+    """x [M, K] @ w [K, N] (f32 or bf16) through the quantized kernel:
+    ``quantize_operands``, integer product, fused dequant (K4, or K5 for
+    ``w_bits <= 4``). Returns f32 [M, N]."""
+    args, packed = quantize_operands(x, w, w_bits)
+    return _qm.quant_matmul(*args, packed=packed, k_true=x.shape[1])
 
 
 def fused_fake_quant(x: torch.Tensor, bits: int) -> torch.Tensor:

@@ -35,3 +35,82 @@ def polyak_ref(target: torch.Tensor, online: torch.Tensor,
     """K3's function: ``(1 - tau) * target + tau * online``, the tree-map
     soft update of the JAX package's ``ddpg.polyak_update``."""
     return (1 - tau) * target + tau * online
+
+
+# --- quantized matmul (K4, K5) ----------------------------------------------
+# Convention: zero offsets are ADDED back on dequantization, x = s·(q + z).
+# Every quotient divides a tensor by a tensor: ``tensor / float`` is
+# reciprocal-then-multiply on the card, not the correctly rounded quotient.
+
+def quantize_rows(x: torch.Tensor, bits: int = 8):
+    """Asymmetric per-row quantization -> (q int8, scale [R], zero [R]),
+    q in the signed range (q = round(x/s) − z, so the z's cancel on the
+    round trip). The JAX package's ``ref.quantize_rows``."""
+    x = x.float()
+    x_min = x.amin(1)
+    span = torch.clamp_min(x.amax(1) - x_min, 1e-8)
+    s = span / torch.full_like(span, 2.0 ** bits - 1.0)
+    z = torch.round(x_min / s) + 2.0 ** (bits - 1)
+    q = torch.clamp(torch.round(x / s[:, None]) - z[:, None],
+                    -(2.0 ** (bits - 1)), 2.0 ** (bits - 1) - 1)
+    return q.to(torch.int8), s, z
+
+
+def quantize_cols(w: torch.Tensor, bits: int = 8):
+    """Per-column quantization of w [K, N] -> (q [K, N], scale [N],
+    zero [N])."""
+    qT, s, z = quantize_rows(w.T, bits)
+    return qT.T.contiguous(), s, z
+
+
+def dequant_matmul_ref(xq, wq, sx, zx, sw, zw) -> torch.Tensor:
+    """Dequantize, then an f32 matmul: x = sx·(xq + zx), w = sw·(wq + zw)."""
+    x = sx[:, None] * (xq.float() + zx[:, None])
+    w = sw[None, :] * (wq.float() + zw[None, :])
+    return x @ w
+
+
+def int8_matmul_ref(xq, wq, sx, zx, sw, zw, k_true: int = 0):
+    """K4's function, the integer-accumulation form:
+    y = (sx·sw)·(((acc + zx·colsum_w) + zw·rowsum_x) + (K·zx)·zw), each
+    step one correctly rounded f32 op in this order. ``acc`` is a float64
+    product of the codes, exact (PyTorch has no int32 matmul on CUDA);
+    the code sums are exact in f32. ``k_true``: the unpadded contraction
+    length (0 = all of K)."""
+    acc = (xq.double() @ wq.double()).float()
+    rowsum = xq.float().sum(1)
+    colsum = wq.float().sum(0)
+    K = k_true or xq.shape[1]
+    corr = (acc + zx[:, None] * colsum[None, :]
+            + zw[None, :] * rowsum[:, None]
+            + K * zx[:, None] * zw[None, :])
+    return sx[:, None] * sw[None, :] * corr
+
+
+def pack_int4(w4: torch.Tensor) -> torch.Tensor:
+    """[..., K, N] int8 in [-8, 7] -> [..., K/2, N] packed two per byte
+    (low nibble = even row)."""
+    lo = w4[..., 0::2, :].to(torch.int32) & 0xF
+    hi = (w4[..., 1::2, :].to(torch.int32) & 0xF) << 4
+    b = lo | hi                                   # 0..255
+    return torch.where(b >= 128, b - 256, b).to(torch.int8)
+
+
+def unpack_int4_ref(packed: torch.Tensor) -> torch.Tensor:
+    """[..., K/2, N] packed -> [..., K, N] int8 in [-8, 7]: row 2i is the
+    sign-extended low nibble of byte i, row 2i+1 its high nibble."""
+    p = packed.to(torch.int32)
+    low = ((p & 0xF) ^ 8) - 8
+    high = p >> 4                                 # arithmetic shift
+    out = torch.stack([low, high], dim=-2)        # [..., K/2, 2, N]
+    shape = packed.shape[:-2] + (2 * packed.shape[-2], packed.shape[-1])
+    return out.reshape(shape).to(torch.int8)
+
+
+def quant_matmul_ref(xq, wq, sx, zx, sw, zw, packed: bool = False,
+                     k_true: int = 0) -> torch.Tensor:
+    """K4 (``packed=False``, wq [K, N]) and K5 (``packed=True``, wq
+    [K/2, N] packed int4): the codes' product with the dequant epilogue."""
+    if packed:
+        wq = unpack_int4_ref(wq)
+    return int8_matmul_ref(xq, wq, sx, zx, sw, zw, k_true)

@@ -17,6 +17,7 @@ from typing import Optional
 
 import torch
 
+from ..core.deploy import unpack_int4_weight
 from ..core.quantization import fake_quant_act, fake_quant_weight
 
 
@@ -48,19 +49,34 @@ def apply_quant(x: torch.Tensor, w: torch.Tensor, qs: Optional[dict]):
     return x, w
 
 
-def materialize_weight(p):
-    """Resolve a weight container to a dense tensor (the raw ``"w"`` form;
-    the deployed int8/int4 containers wait for the deployment slice)."""
+def materialize_weight(p, dtype: torch.dtype):
+    """Resolve a weight container (see ``core/deploy.py``) to a dense
+    tensor. Deployed int8 / packed-int4 storage dequantizes on the fly,
+    in ``dtype``: codes times per-channel scale."""
     if not isinstance(p, dict):
         return p
     if "w" in p:
         return p["w"]
-    raise KeyError(f"no raw weight in container: {list(p)}")
+    if "w_q" in p:
+        return p["w_q"].to(dtype) * p["w_scale"].to(dtype)
+    if "w_p" in p:
+        return unpack_int4_weight(p["w_p"]).to(dtype) \
+            * p["w_scale"].to(dtype)
+    raise KeyError(f"no weight in container: {list(p)}")
+
+
+def getw(container: dict, name: str, dtype: torch.dtype):
+    """Fetch a possibly deploy-quantized raw weight (the embedding, the
+    unembedding)."""
+    v = container[name]
+    if isinstance(v, dict):
+        return materialize_weight(v, dtype)
+    return v
 
 
 def linear(p: dict, x: torch.Tensor, qs: Optional[dict] = None,
            out_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    w = materialize_weight(p)
+    w = materialize_weight(p, x.dtype)
     x, w = apply_quant(x, w, qs)
     y = torch.einsum("...i,io->...o", x, w.to(x.dtype))
     if "b" in p:

@@ -59,7 +59,7 @@ def forward(cfg: ArchConfig, params, tokens, cspec=None,
     """tokens [B, S] int64 -> logits [B, S, vocab] (f32)."""
     _check_supported(cfg)
     compute = L.dtype_of(cfg.compute_dtype)
-    table = params["embed"]
+    table = L.getw(params, "embed", compute)
     ebits = None if cspec is None else cspec.get("embed_bits")
     if ebits is not None:
         table = L.fake_quant_weight(table, ebits)
@@ -72,7 +72,8 @@ def forward(cfg: ArchConfig, params, tokens, cspec=None,
                          None if blocks_cs is None else blocks_cs[i],
                          positions)
     x = L.apply_norm(cfg.norm, params["final_norm"], x)
-    w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    w = L.getw(params, "embed", x.dtype).T if cfg.tie_embeddings \
+        else L.getw(params, "unembed", x.dtype)
     hbits = None if cspec is None else cspec.get("head_bits")
     if hbits is not None:
         w = L.fake_quant_weight(w, hbits)

@@ -11,7 +11,9 @@ machine that has only PyTorch. There, skip the repo's ``conftest.py``
 Tolerances: K1 (fake-quant) and K3 (Polyak) exact — the plain versions
 run the same correctly rounded f32 operations, one PyTorch kernel each;
 K2 (3-layer MLP) forward and backward ≤1e-5 at the DDPG init's scales
-(f32 sums in another order; no TF32).
+(f32 sums in another order; no TF32); K4/K5 (quantized matmul) exact —
+integer products are exact on both sides and the epilogue is the same
+correctly rounded f32 steps in the same order.
 """
 import numpy as np
 import pytest
@@ -20,7 +22,9 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import build, ops as tops  # noqa: E402
 from repro_torch.kernels.fake_quant import fake_quant_2d  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels.mlp_fused import mlp3, polyak_flat  # noqa: E402
+from repro_torch.kernels.quant_matmul import quant_matmul  # noqa: E402
 from repro_torch.kernels.ref import (fake_quant_ref, mlp3_ref,  # noqa: E402
                                      polyak_ref)
 
@@ -111,3 +115,106 @@ def test_gpu_polyak_kernel_exact(cuda, n):
     t = torch.from_numpy(_normal(1, (n,))).to(cuda)
     p = torch.from_numpy(_normal(2, (n,))).to(cuda)
     assert torch.equal(polyak_flat(t, p, 0.01), polyak_ref(t, p, 0.01))
+
+
+# the calibration's kernel shape, the testbed's unit shapes at 192 tokens,
+# the JAX tests' ragged shapes and an odd K
+QM_SHAPES = [(256, 256, 256), (192, 256, 512), (192, 256, 2048),
+             (192, 1024, 256), (33, 512, 257), (200, 300, 130),
+             (64, 301, 96)]
+
+
+def _codes(x, w, packed):
+    """What ``ops.quantized_matmul`` hands the wrapper."""
+    return tops.quantize_operands(x, w, 4 if packed else 8)[0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N", QM_SHAPES)
+@pytest.mark.parametrize("packed", [False, True])
+def test_gpu_quant_matmul_kernel_exact(cuda, M, K, N, packed):
+    x = torch.from_numpy(_normal(M, (M, K))).to(cuda)
+    w = torch.from_numpy(_normal(N, (K, N))).to(cuda)
+    args = _codes(x, w, packed)
+    name = "quant_matmul_int4" if packed else "quant_matmul_int8"
+    before = build.LAUNCHES[name]
+    got = quant_matmul(*args, packed=packed, k_true=K)
+    assert build.LAUNCHES[name] == before + 1
+    assert torch.equal(got, ref.quant_matmul_ref(*args, packed=packed,
+                                                 k_true=K))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("packed", [False, True])
+def test_gpu_quant_matmul_asymmetric(cuda, packed):
+    """Shifted data (x + 3, w − 1): large zero-point terms; the kernel
+    equals its plain version and the dequantized truth, and the SUBTRACT
+    convention misses."""
+    x = torch.from_numpy(_normal(20, (64, 128)) + 3.0).to(cuda)
+    w = torch.from_numpy(_normal(21, (128, 96)) - 1.0).to(cuda)
+    xq, wq, sx, zx, sw, zw = _codes(x, w, packed)
+    got = quant_matmul(xq, wq, sx, zx, sw, zw, packed=packed)
+    assert torch.equal(got, ref.quant_matmul_ref(xq, wq, sx, zx, sw, zw,
+                                                 packed=packed))
+    codes = ref.unpack_int4_ref(wq) if packed else wq
+    truth = ref.dequant_matmul_ref(xq, codes, sx, zx, sw, zw)
+    torch.testing.assert_close(got, truth, rtol=1e-3, atol=0.1)
+    fp = x @ w
+    rel = float((truth - fp).norm() / fp.norm())
+    wrong = ref.int8_matmul_ref(xq, codes, sx, -zx, sw, -zw)
+    assert float((wrong - fp).norm() / fp.norm()) > 10 * rel
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("packed", [False, True])
+def test_gpu_quant_matmul_k_true(cuda, packed):
+    """K zero-padded from 300 to 512: with k_true the kernel gives the
+    unpadded truth (exactly its plain version), without it it is off."""
+    x = torch.from_numpy(_normal(50, (32, 300)) + 1.0).to(cuda)
+    w = torch.from_numpy(_normal(51, (300, 64))).to(cuda)
+    xq, sx, zx = ref.quantize_rows(x, 8)
+    wq, sw, zw = ref.quantize_cols(w, 4 if packed else 8)
+    truth = ref.dequant_matmul_ref(xq, wq, sx, zx, sw, zw)
+    xq_p = torch.zeros((32, 512), dtype=torch.int8, device=cuda)
+    xq_p[:, :300] = xq
+    wq_p = torch.zeros((512, 64), dtype=torch.int8, device=cuda)
+    wq_p[:300] = wq
+    wq_p = ref.pack_int4(wq_p) if packed else wq_p
+    got = quant_matmul(xq_p, wq_p, sx, zx, sw, zw, packed=packed,
+                       k_true=300)
+    assert torch.equal(got, ref.quant_matmul_ref(
+        xq_p, wq_p, sx, zx, sw, zw, packed=packed, k_true=300))
+    torch.testing.assert_close(got, truth, rtol=1e-3, atol=0.1)
+    bad = quant_matmul(xq_p, wq_p, sx, zx, sw, zw, packed=packed)
+    assert float((bad - truth).abs().max()) > 1.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w_bits", [8, 4])
+def test_gpu_quantized_matmul_op_equals_cpu(cuda, w_bits):
+    """The whole op on the card (quantization steps, then K4/K5) equals
+    the same op on the CPU (plain version): the quotients are correctly
+    rounded on both sides."""
+    x, w = _normal(7, (200, 301)), _normal(8, (301, 130))
+    got = tops.quantized_matmul(torch.from_numpy(x).to(cuda),
+                                torch.from_numpy(w).to(cuda), w_bits)
+    want = tops.quantized_matmul(torch.from_numpy(x), torch.from_numpy(w),
+                                 w_bits)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+def test_gpu_quant_matmul_refuses_bad_operands(cuda):
+    xq = torch.zeros((8, 6), dtype=torch.int8, device=cuda)
+    s = torch.ones(8, device=cuda)
+    sn = torch.ones(4, device=cuda)
+    with pytest.raises(TypeError, match="int8"):
+        quant_matmul(xq.float(), torch.zeros((6, 4), dtype=torch.int8,
+                                             device=cuda), s, s, sn, sn)
+    with pytest.raises(ValueError, match="expected"):
+        quant_matmul(xq, torch.zeros((6, 4), dtype=torch.int8, device=cuda),
+                     s, s, sn, sn, packed=True)
+    with pytest.raises(ValueError, match="even K"):
+        quant_matmul(xq[:, :5].contiguous(), torch.zeros(
+            (2, 4), dtype=torch.int8, device=cuda), s, s, sn, sn,
+            packed=True)

@@ -36,8 +36,9 @@ from repro_torch.core import quantization as tq  # noqa: E402
 from repro_torch.kernels import build, ops as tops  # noqa: E402
 from repro_torch.kernels.fake_quant import fake_quant_2d  # noqa: E402
 from repro_torch.kernels.mlp_fused import mlp3, polyak_flat  # noqa: E402
+from repro_torch.kernels.quant_matmul import quant_matmul  # noqa: E402
 from repro_torch.kernels.ref import (fake_quant_ref, mlp3_ref,  # noqa: E402
-                                     polyak_ref)
+                                     polyak_ref, quant_matmul_ref)
 
 
 def _normal(seed, shape, scale=1.0):
@@ -208,7 +209,16 @@ def test_wrappers_route_cpu_to_plain_without_launching():
     for a, b in zip(mlp3(x, *flat, sigmoid=False),
                     mlp3_ref(x, *flat, False)):
         assert torch.equal(a, b)
-    assert build.LAUNCHES == {"fake_quant": 0, "mlp3": 0, "polyak": 0}
+    xq = torch.ones((8, 6), dtype=torch.int8)
+    s8, s4 = torch.ones(8), torch.ones(4)
+    for packed, rows in ((False, 6), (True, 3)):
+        wq = torch.ones((rows, 4), dtype=torch.int8)
+        assert torch.equal(
+            quant_matmul(xq, wq, s8, s8, s4, s4, packed=packed),
+            quant_matmul_ref(xq, wq, s8, s8, s4, s4, packed=packed))
+    assert build.LAUNCHES == {"fake_quant": 0, "mlp3": 0, "polyak": 0,
+                              "quant_matmul_int8": 0,
+                              "quant_matmul_int4": 0}
 
 
 def test_wrappers_refuse_other_devices():
@@ -223,6 +233,10 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="CUDA"):
         mlp3(x, *[torch.empty(s, device="meta") for s in
                   ((4, 6), (6,), (6, 5), (5,), (5, 2), (2,))])
+    with pytest.raises(ValueError, match="CUDA"):
+        quant_matmul(torch.empty((8, 4), dtype=torch.int8, device="meta"),
+                     torch.empty((4, 2), dtype=torch.int8, device="meta"),
+                     *[torch.empty(n, device="meta") for n in (8, 8, 2, 2)])
 
 
 def test_kernel_sources_carry_their_notes():

@@ -181,13 +181,23 @@ def test_sensitivity_matches_jax_run_sensitivity(searches):
             assert abs(ts.sens.table[layer][tag] - kl) <= 1e-6, (layer, tag)
 
 
-def test_search_rejects_unported_oracle_modes():
+def test_search_rejects_unported_oracle_modes(tmp_path):
+    """Every oracle mode of the JAX package is ported: an unknown one is
+    refused, and a calibrated or measured search without a table says
+    how to measure one."""
     cfg = _port_cfg(_tiny_cfg())
     tm = tcompress.CompressibleLM(cfg, _port_params(cfg))
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    with pytest.raises(ValueError, match="oracle_mode"):
         tsearch.CompressionSearch(
-            tm, None, tsearch.SearchConfig(oracle_mode="measured"),
+            tm, None, tsearch.SearchConfig(oracle_mode="wallclock"),
             tlatency.LatencyContext(**CTX))
+    for mode in ("calibrated", "measured"):
+        with pytest.raises(FileNotFoundError, match="launch.calibrate"):
+            tsearch.CompressionSearch(
+                tm, None, tsearch.SearchConfig(
+                    oracle_mode=mode,
+                    calibration_path=str(tmp_path / "none.json")),
+                tlatency.LatencyContext(**CTX))
 
 
 def _port_params(cfg):
