@@ -7,16 +7,20 @@ Phases, each fatal on failure (non-zero exit, no result line):
 
 1. Device: requires CUDA (no CPU fallback); prints the card.
 2. Build: compiles the hand-written kernels (K1 fake-quant, K2 fused
-   3-layer MLP, K3 Polyak, K4/K5 int8 and packed-int4 quantized matmul)
-   from ``src/repro_torch/kernels/csrc``, one nvcc per source, all at
-   once, and prints nvcc's registers / shared memory per kernel.
+   3-layer MLP, K3 Polyak, K4/K5 int8 and packed-int4 quantized matmul,
+   K6 flash attention) from ``src/repro_torch/kernels/csrc``, one nvcc
+   per source, all at once, and prints nvcc's registers / shared memory
+   per kernel.
 3. Kernels: each kernel against its plain PyTorch version on the card at
    the shapes its path gives it, with its tolerance, and timed with CUDA
    events (kernel, plain version, one library call where one computes
    the same function) beside its bound. K4/K5 also: the asymmetric
    zero-point case with its SUBTRACT-convention canary, a padded K with
    ``k_true``, and ``torch._int_mm`` on the same codes as a yardstick for
-   the int8 product alone.
+   the int8 product alone. K6 against the dense ``attention_ref`` at the
+   JAX tests' shapes (f32, causal / bidirectional / window 96) and bf16
+   case, and at qwen2-0.5b's heads at S 4096 (bf16), with
+   ``scaled_dot_product_attention`` timed as its yardstick.
 4. Main path: the joint ("pq") ``CompressionSearch`` on the full-width LM
    testbed (seeded random weights, bf16 compute, analytic oracle):
    sensitivity analysis, then episodes of rollout, validation, reward and
@@ -31,7 +35,24 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ``oracle_mode="measured"`` on the fitted table; its top-K rows
    (predicted vs measured ratio) must be finite and its reference
    latency the calibrated oracle's.
-7. Lines before the last: the kernels as JSON, then ``nvidia-smi``'s name
+7. Prefill: ``make_prefill_step`` on qwen2-0.5b at full width (24
+   layers, d 896, vocab 151,936; seeded random weights) over 1 x 32,768
+   seeded tokens, uncompressed and under a seeded pq policy. First K6 on
+   one layer's q/k/v at that shape against the chunked plain branch
+   (bf16, atol 0.04), timed beside the plain branch and SDPA; then one
+   warm-up forward at 2,048 tokens each and one timed forward each, the
+   launch counts reset before and read after each (24 K6 launches per
+   forward). Prints ms, tokens/s, MFU against 989 TFLOP/s and the
+   oracle's predicted compressed/reference ratio beside the measured
+   one. The whole prefill at the SMOKE widths and 1,100 tokens (f32)
+   must agree with the plain CPU path.
+8. Decode: ``decode_loop`` and ``sustained_throughput`` on the same
+   model, batch 8, 64 steps, max_len 256, KV cache 16 and 8 bits, raw
+   and under the policy; tok/s per variant, then one profiled 8-step
+   decode each (device busy share, kernels per step). At the SMOKE
+   widths (f32) the greedy tokens must be the prefill forward's
+   argmaxes.
+9. Lines before the last: the kernels as JSON, then ``nvidia-smi``'s name
    and power limit. Last line: ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -49,6 +70,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOPS = 67e12              # f32 outside the tensor cores
 INT8_OPS = 1979e12             # int8 tensor cores, dense
+BF16_FLOPS = 989e12            # bf16 tensor cores, dense
 
 KERNELS = {
     "fake_quant": {"source": "src/repro_torch/kernels/csrc/fake_quant.cu",
@@ -63,9 +85,24 @@ KERNELS = {
     "quant_matmul_int4": {
         "source": "src/repro_torch/kernels/csrc/quant_matmul.cu",
         "replaces": "src/repro/kernels/quant_matmul.py:90"},
+    "flash_attention": {
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:29"},
 }
 MAIN_PATH_KERNELS = ("fake_quant", "mlp3", "polyak")
 CALIBRATION_KERNELS = ("quant_matmul_int8", "quant_matmul_int4")
+PREFILL_SEQ, PREFILL_WARM_SEQ = 32_768, 2048
+# K6's bf16 checks also bound each output row: ||kernel - plain|| /
+# ||plain|| over the row's D values. Against the dense f32 plain version
+# only two roundings of the output to bf16 (2^-9 each) and the kernel's
+# rounding of p to bf16 lie between them, so 2^-6 leaves 4x headroom over
+# 2^-8. The chunked plain branch also rounds its scores to bf16 (as the
+# JAX package's jnp path does), hence 2^-5 against it. A fault that drops
+# one 64-key tile of a row moves that row by far more (PERF.md).
+K6_ROW_TOL = 2.0 ** -6
+K6_CHUNKED_ROW_TOL = 2.0 ** -5
+K6_TAIL_ROWS = 1024
+DECODE = dict(batch=8, steps=64, max_len=256)
 
 
 def log(msg: str = "") -> None:
@@ -143,6 +180,77 @@ def check_fake_quant(cfg, device) -> dict:
     if err > 0.0:
         raise AssertionError(f"fake_quant disagrees with its plain version: "
                              f"max abs err {err}")
+    return out
+
+
+def k1_calls(cfg, cspec, rows: int) -> list:
+    """(shape, bits) of each K1 launch that one forward over ``rows``
+    tokens makes under ``cspec``, in launch order: the embedding table,
+    then per layer each quantized linear's input [rows, d_in] and weight
+    [d_in, d_out] (q, k and v each quantize their input; a gated MLP's up
+    and gate too), then the head weight (the tied embedding's transpose).
+    ``bits >= 32`` launches nothing."""
+    if cspec is None:
+        return []
+    H, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    d, ff, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    ups = (ff, ff) if cfg.mlp in ("swiglu", "geglu") else (ff,)
+    calls = []
+
+    def add(shape, bits):
+        if bits is not None and bits < 32:
+            calls.append((shape, bits))
+
+    def linear(qs, d_in, d_outs):
+        for d_out in d_outs if qs is not None else ():
+            add((rows, d_in), qs["a_bits"])
+            add((d_in, d_out), qs["w_bits"])
+
+    add((V, d), cspec.get("embed_bits"))
+    for b in cspec["blocks"]:
+        linear(b["attn"]["qkv"], d, (H * D, KV * D, KV * D))
+        linear(b["attn"]["o"], H * D, (d,))
+        linear(b["mlp"]["up"], d, ups)
+        linear(b["mlp"]["down"], ff, (d,))
+    add((d, V), cspec.get("head_bits"))
+    return calls
+
+
+def check_fake_quant_path(cfg, cspec, rows: tuple, device) -> dict:
+    """K1 at every (shape, bits) that a forward over each count of
+    ``rows`` tokens gives it under ``cspec`` (``k1_calls``: the prefill's
+    [32768, 896] and [32768, 4864] activations, the layer weights, the
+    head weight [896, 151936], decode's [8, 896] activations); tolerance:
+    exact, as ``check_fake_quant``. On the card the largest shape is timed
+    beside its bound."""
+    import torch
+    from repro_torch.kernels.fake_quant import fake_quant_2d
+    from repro_torch.kernels.ref import fake_quant_ref
+    gen = torch.Generator(device=device).manual_seed(2)
+    pairs = sorted({c for r in rows for c in k1_calls(cfg, cspec, r)})
+    if not pairs:
+        raise AssertionError("the policy quantizes nothing: K1 never runs")
+    err, out = 0.0, {}
+    for shape, bits in pairs:
+        x = torch.randn(shape, generator=gen, device=device)
+        e = float((fake_quant_2d(x, bits) - fake_quant_ref(x, bits)).abs()
+                  .max())
+        err = max(err, e)
+        log(f"  fake_quant {list(shape)} {bits} bits: max |kernel - plain| "
+            f"{e:.3g}")
+    big, bits = max(pairs, key=lambda c: c[0][0] * c[0][1])
+    if torch.device(device).type == "cuda":
+        x = torch.randn(big, generator=gen, device=device)
+        ms, _ = cuda_ms(lambda: fake_quant_2d(x, bits), 10, 2)
+        plain, _ = cuda_ms(lambda: fake_quant_ref(x, bits), 10, 2)
+        bound, by = bound_ms(8.0 * x.numel(), 10.0 * x.numel())
+        log(f"    {list(big)} {bits} bits: {ms * 1e3:.2f} us kernel, "
+            f"{plain * 1e3:.2f} us plain, bound {bound * 1e3:.3f} us ({by})")
+        out.update(shape=list(big), ms=ms, plain_ms=plain, bound_ms=bound)
+    out.update(pairs=len(pairs), max_abs_err=err)
+    if err > 0.0:
+        raise AssertionError(f"fake_quant disagrees with its plain version "
+                             f"at the path's shapes: max abs err {err}")
     return out
 
 
@@ -342,6 +450,102 @@ def check_quant_matmul(cfg, device) -> dict:
             raise AssertionError(f"{name} disagrees with its plain version: "
                                  f"max abs err {err}")
         out[name] = res
+    return out
+
+
+def attention_work(B, H, KV, S, D, itemsize, causal=True):
+    """(bytes, operations) K6 must at least move and do: q, k, v read and
+    the output written once; two products of D multiply-adds for every
+    (query, key) pair the mask keeps (S(S+1)/2 of them per head when
+    causal)."""
+    pairs = S * (S + 1) / 2 if causal else S * S
+    return (itemsize * (2 * B * H * S * D + 2 * B * KV * S * D),
+            4.0 * B * H * D * pairs)
+
+
+def row_rel_err(got, want) -> float:
+    """The largest ||got - want|| / ||want|| over the rows (last axis) of
+    two attention outputs, in f32."""
+    g, w = got.float(), want.float()
+    return float(((g - w).norm(dim=-1)
+                  / w.norm(dim=-1).clamp_min(1e-30)).max())
+
+
+def attention_tail_ref(q, k, v, rows: int):
+    """``ref.attention_ref``'s arithmetic (dense f32 softmax, causal) for
+    the last ``rows`` query rows of q [B,H,S,D] only, in q's dtype: at the
+    prefill length the whole score matrix would not fit, its last rows
+    (the q tiles with the most keys) do."""
+    import torch
+    B, H, S, D = q.shape
+    KV = k.shape[1]
+    qq = q[:, :, S - rows:].reshape(B, KV, H // KV, rows, D)
+    s = torch.einsum("bkgqd,bkld->bkgql", qq.float(),
+                     k.float()) / math.sqrt(D)
+    qpos = torch.arange(S - rows, S, device=q.device)[:, None]
+    kpos = torch.arange(S, device=q.device)[None, :]
+    s = torch.where(kpos <= qpos, s, torch.full_like(s, -1e30))
+    o = torch.einsum("bkgql,bkld->bkgqd", torch.softmax(s, -1), v.float())
+    return o.reshape(B, H, rows, D).to(q.dtype)
+
+
+def sdpa(q, k, v, causal=True):
+    """The library yardstick for K6 (timed only; the port never calls
+    it)."""
+    import torch.nn.functional as F
+    return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                          enable_gqa=True)
+
+
+def check_flash_attention(device) -> dict:
+    """K6 against the dense plain version ``attention_ref``: the JAX
+    tests' shapes in f32 (causal, bidirectional, window 96; atol 2e-5),
+    their bf16 case and qwen2-0.5b's heads (14 over 2 of 64) at S 4096 in
+    bf16 (atol 0.04, and each row within ``K6_ROW_TOL``). The S 4096
+    causal case is timed beside the plain version and SDPA. Returns that
+    row; the row of the prefill shape comes from
+    ``check_flash_attention_prefill``."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=device).manual_seed(5)
+    cases = [((2, 128, 4, 4, 32), torch.float32, 2e-5),
+             ((2, 200, 8, 2, 16), torch.float32, 2e-5),
+             ((2, 512, 4, 1, 64), torch.float32, 2e-5),
+             ((1, 128, 4, 2, 32), torch.bfloat16, 0.04),
+             ((1, 4096, 14, 2, 64), torch.bfloat16, 0.04)]
+    out = {}
+    for (B, S, H, KV, D), dtype, tol in cases:
+        q, k, v = [torch.randn(shape, generator=gen, device=device).to(dtype)
+                   for shape in ((B, H, S, D), (B, KV, S, D), (B, KV, S, D))]
+        worst = (0.0, 0.0)          # the shape's max over the masks
+        for causal, window in ((True, 0), (False, 0), (True, 96)):
+            got = ops.flash_attention(q, k, v, causal=causal, window=window)
+            want = ref.attention_ref(q, k, v, causal=causal, window=window)
+            err = float((got.float() - want.float()).abs().max())
+            rel = row_rel_err(got, want)
+            rel_tol = K6_ROW_TOL if dtype == torch.bfloat16 else math.inf
+            log(f"  flash_attention {(B, H, KV, S, D)} {str(dtype)[6:]} "
+                f"causal={causal} window={window}: max |kernel - plain| "
+                f"{err:.3g} (tol {tol}), max row rel {rel:.3g} (tol "
+                f"{rel_tol:.3g})")
+            if not (err <= tol and rel <= rel_tol):
+                raise AssertionError(f"flash_attention disagrees with its "
+                                     f"plain version: {err} > {tol} or "
+                                     f"{rel} > {rel_tol}")
+            worst = (max(worst[0], err), max(worst[1], rel))
+        if S == 4096:
+            ms, paced = cuda_ms(lambda: ops.flash_attention(q, k, v), 10, 2)
+            plain, _ = cuda_ms(lambda: ref.attention_ref(q, k, v), 3, 1)
+            lib, _ = cuda_ms(lambda: sdpa(q, k, v), 10, 2)
+            n_bytes, n_ops = attention_work(B, H, KV, S, D, 2)
+            bound, by = bound_ms(n_bytes, n_ops, BF16_FLOPS)
+            out = dict(shape=[B, H, KV, S, D], ms=ms, paced_ms=paced,
+                       plain_ms=plain, library_ms=lib, bound_ms=bound,
+                       bound_by=by, max_abs_err=worst[0], tolerance=tol,
+                       row_rel_err=worst[1])
+            log(f"    S 4096 causal bf16: {ms:.3f} ms kernel, {plain:.3f} "
+                f"ms plain (dense), {lib:.3f} ms SDPA, bound {bound:.4f} ms "
+                f"({by}); {n_ops / ms / 1e9:.1f} TFLOP/s")
     return out
 
 
@@ -616,6 +820,275 @@ def run_measured_search(cfg, device, table_dict: dict, *, episodes: int,
     return result
 
 
+# ---------------------------------------------------------------------------
+# Phases 7 and 8: prefill and decode of qwen2-0.5b
+# ---------------------------------------------------------------------------
+
+def seeded_policy(cm, seed: int):
+    """A legalized pq policy from seeded numpy actions, as one search
+    episode maps them (``map_actions`` legalizes)."""
+    import numpy as np
+    from repro_torch.core.policy import Policy, map_actions
+    rng = np.random.default_rng(seed)
+    pol = Policy.reference(cm.specs)
+    for i, s in enumerate(cm.specs):
+        pol.cmps[i] = map_actions(s, rng.random(3).astype(np.float32), "pq")
+    return pol
+
+
+def prefill_tokens(cfg, batch: int, seq: int, seed: int, device):
+    import numpy as np
+    import torch
+    toks = np.random.default_rng(seed).integers(0, cfg.vocab_size,
+                                                (batch, seq))
+    return torch.as_tensor(toks, dtype=torch.int64, device=device)
+
+
+def layer_qkv(cfg, params, tokens):
+    """q, k, v [B,S,H,D] / [B,S,KV,D] as layer 0 of the uncompressed
+    forward hands them to the attention: the embedding, the layer's input
+    norm, then ``blocks._qkv_rope``, which ``apply_attention`` calls."""
+    import torch
+    from repro_torch.models import blocks as MB
+    from repro_torch.models import layers as ML
+    from repro_torch.models import model as M
+    with torch.no_grad():
+        x = M._embed_inputs(cfg, params, tokens, None)
+        p = params["blocks"][0]
+        h = ML.apply_norm(cfg.norm, p["attn_norm"], x)
+        pos = torch.arange(x.shape[1], device=x.device)[None, :]
+        return MB._qkv_rope(p["attn"], h, cfg, None, pos)
+
+
+def check_flash_attention_prefill(q, k, v) -> dict:
+    """K6 at the prefill shape on one layer's q/k/v against the chunked
+    plain branch (the dense plain version would need S² scores): bf16's
+    atol 0.04 and each row within ``K6_CHUNKED_ROW_TOL``; its last
+    ``K6_TAIL_ROWS`` rows also against the dense plain version
+    (``attention_tail_ref``) within ``K6_ROW_TOL``. Timed beside the
+    plain branch and SDPA."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as ML
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    got = ops.flash_attention(qt, kt, vt)
+    tail = row_rel_err(got[:, :, -K6_TAIL_ROWS:],
+                       attention_tail_ref(qt, kt, vt, K6_TAIL_ROWS))
+    got = got.transpose(1, 2)
+    want = ML.attention_chunked(q, k, v, causal=True)
+    err = float((got.float() - want.float()).abs().max())
+    rel = row_rel_err(got, want)
+    del want
+    B, S, H, D = q.shape
+    log(f"  flash_attention {(B, H, k.shape[2], S, D)} bf16 causal, layer 0 "
+        f"q/k/v: max |kernel - chunked plain| {err:.3g} (tol 0.04), max row"
+        f" rel {rel:.3g} (tol {K6_CHUNKED_ROW_TOL:.3g}); last "
+        f"{K6_TAIL_ROWS} rows vs the dense plain version: max row rel "
+        f"{tail:.3g} (tol {K6_ROW_TOL:.3g})")
+    if not (err <= 0.04 and rel <= K6_CHUNKED_ROW_TOL
+            and tail <= K6_ROW_TOL):
+        raise AssertionError(f"flash_attention disagrees with its plain "
+                             f"versions: {err}, {rel}, {tail}")
+    ms, paced = cuda_ms(lambda: ops.flash_attention(qt, kt, vt), 3, 1)
+    plain, _ = cuda_ms(lambda: ML.attention_chunked(q, k, v, causal=True),
+                       1, 1)
+    lib, _ = cuda_ms(lambda: sdpa(qt, kt, vt), 5, 2)
+    n_bytes, n_ops = attention_work(B, H, k.shape[2], S, D, 2)
+    bound, by = bound_ms(n_bytes, n_ops, BF16_FLOPS)
+    log(f"    {ms:.3f} ms kernel ({n_ops / ms / 1e9:.1f} TFLOP/s), {plain:.3f}"
+        f" ms chunked plain, {lib:.3f} ms SDPA, bound {bound:.4f} ms ({by})")
+    return dict(shape=[B, H, k.shape[2], S, D], ms=ms, paced_ms=paced,
+                plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by,
+                max_abs_err=err, tolerance=0.04, row_rel_err=rel,
+                tail_row_rel_err=tail)
+
+
+def timed_prefill(cfg, params, tokens, cspec=None) -> tuple:
+    """One ``make_prefill_step`` forward: (seconds on the host clock,
+    ended by a device sync, and the launches it made). Fails on logits
+    that are not finite or not [B, S, vocab]."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.train.train_step import make_prefill_step
+    step = make_prefill_step(cfg, cspec)
+    sync = torch.cuda.synchronize if tokens.is_cuda else (lambda: None)
+    sync()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    logits = step(params, tokens)
+    sync()
+    dt = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    if tuple(logits.shape) != tuple(tokens.shape) + (cfg.vocab_size,) \
+            or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"bad prefill logits {tuple(logits.shape)}")
+    return dt, launches
+
+
+def check_prefill_numerics(cfg, device, seq: int, seed: int = 0) -> dict:
+    """The whole prefill at ``cfg`` (f32 compute) on ``device`` against
+    the plain CPU path (chunked branch, plain fake-quant): next-token
+    argmax agreement >= 99% uncompressed, >= 95% under the seeded
+    policy."""
+    import torch
+    from repro_torch.core.compress import CompressibleLM
+    from repro_torch.models import model as M
+    from repro_torch.train.train_step import make_prefill_step
+    f32 = cfg.replace(compute_dtype="float32")
+    cpu_params = M.init(f32, seed=seed, device="cpu")
+    dev_params = _to(cpu_params, device)
+    toks = prefill_tokens(f32, 2, seq, seed + 1, "cpu")
+    cms = [CompressibleLM(f32, p) for p in (cpu_params, dev_params)]
+    agree = {}
+    for name, cspecs in (("uncompressed", (None, None)),
+                         ("policy", [cm.build_cspec(seeded_policy(cm, seed))
+                                     for cm in cms])):
+        want = make_prefill_step(f32, cspecs[0])(cpu_params, toks)
+        got = make_prefill_step(f32, cspecs[1])(dev_params,
+                                                toks.to(device)).cpu()
+        agree[name] = float((got.argmax(-1) == want.argmax(-1)).float()
+                            .mean())
+        log(f"  {f32.name} {name}, f32, 2 x {seq} tokens: argmax agreement "
+            f"device vs plain CPU path {agree[name]:.4f}, max |logit diff| "
+            f"{float((got - want).abs().max()):.3g}")
+    # Under the policy a last-bit difference in a channel's range moves
+    # whole fake-quant steps (ROADMAP Queue 3), so the bound is looser.
+    if agree["uncompressed"] < 0.99 or agree["policy"] < 0.95:
+        raise AssertionError(f"the device prefill disagrees with the CPU "
+                             f"path: argmax agreement {agree}")
+    return agree
+
+
+def run_prefill(cfg, params, cspec, device, seq: int, warm_seq: int,
+                seed: int = 0) -> dict:
+    """One layer's q/k/v through K6 and the plain branch, then warm-up
+    and timed prefill forwards, uncompressed and under ``cspec``. On the
+    card each timed forward must launch K6 once per layer (and K1 under
+    the policy, exactly as often as ``k1_calls`` counts); on the CPU
+    nothing may launch."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.inputs import model_flops
+    tokens = prefill_tokens(cfg, 1, seq, seed, device)
+    out = {}
+    if tokens.is_cuda:
+        out["k6"] = check_flash_attention_prefill(
+            *layer_qkv(cfg, params, tokens))
+    flops = model_flops(cfg, ShapeConfig("prefill", seq, 1, "prefill"))
+    for name, cs in (("uncompressed", None), ("policy", cspec)):
+        timed_prefill(cfg, params, tokens[:, :warm_seq], cs)
+        dt, launches = timed_prefill(cfg, params, tokens, cs)
+        log(f"  {name}: {dt * 1e3:.1f} ms per forward of 1 x {seq} tokens, "
+            f"{seq / dt:.0f} tokens/s, MFU {flops / dt / BF16_FLOPS:.4f} "
+            f"(model_flops {flops / 1e12:.2f} TFLOP over 989 TFLOP/s); "
+            f"launches {launches}")
+        if not tokens.is_cuda:          # the plain versions' rehearsal
+            if any(launches.values()):
+                raise AssertionError(f"kernels launched on the CPU: "
+                                     f"{launches}")
+        elif launches["flash_attention"] != cfg.num_layers:
+            raise AssertionError(f"{launches['flash_attention']} K6 launches "
+                                 f"in a {cfg.num_layers}-layer forward")
+        elif name == "policy" and launches["fake_quant"] == 0:
+            raise AssertionError("the compressed forward never launched K1")
+        elif launches["fake_quant"] != len(k1_calls(cfg, cs, seq)):
+            raise AssertionError(f"{launches['fake_quant']} K1 launches, "
+                                 f"{len(k1_calls(cfg, cs, seq))} expected")
+        out[name] = dict(seconds=dt, launches=launches)
+    if tokens.is_cuda:
+        torch.cuda.synchronize()
+    return out
+
+
+def oracle_prefill_ratio(cm, policy, seq: int) -> float:
+    """The analytic oracle's compressed / reference latency for a prefill
+    of ``seq`` tokens at a ``seq`` context (V5E reference data)."""
+    from repro_torch.core.latency import V5E, LatencyContext, policy_latency
+    from repro_torch.core.policy import Policy
+    ctx = LatencyContext(tokens=seq, seq_ctx=seq, mode="prefill")
+    ref = policy_latency(cm.specs, Policy.reference(cm.specs), V5E, ctx)
+    return policy_latency(cm.specs, policy, V5E, ctx).total_s / ref.total_s
+
+
+def run_decode(cfg, params, cspecs: dict, *, batch: int, steps: int,
+               max_len: int, requests: int = 2) -> dict:
+    """``decode_loop`` then ``sustained_throughput`` per (cspec, cache
+    bits); tok/s of each. Fails on tokens out of the vocabulary, and on
+    the card when a ``decode_loop`` launches K1 other than ``k1_calls``
+    times per step."""
+    from repro_torch.kernels import build
+    from repro_torch.launch.serve import decode_loop, sustained_throughput
+    out = {}
+    for name, cs in cspecs.items():
+        for bits in (16, 8):
+            build.reset_launches()
+            toks, dt = decode_loop(cfg, params, batch, steps, max_len, cs,
+                                   cache_bits=bits)
+            k1 = build.LAUNCHES["fake_quant"]
+            want = steps * len(k1_calls(cfg, cs, batch)) if toks.is_cuda \
+                else 0
+            if k1 != want:
+                raise AssertionError(f"{k1} K1 launches in {steps} decode "
+                                     f"steps, {want} expected")
+            if tuple(toks.shape) != (batch, steps + 1) or \
+                    int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
+                raise AssertionError(f"bad decode tokens {tuple(toks.shape)}")
+            tok_s, times = sustained_throughput(cfg, params, batch, steps,
+                                                max_len, cs, requests, bits)
+            log(f"  {name}, {bits}-bit KV cache: decode_loop "
+                f"{batch * steps / dt:.1f} tok/s ({dt * 1e3:.1f} ms for "
+                f"{steps} steps x batch {batch}, {k1} K1 launches); "
+                f"sustained {tok_s:.1f} tok/s over {requests} requests "
+                f"({min(times):.3f}-{max(times):.3f} s each)")
+            out[f"{name}/{bits}"] = dict(loop_tok_s=batch * steps / dt,
+                                         sustained_tok_s=tok_s,
+                                         k1_launches=k1)
+    return out
+
+
+def profile_decode(cfg, params, cspec, *, batch: int, steps: int,
+                   max_len: int) -> dict:
+    """Where a decode step's time goes: one ``decode_loop`` of ``steps``
+    steps under ``torch.profiler`` after an unprofiled one of the same
+    length; the device's busy time per step (sum of kernel times) against
+    the unprofiled step's wall time, and the top kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.serve import decode_loop
+    _, wall = decode_loop(cfg, params, batch, steps, max_len, cspec)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        decode_loop(cfg, params, batch, steps, max_len, cspec)
+        torch.cuda.synchronize()
+    rows = [(getattr(ev, "self_device_time_total", 0.0), ev.key,
+             ev.count) for ev in prof.key_averages()
+            if getattr(ev, "device_type", None) is not None
+            and "CUDA" in str(ev.device_type)]
+    busy = sum(t for t, _, _ in rows) * 1e-6 / steps
+    return {"step_s": wall / steps, "device_busy_s": busy,
+            "kernels_per_step": sum(n for _, _, n in rows) / steps,
+            "top": sorted(rows, reverse=True)[:5]}
+
+
+def check_decode_consistency(cfg, device, steps: int = 16,
+                             seed: int = 0) -> None:
+    """At ``cfg`` with f32 compute, the greedy tokens of ``decode_loop``
+    (16-bit cache) are the argmaxes of one prefill forward over the same
+    tokens: the cache path and the full-sequence path agree."""
+    import torch
+    from repro_torch.launch.serve import decode_loop
+    from repro_torch.models import model as M
+    f32 = cfg.replace(compute_dtype="float32")
+    params = M.init(f32, seed=seed, device=device)
+    toks, _ = decode_loop(f32, params, 4, steps, 2 * steps)
+    with torch.no_grad():
+        again = M.forward(f32, params, toks[:, :steps]).argmax(-1)
+    agree = float((again == toks[:, 1:]).float().mean())
+    log(f"  {f32.name}, f32: decode tokens equal the prefill argmaxes at "
+        f"{agree:.4f} of {toks[:, 1:].numel()} positions")
+    if agree < 1.0:
+        raise AssertionError("decode and prefill disagree")
+
+
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
@@ -672,6 +1145,7 @@ def main() -> int:
         "polyak": check_polyak((actor_n, critic_n), ddpg.tau, device),
         **check_quant_matmul(LM_CFG, device),
     }
+    k6_4096 = check_flash_attention(device)
     for name, r in results.items():
         lib_ms = r["library_ms"]
         log(f"  {name} {r['shape']}: {r['ms'] * 1e3:.2f} us kernel "
@@ -749,6 +1223,67 @@ def main() -> int:
             f"{r['measured_ref_s'] * 1e3:.4f} ms (ratio "
             f"{r['measured_ratio']:.4f})")
 
+    from repro_torch.core.compress import CompressibleLM
+    from repro_torch.models import model as M
+    from repro_torch.models.registry import get_config
+    qwen = get_config("qwen2-0.5b")
+    log(f"[prefill] make_prefill_step on {qwen.name} ({qwen.num_layers}L "
+        f"d={qwen.d_model} {qwen.num_heads}/{qwen.num_kv_heads} heads of "
+        f"{qwen.head_dim}, vocab {qwen.vocab_size}, {qwen.compute_dtype}), "
+        f"seeded random weights, 1 x {PREFILL_SEQ} tokens, uncompressed "
+        f"and under a seeded pq policy")
+    t0 = time.perf_counter()
+    cm = CompressibleLM(qwen, M.init(qwen, seed=0, device=device))
+    policy = seeded_policy(cm, 0)
+    cspec = cm.build_cspec(policy)
+    log("  policy (keep, w/a bits): " + " ".join(
+        f"{s.name}:{c.keep}/{c.w_bits}/{c.a_bits}"
+        for s, c in zip(cm.specs, policy.cmps)
+        if c.w_bits < 32 or (s.prune_dim and c.keep < s.prune_dim)))
+    k1_path = check_fake_quant_path(qwen, cspec,
+                                    (PREFILL_SEQ, DECODE["batch"]), device)
+    log(f"  K1 at the {k1_path['pairs']} (shape, bits) of the policy's "
+        f"prefill and decode: max |kernel - plain| "
+        f"{k1_path['max_abs_err']:.3g} (tol 0)")
+    pre = run_prefill(qwen, cm.params, cspec, device, PREFILL_SEQ,
+                      PREFILL_WARM_SEQ)
+    results["flash_attention"] = pre["k6"]
+    launches["flash_attention"] = sum(
+        pre[n]["launches"]["flash_attention"] for n in ("uncompressed",
+                                                         "policy"))
+    predicted = oracle_prefill_ratio(cm, policy, PREFILL_SEQ)
+    measured = pre["policy"]["seconds"] / pre["uncompressed"]["seconds"]
+    log(f"  compressed / reference: predicted {predicted:.4f} (analytic "
+        f"oracle, V5E reference data), measured {measured:.4f}")
+    check_prefill_numerics(get_config("qwen2-0.5b", smoke=True), device,
+                           1100)
+    log(f"  {time.perf_counter() - t0:.1f} s for the prefill phase")
+
+    log(f"[decode] decode_loop and sustained_throughput on {qwen.name}, "
+        f"batch {DECODE['batch']}, {DECODE['steps']} steps, max_len "
+        f"{DECODE['max_len']}")
+    t0 = time.perf_counter()
+    run_decode(qwen, cm.params, {"uncompressed": None, "policy": cspec},
+               **DECODE)
+    for name, cs in (("uncompressed", None), ("policy", cspec)):
+        prof = profile_decode(qwen, cm.params, cs, batch=DECODE["batch"],
+                              steps=8, max_len=DECODE["max_len"])
+        busy = prof["device_busy_s"]
+        log(f"  {name}, 16-bit cache, profiled: {prof['step_s'] * 1e3:.2f} "
+            f"ms per step (unprofiled), device busy {busy * 1e3:.2f} ms "
+            f"({busy / prof['step_s']:.1%}), "
+            f"{prof['kernels_per_step']:.0f} kernels per step; top device "
+            f"time over 8 steps (us):")
+        for t, key, n in prof["top"]:
+            log(f"    {t:10.1f}  x{n:<6d} {key[:80]}")
+    check_decode_consistency(get_config("qwen2-0.5b", smoke=True), device)
+    log(f"  {time.perf_counter() - t0:.1f} s for the decode phase")
+
+    r = k6_4096
+    log(f"  flash_attention at S 4096 {r['shape']}: {r['ms']:.4f} ms kernel,"
+        f" {r['plain_ms']:.4f} ms plain, {r['library_ms']:.4f} ms SDPA, "
+        f"bound {r['bound_ms']:.4f} ms; max err {r['max_abs_err']:.3g}, "
+        f"max row rel {r['row_rel_err']:.3g}")
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", **KERNELS[name],
          "launches": launches[name], "max_abs_err": r["max_abs_err"],

@@ -14,6 +14,7 @@ from typing import Any, List, Optional, Sequence
 import torch
 
 from ..configs.base import ArchConfig
+from ..models import blocks as B
 from ..models import model as M
 from . import pruning
 from .policy import Policy
@@ -29,47 +30,121 @@ def _head_granularity(head_dim: int, lane: int = 128) -> int:
 
 
 def lm_layer_specs(cfg: ArchConfig) -> List[LayerSpec]:
-    """The compressible units of a dense LM, in the JAX package's order:
-    embed, then per layer qkv / out / mlp up / mlp down, then head."""
-    if set(cfg.layer_kinds) != {"attn"} or cfg.moe is not None \
-            or cfg.frontend == "audio_stub":
-        raise NotImplementedError(
-            f"{cfg.name}: only the dense attention family is ported")
+    """The compressible units of an LM of any family, in the JAX
+    package's order: embed, then per layer its units, then head. Pure
+    shape arithmetic (the oracle and ``launch.inputs.model_flops`` read
+    it for every config); ``CompressibleLM`` refuses the families whose
+    model is not ported."""
     specs: List[LayerSpec] = []
     d = cfg.d_model
-    specs.append(LayerSpec(
-        name="embed", kind="embed", layer_idx=-1, in_dim=cfg.vocab_size,
-        out_dim=d, quantizable=True, mix_supported=False,
-        weight_elems=cfg.vocab_size * d, act_elems_per_token=1))
-    for i in range(cfg.num_layers):
-        H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    if cfg.frontend != "audio_stub":
         specs.append(LayerSpec(
-            name=f"L{i}.attn_qkv", kind="attn_qkv", layer_idx=i,
-            in_dim=d, out_dim=(H + 2 * KV) * hd,
-            prunable=True, prune_dim=H,
-            prune_granularity=_head_granularity(hd),
-            flops_per_token=2.0 * d * (H + 2 * KV) * hd,
-            weight_elems=d * (H + 2 * KV) * hd,
-            act_elems_per_token=d,
-            extra={"head_dim": hd, "kv_heads": KV}))
-        specs.append(LayerSpec(
-            name=f"L{i}.attn_out", kind="attn_out", layer_idx=i,
-            in_dim=H * hd, out_dim=d, dep_group=f"L{i}.heads",
-            flops_per_token=2.0 * H * hd * d,
-            weight_elems=H * hd * d, act_elems_per_token=H * hd))
-        ff = cfg.d_ff
-        gated = 2 if cfg.mlp in ("swiglu", "geglu") else 1
-        specs.append(LayerSpec(
-            name=f"L{i}.mlp_up", kind="mlp_up", layer_idx=i,
-            in_dim=d, out_dim=ff, prunable=True, prune_dim=ff,
-            prune_granularity=128,
-            flops_per_token=2.0 * d * ff * gated,
-            weight_elems=d * ff * gated, act_elems_per_token=d))
-        specs.append(LayerSpec(
-            name=f"L{i}.mlp_down", kind="mlp_down", layer_idx=i,
-            in_dim=ff, out_dim=d, dep_group=f"L{i}.ff",
-            flops_per_token=2.0 * ff * d,
-            weight_elems=ff * d, act_elems_per_token=ff))
+            name="embed", kind="embed", layer_idx=-1, in_dim=cfg.vocab_size,
+            out_dim=d, quantizable=True, mix_supported=False,
+            weight_elems=cfg.vocab_size * d, act_elems_per_token=1))
+    for i, kind in enumerate(cfg.layer_kinds):
+        if kind == "attn":
+            H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+            specs.append(LayerSpec(
+                name=f"L{i}.attn_qkv", kind="attn_qkv", layer_idx=i,
+                in_dim=d, out_dim=(H + 2 * KV) * hd,
+                prunable=True, prune_dim=H,
+                prune_granularity=_head_granularity(hd),
+                flops_per_token=2.0 * d * (H + 2 * KV) * hd,
+                weight_elems=d * (H + 2 * KV) * hd,
+                act_elems_per_token=d,
+                extra={"head_dim": hd, "kv_heads": KV}))
+            specs.append(LayerSpec(
+                name=f"L{i}.attn_out", kind="attn_out", layer_idx=i,
+                in_dim=H * hd, out_dim=d, dep_group=f"L{i}.heads",
+                flops_per_token=2.0 * H * hd * d,
+                weight_elems=H * hd * d, act_elems_per_token=H * hd))
+            if cfg.moe is not None:
+                E, K, ff = cfg.moe.num_experts, cfg.moe.top_k, cfg.d_ff
+                gated = 2
+                specs.append(LayerSpec(
+                    name=f"L{i}.moe_up", kind="moe_up", layer_idx=i,
+                    in_dim=d, out_dim=ff, prunable=True, prune_dim=ff,
+                    prune_granularity=128,
+                    flops_per_token=2.0 * K * d * ff * gated,
+                    weight_elems=E * d * ff * gated, act_elems_per_token=K * d,
+                    extra={"experts": E, "top_k": K}))
+                specs.append(LayerSpec(
+                    name=f"L{i}.moe_down", kind="moe_down", layer_idx=i,
+                    in_dim=ff, out_dim=d, dep_group=f"L{i}.moe_ff",
+                    flops_per_token=2.0 * K * ff * d,
+                    weight_elems=E * ff * d, act_elems_per_token=K * ff,
+                    extra={"experts": E, "top_k": K}))
+                if cfg.moe.dense_residual:
+                    specs.append(LayerSpec(
+                        name=f"L{i}.dense_up", kind="mlp_up", layer_idx=i,
+                        in_dim=d, out_dim=ff, prunable=True, prune_dim=ff,
+                        prune_granularity=128,
+                        flops_per_token=2.0 * d * ff * gated,
+                        weight_elems=d * ff * gated, act_elems_per_token=d,
+                        extra={"dense_residual": True}))
+                    specs.append(LayerSpec(
+                        name=f"L{i}.dense_down", kind="mlp_down", layer_idx=i,
+                        in_dim=ff, out_dim=d, dep_group=f"L{i}.dense_ff",
+                        flops_per_token=2.0 * ff * d,
+                        weight_elems=ff * d, act_elems_per_token=ff,
+                        extra={"dense_residual": True}))
+            else:
+                ff = cfg.d_ff
+                gated = 2 if cfg.mlp in ("swiglu", "geglu") else 1
+                specs.append(LayerSpec(
+                    name=f"L{i}.mlp_up", kind="mlp_up", layer_idx=i,
+                    in_dim=d, out_dim=ff, prunable=True, prune_dim=ff,
+                    prune_granularity=128,
+                    flops_per_token=2.0 * d * ff * gated,
+                    weight_elems=d * ff * gated, act_elems_per_token=d))
+                specs.append(LayerSpec(
+                    name=f"L{i}.mlp_down", kind="mlp_down", layer_idx=i,
+                    in_dim=ff, out_dim=d, dep_group=f"L{i}.ff",
+                    flops_per_token=2.0 * ff * d,
+                    weight_elems=ff * d, act_elems_per_token=ff))
+        elif kind == "ssm":
+            d_inner, nheads, conv_dim = B.ssm_dims(cfg)
+            d_proj = 2 * d_inner + 2 * cfg.ssm.d_state + nheads
+            specs.append(LayerSpec(
+                name=f"L{i}.ssm_in", kind="ssm_in", layer_idx=i,
+                in_dim=d, out_dim=d_proj, prunable=True, prune_dim=nheads,
+                prune_granularity=_head_granularity(cfg.ssm.head_dim),
+                flops_per_token=2.0 * d * d_proj,
+                weight_elems=d * d_proj, act_elems_per_token=d,
+                extra={"head_dim": cfg.ssm.head_dim,
+                       "d_state": cfg.ssm.d_state}))
+            specs.append(LayerSpec(
+                name=f"L{i}.ssm_out", kind="ssm_out", layer_idx=i,
+                in_dim=d_inner, out_dim=d, dep_group=f"L{i}.ssm_heads",
+                flops_per_token=2.0 * d_inner * d,
+                weight_elems=d_inner * d, act_elems_per_token=d_inner))
+        elif kind == "rglru":
+            w = cfg.lru_width
+            specs.append(LayerSpec(
+                name=f"L{i}.rglru_in", kind="rglru_in", layer_idx=i,
+                in_dim=d, out_dim=2 * w, prunable=True, prune_dim=w,
+                prune_granularity=128,
+                flops_per_token=2.0 * d * 2 * w,
+                weight_elems=d * 2 * w, act_elems_per_token=d))
+            specs.append(LayerSpec(
+                name=f"L{i}.rglru_out", kind="rglru_out", layer_idx=i,
+                in_dim=w, out_dim=d, dep_group=f"L{i}.lru",
+                flops_per_token=2.0 * w * d,
+                weight_elems=w * d, act_elems_per_token=w))
+            ff = cfg.d_ff
+            gated = 2 if cfg.mlp in ("swiglu", "geglu") else 1
+            specs.append(LayerSpec(
+                name=f"L{i}.mlp_up", kind="mlp_up", layer_idx=i,
+                in_dim=d, out_dim=ff, prunable=True, prune_dim=ff,
+                prune_granularity=128,
+                flops_per_token=2.0 * d * ff * gated,
+                weight_elems=d * ff * gated, act_elems_per_token=d))
+            specs.append(LayerSpec(
+                name=f"L{i}.mlp_down", kind="mlp_down", layer_idx=i,
+                in_dim=ff, out_dim=d, dep_group=f"L{i}.ff",
+                flops_per_token=2.0 * ff * d,
+                weight_elems=ff * d, act_elems_per_token=ff))
     specs.append(LayerSpec(
         name="head", kind="head", layer_idx=cfg.num_layers,
         in_dim=d, out_dim=cfg.vocab_size, quantizable=True,
@@ -158,6 +233,7 @@ class CompressibleLM:
     _scores: dict = field(default_factory=dict, init=False, repr=False)
 
     def __post_init__(self):
+        M._check_supported(self.cfg)
         self.specs = lm_layer_specs(self.cfg)
         for i in range(self.cfg.num_layers):
             for kind in ("attn_qkv", "mlp_up"):

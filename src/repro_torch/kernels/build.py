@@ -25,7 +25,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = ("fake_quant", "mlp3", "polyak", "quant_matmul")
+SOURCES = ("fake_quant", "mlp3", "polyak", "quant_matmul",
+           "flash_attention")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -36,12 +37,16 @@ _SIGNATURES = {
                                  ctypes.c_float, ctypes.c_float, _P]},
     "quant_matmul": {"quant_matmul_int8_launch": [_P] * 7 + [_I] * 4 + [_P],
                      "quant_matmul_int4_launch": [_P] * 7 + [_I] * 4 + [_P]},
+    "flash_attention": {"flash_attention_launch":
+                        [_P] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
+                        + [_I] * 6 + [ctypes.c_float, _I, _I, _P]},
 }
 
 # Kernel launches per wrapper, counted where each wrapper launches its
 # kernel (never for the plain version on a CPU tensor).
 LAUNCHES = {"fake_quant": 0, "mlp3": 0, "polyak": 0,
-            "quant_matmul_int8": 0, "quant_matmul_int4": 0}
+            "quant_matmul_int8": 0, "quant_matmul_int4": 0,
+            "flash_attention": 0}
 
 _libs: dict = {}
 build_report: dict = {}     # name -> {"seconds", "ptxas"} of the last build
@@ -126,9 +131,10 @@ def lib(name: str) -> ctypes.CDLL:
 
 
 def check_operand(t: torch.Tensor, name: str, ndim: int,
-                  dtype: torch.dtype = torch.float32) -> None:
-    """What every hand-written kernel takes: a contiguous tensor of
-    ``dtype`` on cuda:0."""
+                  dtype: torch.dtype = torch.float32,
+                  contiguous: bool = True) -> None:
+    """What every hand-written kernel takes: a tensor of ``dtype`` on
+    cuda:0, contiguous unless the kernel reads element strides."""
     if t.device.type != "cuda":
         raise ValueError(f"{name}: kernels take CUDA tensors, "
                          f"got {t.device}")
@@ -138,7 +144,7 @@ def check_operand(t: torch.Tensor, name: str, ndim: int,
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{name}: expected {ndim}-D, got {tuple(t.shape)}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 

@@ -11,6 +11,7 @@ import torch
 import torch.nn.functional as F
 
 from . import fake_quant as _fq
+from . import flash_attention as _fa
 from . import mlp_fused as _mlp
 from . import quant_matmul as _qm
 from . import ref as _ref
@@ -113,3 +114,11 @@ def fused_polyak(target, online, tau: float):
             off += n
         out.append(new)
     return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q [B,H,S,D]; k,v [B,KV,S,D] -> [B,H,S,D] (K6). The JAX op pads S
+    to its blocks' multiple; the kernel masks the ragged edge instead.
+    No gradient, as the JAX op has none."""
+    return _fa.flash_attention(q, k, v, causal=causal, window=window)

@@ -7,6 +7,8 @@ holds each kernel against them on the card.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -114,3 +116,30 @@ def quant_matmul_ref(xq, wq, sx, zx, sw, zw, packed: bool = False,
     if packed:
         wq = unpack_int4_ref(wq)
     return int8_matmul_ref(xq, wq, sx, zx, sw, zw, k_true)
+
+
+# --- flash attention (K6) -----------------------------------------------------
+
+def attention_ref(q, k, v, *, causal: bool = True,
+                  window: int = 0) -> torch.Tensor:
+    """K6's function, dense: q [B,H,S,D]; k,v [B,KV,S,D] -> [B,H,S,D] in
+    q's dtype, an f32 softmax over every key with the finite -1e30 mask
+    (the JAX package's ``ref.attention_ref``). Its scores take S² memory:
+    at long S the model's chunked branch (``layers.attention_chunked``)
+    is the plain reference instead."""
+    B, H, S, D = q.shape
+    KV = k.shape[1]
+    qq = q.reshape(B, KV, H // KV, S, D)
+    s = torch.einsum("bkgqd,bkld->bkgql", qq.float(),
+                     k.float()) / math.sqrt(D)
+    qpos = torch.arange(S, device=q.device)[:, None]
+    kpos = torch.arange(S, device=q.device)[None, :]
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window > 0:
+        mask &= kpos > qpos - window
+    s = torch.where(mask[None, None, None], s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, -1)
+    o = torch.einsum("bkgql,bkld->bkgqd", p, v.float())
+    return o.reshape(B, H, S, D).to(q.dtype)

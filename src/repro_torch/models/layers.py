@@ -19,6 +19,7 @@ import torch
 
 from ..core.deploy import unpack_int4_weight
 from ..core.quantization import fake_quant_act, fake_quant_weight
+from ..kernels import ops
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -135,8 +136,9 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Attention — the dense block (S <= 512). The chunked online-softmax branch
-# for longer sequences waits for its own slice (kernel K6).
+# Attention — one dense block up to 512 positions; beyond that the chunked
+# online softmax: kernel K6 for a CUDA tensor, the port of the JAX
+# package's jnp chunked loop (``attention_chunked``) for a CPU one.
 # ---------------------------------------------------------------------------
 
 NEG_INF = -1e30
@@ -157,27 +159,120 @@ def _attn_scores_mask(qpos, kpos, causal: bool, window: int):
 
 
 def attention(q, k, v, *, causal: bool, window: int = 0,
-              q_chunk: int = 512,
+              q_chunk: int = 512, k_chunk: int = 1024,
               head_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """GQA attention. q: [B,S,H,D]; k,v: [B,S,KV,D]. window=0 -> unlimited.
-    One dense block; raises for S > max(q_chunk, 512), where the JAX
-    package switches to its chunked path."""
+
+    For S <= max(q_chunk, 512) one dense block; otherwise the chunked
+    online softmax: K6 (``ops.flash_attention``, on transposed views, no
+    copy) for a CUDA tensor, ``attention_chunked`` for a CPU one.
+    ``head_mask`` applies after either, as in the JAX package."""
     B, S, H, D = q.shape
-    if S > max(q_chunk, 512):
-        raise NotImplementedError(
-            f"S={S}: the chunked attention branch is not ported yet")
+    KV = k.shape[2]
+    G = H // KV
+    if S <= max(q_chunk, 512):
+        scale = 1.0 / math.sqrt(D)
+        qq = q.reshape(B, S, KV, G, D)
+        positions = torch.arange(S, device=q.device)
+        s = torch.einsum("bqkgd,blkd->bkgql", qq, k).float() * scale
+        mask = _attn_scores_mask(positions, positions, causal, window)
+        s = torch.where(mask[None, None, None], s,
+                        torch.full_like(s, NEG_INF))
+        p = torch.softmax(s, -1)
+        o = torch.einsum("bkgql,blkd->bqkgd", p.to(v.dtype), v)
+        o = o.reshape(B, S, H, D)
+    elif q.device.type == "cpu":
+        o = attention_chunked(q, k, v, causal=causal, window=window,
+                              q_chunk=q_chunk, k_chunk=k_chunk)
+    else:
+        o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), causal=causal,
+                                window=window).transpose(1, 2).to(v.dtype)
+    if head_mask is not None:
+        o = o * head_mask[None, None, :, None].to(o.dtype)
+    return o
+
+
+def attention_chunked(q, k, v, *, causal: bool, window: int = 0,
+                      q_chunk: int = 512,
+                      k_chunk: int = 1024) -> torch.Tensor:
+    """The JAX package's jnp chunked attention, as a loop over q-chunks
+    (outer) and k-chunks (inner, online softmax): S padded to each chunk
+    multiple (padded q positions read S, padded k positions -1), scores
+    cast to f32 after the einsum in the input dtype, p cast to v's dtype
+    before P.V. K6's plain version at lengths where the dense
+    ``ref.attention_ref`` would not fit. q: [B,S,H,D]; k,v: [B,S,KV,D]
+    -> [B,S,H,D] in v's dtype."""
+    B, S, H, D = q.shape
     KV = k.shape[2]
     G = H // KV
     scale = 1.0 / math.sqrt(D)
-    qq = q.reshape(B, S, KV, G, D)
+    n_q = -(-S // q_chunk)
+    n_k = -(-S // k_chunk)
     positions = torch.arange(S, device=q.device)
-    s = torch.einsum("bqkgd,blkd->bkgql", qq, k).float() * scale
-    mask = _attn_scores_mask(positions, positions, causal, window)
-    s = torch.where(mask[None, None, None], s,
-                    torch.full_like(s, NEG_INF))
+
+    def pad_s(x, to, value=0):
+        fill = torch.full((x.shape[0], to - S) + tuple(x.shape[2:]), value,
+                          dtype=x.dtype, device=x.device)
+        return torch.cat([x, fill], 1)
+
+    qq = pad_s(q.reshape(B, S, KV, G, D), n_q * q_chunk)
+    k_p, v_p = pad_s(k, n_k * k_chunk), pad_s(v, n_k * k_chunk)
+    qpos = pad_s(positions[None], n_q * q_chunk, S)[0]
+    kpos = pad_s(positions[None], n_k * k_chunk, -1)[0]
+
+    outs = []
+    for i in range(n_q):
+        rows = slice(i * q_chunk, (i + 1) * q_chunk)
+        qi = qq[:, rows].permute(0, 2, 3, 1, 4)          # [B,KV,G,Cq,D]
+        m = torch.full((B, KV, G, q_chunk), NEG_INF, device=q.device)
+        l = torch.zeros((B, KV, G, q_chunk), device=q.device)
+        acc = torch.zeros((B, KV, G, q_chunk, D), device=q.device)
+        for j in range(n_k):
+            cols = slice(j * k_chunk, (j + 1) * k_chunk)
+            ki = k_p[:, cols].transpose(1, 2)            # [B,KV,Ck,D]
+            vi = v_p[:, cols].transpose(1, 2)
+            s = torch.einsum("bkgqd,bkld->bkgql", qi, ki).float() * scale
+            mask = _attn_scores_mask(qpos[rows], kpos[cols], causal, window)
+            s = torch.where(mask[None, None, None], s,
+                            torch.full_like(s, NEG_INF))
+            m_new = torch.maximum(m, s.amax(-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bkgql,bkld->bkgqd", p.to(vi.dtype), vi).float()
+            m = m_new
+        outs.append(acc / torch.clamp_min(l[..., None], 1e-30))
+    out = torch.stack(outs)                              # [n_q,B,KV,G,Cq,D]
+    out = out.permute(1, 0, 4, 2, 3, 5).reshape(B, n_q * q_chunk, H, D)
+    return out[:, :S].to(v.dtype)
+
+
+def decode_attention(q, k_cache, v_cache, cache_len: int, *,
+                     window: int = 0, ring: bool = False,
+                     head_mask: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    """Single-token attention against a cache.
+
+    q: [B,1,H,D]; caches: [B,W,KV,D]; cache_len: current length (a host
+    int). ``ring=True`` means the cache is a ring buffer of size W
+    (sliding window): all valid slots are attended, positions already
+    rotated."""
+    B, _, H, D = q.shape
+    W, KV = k_cache.shape[1], k_cache.shape[2]
+    G = H // KV
+    qq = q.reshape(B, KV, G, D)
+    s = torch.einsum("bkgd,blkd->bkgl", qq, k_cache).float()
+    s = s / math.sqrt(D)
+    slot = torch.arange(W, device=q.device)
+    valid = slot < (min(cache_len, W) if ring else cache_len)
+    if window > 0 and not ring:
+        valid &= slot > cache_len - 1 - window
+    s = torch.where(valid[None, None, None], s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, -1)
-    o = torch.einsum("bkgql,blkd->bqkgd", p.to(v.dtype), v)
-    o = o.reshape(B, S, H, D)
+    o = torch.einsum("bkgl,blkd->bkgd", p.to(v_cache.dtype), v_cache)
+    o = o.reshape(B, 1, H, D)
     if head_mask is not None:
         o = o * head_mask[None, None, :, None].to(o.dtype)
     return o

@@ -1,8 +1,9 @@
-"""Dense decoder LM: ``init`` and ``forward`` (train / prefill).
+"""Dense decoder LM: ``init``, ``forward`` (train / prefill),
+``init_cache`` and ``decode_step`` (one new token against a KV cache).
 
 The JAX package stacks homogeneous layers on a leading axis and scans over
-them; here ``params["blocks"]`` is a list with one dict per layer and the
-forward is a Python loop. ``cspec["blocks"]`` is the matching list.
+them; here ``params["blocks"]``, ``cspec["blocks"]`` and the cache are
+lists with one entry per layer, and each pass is a Python loop.
 """
 from __future__ import annotations
 
@@ -54,16 +55,29 @@ def _apply_block(p, x, cfg: ArchConfig, cspec, positions):
     return x + B.apply_mlp(p["mlp"], h, cfg, cs.get("mlp"))
 
 
-def forward(cfg: ArchConfig, params, tokens, cspec=None,
-            positions=None) -> torch.Tensor:
-    """tokens [B, S] int64 -> logits [B, S, vocab] (f32)."""
-    _check_supported(cfg)
+def _embed_inputs(cfg: ArchConfig, params, tokens, cspec) -> torch.Tensor:
     compute = L.dtype_of(cfg.compute_dtype)
     table = L.getw(params, "embed", compute)
     ebits = None if cspec is None else cspec.get("embed_bits")
     if ebits is not None:
         table = L.fake_quant_weight(table, ebits)
-    x = table[tokens].to(compute)
+    return table[tokens].to(compute)
+
+
+def _unembed(cfg: ArchConfig, params, x, cspec) -> torch.Tensor:
+    w = L.getw(params, "embed", x.dtype).T if cfg.tie_embeddings \
+        else L.getw(params, "unembed", x.dtype)
+    hbits = None if cspec is None else cspec.get("head_bits")
+    if hbits is not None:
+        w = L.fake_quant_weight(w, hbits)
+    return torch.einsum("bsd,dv->bsv", x, w.to(x.dtype)).float()
+
+
+def forward(cfg: ArchConfig, params, tokens, cspec=None,
+            positions=None) -> torch.Tensor:
+    """tokens [B, S] int64 -> logits [B, S, vocab] (f32)."""
+    _check_supported(cfg)
+    x = _embed_inputs(cfg, params, tokens, cspec)
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
     blocks_cs = None if cspec is None else cspec.get("blocks")
@@ -72,9 +86,43 @@ def forward(cfg: ArchConfig, params, tokens, cspec=None,
                          None if blocks_cs is None else blocks_cs[i],
                          positions)
     x = L.apply_norm(cfg.norm, params["final_norm"], x)
-    w = L.getw(params, "embed", x.dtype).T if cfg.tie_embeddings \
-        else L.getw(params, "unembed", x.dtype)
-    hbits = None if cspec is None else cspec.get("head_bits")
-    if hbits is not None:
-        w = L.fake_quant_weight(w, hbits)
-    return torch.einsum("bsd,dv->bsv", x, w.to(x.dtype)).float()
+    return _unembed(cfg, params, x, cspec)
+
+
+# ---------------------------------------------------------------------------
+# Decode (single new token against a cache)
+# ---------------------------------------------------------------------------
+
+def _decode_block(p, x, cache, pos: int, cfg: ArchConfig, cspec):
+    cs = cspec or {}
+    h = L.apply_norm(cfg.norm, p["attn_norm"], x)
+    x = x + B.decode_attention_block(p["attn"], h, cache, pos, cfg,
+                                     cs.get("attn"))
+    h = L.apply_norm(cfg.norm, p["mlp_norm"], x)
+    return x + B.apply_mlp(p["mlp"], h, cfg, cs.get("mlp"))
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None,
+               cache_bits: int = 16, device="cuda") -> list:
+    """One attention cache dict per layer (K/V in the compute dtype, or
+    int8 codes and scales with ``cache_bits=8``). The SSM and RG-LRU
+    caches are refused with their families (``_check_supported``)."""
+    _check_supported(cfg)
+    dtype = dtype or L.dtype_of(cfg.compute_dtype)
+    return [B.init_attn_cache(cfg, batch, max_len, dtype, device, cache_bits)
+            for _ in range(cfg.num_layers)]
+
+
+def decode_step(cfg: ArchConfig, params, cache, tokens, pos: int,
+                cspec=None):
+    """tokens: [B, 1]; pos: the position of these tokens (a host int).
+    Returns (logits [B, 1, V] f32, cache); the cache is updated in
+    place."""
+    _check_supported(cfg)
+    x = _embed_inputs(cfg, params, tokens, cspec)
+    blocks_cs = None if cspec is None else cspec.get("blocks")
+    for i, (p_l, c_l) in enumerate(zip(params["blocks"], cache)):
+        x = _decode_block(p_l, x, c_l, pos, cfg,
+                          None if blocks_cs is None else blocks_cs[i])
+    x = L.apply_norm(cfg.norm, params["final_norm"], x)
+    return _unembed(cfg, params, x, cspec), cache

@@ -13,7 +13,12 @@ run the same correctly rounded f32 operations, one PyTorch kernel each;
 K2 (3-layer MLP) forward and backward ≤1e-5 at the DDPG init's scales
 (f32 sums in another order; no TF32); K4/K5 (quantized matmul) exact —
 integer products are exact on both sides and the epilogue is the same
-correctly rounded f32 steps in the same order.
+correctly rounded f32 steps in the same order; K6 (flash attention)
+against the dense ``attention_ref`` at the JAX package's tolerances,
+f32 atol 2e-5 and bf16 atol 0.04 (online vs one-pass softmax, sums in
+other orders, p rounded to bf16 before P.V); in bf16 also each output
+row within 2^-6 relative (``chip_smoke.py``'s ``K6_ROW_TOL``: 0.04 alone
+is near the size of a late row's values at S 4096).
 """
 import numpy as np
 import pytest
@@ -22,6 +27,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import build, ops as tops  # noqa: E402
 from repro_torch.kernels.fake_quant import fake_quant_2d  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels.mlp_fused import mlp3, polyak_flat  # noqa: E402
 from repro_torch.kernels.quant_matmul import quant_matmul  # noqa: E402
@@ -218,3 +224,89 @@ def test_gpu_quant_matmul_refuses_bad_operands(cuda):
         quant_matmul(xq[:, :5].contiguous(), torch.zeros(
             (2, 4), dtype=torch.int8, device=cuda), s, s, sn, sn,
             packed=True)
+
+
+# --- K6: flash attention ----------------------------------------------------
+# The JAX tests' shapes (B 2, f32) and bf16 case, and qwen2-0.5b's heads
+# (14 over 2 KV heads of 64) at S 4096 in bf16.
+FA_SHAPES = [(2, 128, 4, 4, 32), (2, 200, 8, 2, 16), (2, 512, 4, 1, 64),
+             (1, 300, 4, 2, 128)]
+FA_MASKS = [(True, 0), (False, 0), (True, 96)]
+
+
+def _qkv(seed, B, S, H, KV, D, dtype, cuda):
+    return [torch.from_numpy(_normal(seed + i, shape)).to(cuda, dtype)
+            for i, shape in enumerate(((B, H, S, D), (B, KV, S, D),
+                                       (B, KV, S, D)))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,KV,D", FA_SHAPES)
+@pytest.mark.parametrize("causal,window", FA_MASKS)
+def test_gpu_flash_attention_f32(cuda, B, S, H, KV, D, causal, window):
+    q, k, v = _qkv(S, B, S, H, KV, D, torch.float32, cuda)
+    before = build.LAUNCHES["flash_attention"]
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    assert build.LAUNCHES["flash_attention"] == before + 1
+    want = ref.attention_ref(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,KV,D", [(1, 128, 4, 2, 32),
+                                        (1, 4096, 14, 2, 64)])
+@pytest.mark.parametrize("causal,window", FA_MASKS)
+def test_gpu_flash_attention_bf16(cuda, B, S, H, KV, D, causal, window):
+    q, k, v = _qkv(D, B, S, H, KV, D, torch.bfloat16, cuda)
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    assert got.dtype == torch.bfloat16
+    want = ref.attention_ref(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got.float(), want.float(), atol=0.04, rtol=0)
+    rel = (got.float() - want.float()).norm(dim=-1) \
+        / want.float().norm(dim=-1)
+    assert float(rel.max()) <= 2.0 ** -6
+
+
+@pytest.mark.gpu
+def test_gpu_flash_attention_reads_strided_views(cuda):
+    """The layer's [B,S,H,D] tensors seen through transpose(1, 2): the
+    kernel reads the strides (no copy) and writes the output in q's
+    layout; the chunked layer branch on the card goes through it."""
+    from repro_torch.models import layers as TL
+    B, S, H, KV, D = 1, 1100, 4, 2, 64
+    q, k, v = [t.transpose(1, 2).contiguous().transpose(1, 2)
+               for t in _qkv(9, B, S, H, KV, D, torch.float32, cuda)]
+    assert not q.is_contiguous()
+    got = flash_attention(q, k, v, causal=True, window=0)
+    assert got.stride() == q.stride()
+    want = ref.attention_ref(q, k, v)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
+    before = build.LAUNCHES["flash_attention"]
+    lay = TL.attention(q.transpose(1, 2), k.transpose(1, 2),
+                       v.transpose(1, 2), causal=True)
+    assert build.LAUNCHES["flash_attention"] == before + 1
+    torch.testing.assert_close(lay, want.transpose(1, 2), atol=2e-5,
+                               rtol=0)
+    chunked = TL.attention_chunked(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2), causal=True)
+    torch.testing.assert_close(lay, chunked, atol=2e-5, rtol=0)
+
+
+@pytest.mark.gpu
+def test_gpu_flash_attention_refuses_bad_operands(cuda):
+    q, k, v = _qkv(0, 1, 64, 4, 2, 48, torch.float32, cuda)
+    with pytest.raises(ValueError, match="head dim 48"):
+        flash_attention(q, k, v)
+    q, k, v = _qkv(0, 1, 64, 4, 2, 64, torch.float32, cuda)
+    before = build.LAUNCHES["flash_attention"]
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="CPU"):
+        flash_attention(q.cpu(), k, v)
+    with pytest.raises(TypeError, match="float32"):
+        flash_attention(q, k.half(), v)
+    with pytest.raises(TypeError, match="bfloat16"):
+        flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="kv heads"):
+        flash_attention(q[:, :3], k, v)
+    assert build.LAUNCHES["flash_attention"] == before

@@ -35,9 +35,11 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro_torch.core import quantization as tq  # noqa: E402
 from repro_torch.kernels import build, ops as tops  # noqa: E402
 from repro_torch.kernels.fake_quant import fake_quant_2d  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.mlp_fused import mlp3, polyak_flat  # noqa: E402
 from repro_torch.kernels.quant_matmul import quant_matmul  # noqa: E402
-from repro_torch.kernels.ref import (fake_quant_ref, mlp3_ref,  # noqa: E402
+from repro_torch.kernels.ref import (attention_ref,  # noqa: E402
+                                     fake_quant_ref, mlp3_ref,
                                      polyak_ref, quant_matmul_ref)
 
 
@@ -216,9 +218,12 @@ def test_wrappers_route_cpu_to_plain_without_launching():
         assert torch.equal(
             quant_matmul(xq, wq, s8, s8, s4, s4, packed=packed),
             quant_matmul_ref(xq, wq, s8, s8, s4, s4, packed=packed))
+    q = torch.from_numpy(_normal(1, (1, 4, 8, 16)))
+    kv = torch.from_numpy(_normal(2, (1, 2, 8, 16)))
+    assert torch.equal(flash_attention(q, kv, kv), attention_ref(q, kv, kv))
     assert build.LAUNCHES == {"fake_quant": 0, "mlp3": 0, "polyak": 0,
                               "quant_matmul_int8": 0,
-                              "quant_matmul_int4": 0}
+                              "quant_matmul_int4": 0, "flash_attention": 0}
 
 
 def test_wrappers_refuse_other_devices():
@@ -237,6 +242,9 @@ def test_wrappers_refuse_other_devices():
         quant_matmul(torch.empty((8, 4), dtype=torch.int8, device="meta"),
                      torch.empty((4, 2), dtype=torch.int8, device="meta"),
                      *[torch.empty(n, device="meta") for n in (8, 8, 2, 2)])
+    q = torch.empty((1, 2, 8, 16), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention(q, q, q)
 
 
 def test_kernel_sources_carry_their_notes():
