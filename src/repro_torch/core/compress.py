@@ -173,16 +173,26 @@ def _unit_prune_scores(cfg: ArchConfig, p_l, kind: str) -> torch.Tensor:
         if "w_gate" in p_l["mlp"]:
             ws.append(p_l["mlp"]["w_gate"]["w"])
         return pruning.l1_scores(ws)
+    if kind == "ssm_in":
+        d_inner, nheads, _ = B.ssm_dims(cfg)
+        return pruning.head_scores(
+            p_l["ssm"]["in_proj"][:, d_inner:2 * d_inner], nheads)
     raise ValueError(kind)
+
+
+# The prunable unit of each layer kind, whose ℓ1 scores a cspec reads.
+PRUNE_KINDS = {"attn": ("attn_qkv", "mlp_up"), "ssm": ("ssm_in",)}
 
 
 def build_lm_cspec(cfg: ArchConfig, params, policy: Policy,
                    specs: Sequence[LayerSpec], scores=None) -> dict:
-    """The cspec of ``policy``: per layer ``{"attn": {"qkv", "o",
-    "head_mask"}, "mlp": {"up", "down", "ff_mask"}}`` plus the embed and
-    head bits. Masks are always present (ones when unpruned), as in the
-    JAX package. ``scores`` may hold precomputed ``(layer, kind) -> ℓ1
-    scores``; they do not depend on the policy."""
+    """The cspec of ``policy``: per attention layer ``{"attn": {"qkv",
+    "o", "head_mask"}, "mlp": {"up", "down", "ff_mask"}}``, per SSM layer
+    ``{"ssm": {"in", "out", "head_mask"}}`` (SSD heads pruned at the
+    ``ssm_in`` unit), plus the embed and head bits. Masks are always
+    present (ones when unpruned), as in the JAX package. ``scores`` may
+    hold precomputed ``(layer, kind) -> ℓ1 scores``; they do not depend
+    on the policy."""
     by_layer: dict[int, dict[str, LayerCMP]] = {}
     embed_bits = head_bits = None
     for s, c in zip(specs, policy.cmps):
@@ -203,8 +213,14 @@ def build_lm_cspec(cfg: ArchConfig, params, policy: Policy,
         return pruning.keep_mask(sc, cmp.keep)
 
     layer_cspecs = []
-    for i in range(cfg.num_layers):
+    for i, kind in enumerate(cfg.layer_kinds):
         cm = by_layer.get(i, {})
+        if kind == "ssm":
+            ci, co = cm.get("ssm_in"), cm.get("ssm_out")
+            layer_cspecs.append({"ssm": {
+                "in": _qs(ci), "out": _qs(co),
+                "head_mask": mask(i, "ssm_in", ci, B.ssm_dims(cfg)[1])}})
+            continue
         cq, co = cm.get("attn_qkv"), cm.get("attn_out")
         cu, cd = cm.get("mlp_up"), cm.get("mlp_down")
         layer_cspecs.append({
@@ -235,8 +251,8 @@ class CompressibleLM:
     def __post_init__(self):
         M._check_supported(self.cfg)
         self.specs = lm_layer_specs(self.cfg)
-        for i in range(self.cfg.num_layers):
-            for kind in ("attn_qkv", "mlp_up"):
+        for i, layer_kind in enumerate(self.cfg.layer_kinds):
+            for kind in PRUNE_KINDS[layer_kind]:
                 self._scores[(i, kind)] = _unit_prune_scores(
                     self.cfg, self.params["blocks"][i], kind)
 

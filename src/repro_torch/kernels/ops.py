@@ -15,6 +15,7 @@ from . import flash_attention as _fa
 from . import mlp_fused as _mlp
 from . import quant_matmul as _qm
 from . import ref as _ref
+from . import ssd_scan as _ssd
 
 
 def quantize_operands(x: torch.Tensor, w: torch.Tensor, w_bits: int = 8):
@@ -122,3 +123,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     to its blocks' multiple; the kernel masks the ragged edge instead.
     No gradient, as the JAX op has none."""
     return _fa.flash_attention(q, k, v, causal=causal, window=window)
+
+
+def ssd_scan(xh: torch.Tensor, dA: torch.Tensor, Bm: torch.Tensor,
+             Cm: torch.Tensor, chunk: int = 256):
+    """xh [B,S,H,P] (dt-scaled inputs); dA [B,S,H] log decays; Bm, Cm
+    [B,S,N] -> (y [B,S,H,P], final state [B,H,P,N]) (K8). The JAX op
+    halves the chunk until it divides S; the kernel masks the ragged
+    edge at any chunk length instead, which is the same function. No
+    gradient, as the JAX op has none."""
+    return _ssd.ssd_scan(xh, dA, Bm, Cm, chunk=min(chunk, max(
+        xh.shape[1], 1)))

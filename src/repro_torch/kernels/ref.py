@@ -143,3 +143,81 @@ def attention_ref(q, k, v, *, causal: bool = True,
     p = torch.softmax(s, -1)
     o = torch.einsum("bkgql,bkld->bkgqd", p, v.float())
     return o.reshape(B, H, S, D).to(q.dtype)
+
+
+# --- SSD chunked scan (K8) ----------------------------------------------------
+
+def ssd_scan_ref(xh, dA, Bm, Cm):
+    """Sequential SSD ground truth (the JAX package's ``ref.ssd_scan_ref``):
+    xh [B,S,H,P] (dt-scaled inputs); dA [B,S,H] log decays; Bm, Cm
+    [B,S,N]. One step per token on an f32 state [B,H,P,N]:
+    ``state = exp(dA_t) state + x_t ⊗ B_t``, ``y_t = state · C_t``.
+    Returns (y in xh's dtype, final state f32)."""
+    B, S, H, P = xh.shape
+    N = Bm.shape[-1]
+    state = torch.zeros((B, H, P, N), device=xh.device)
+    ys = []
+    for t in range(S):
+        dec = torch.exp(dA[:, t].float())                      # [B,H]
+        upd = torch.einsum("bn,bhp->bhpn", Bm[:, t].float(),
+                           xh[:, t].float())
+        state = dec[..., None, None] * state + upd
+        ys.append(torch.einsum("bn,bhpn->bhp", Cm[:, t].float(), state))
+    return torch.stack(ys, 1).to(xh.dtype), state
+
+
+def segsum(a: torch.Tensor) -> torch.Tensor:
+    """a [..., l] log decays -> [..., l, l]: ``cs[i] - cs[j]`` (the sum of
+    a over j+1..i) on and below the diagonal, -inf above, so that its
+    exp is the lower-triangular decay matrix and the positive upper
+    entries are never exponentiated (the JAX package's
+    ``blocks._segsum``)."""
+    l = a.shape[-1]
+    cs = torch.cumsum(a, -1)
+    d = cs[..., :, None] - cs[..., None, :]
+    mask = torch.tril(torch.ones((l, l), dtype=torch.bool, device=a.device))
+    return torch.where(mask, d, torch.full_like(d, -math.inf))
+
+
+def ssd_chunked_ref(xh, dA, Bm, Cm, chunk: int, init_state=None):
+    """K8's function in its chunked form (Mamba-2, arXiv:2405.21060
+    listing 1), the JAX package's jnp ``blocks.ssd_chunked``: S padded
+    with zeros to a multiple of ``chunk``; per chunk the cumulative
+    decays, the intra-chunk product (C Bᵀ ⊙ exp(segsum)) X, the chunk's
+    state, a sequential pass over the chunk states from ``init_state``
+    (zero by default) and the inter-chunk output exp(A_cs) ⊙ (C ·
+    stateᵀ). Shapes as ``ssd_scan_ref``; f32. Returns (y [B,S,H,P],
+    final state [B,H,P,N])."""
+    b, s, h, pdim = xh.shape
+    n = Bm.shape[-1]
+    pad = (-s) % chunk
+    if pad:
+        xh = torch.nn.functional.pad(xh, (0, 0, 0, 0, 0, pad))
+        dA = torch.nn.functional.pad(dA, (0, 0, 0, pad))
+        Bm = torch.nn.functional.pad(Bm, (0, 0, 0, pad))
+        Cm = torch.nn.functional.pad(Cm, (0, 0, 0, pad))
+    sp = s + pad
+    c = sp // chunk
+    X = xh.reshape(b, c, chunk, h, pdim)
+    A = dA.reshape(b, c, chunk, h).permute(0, 3, 1, 2)        # [b,h,c,l]
+    Bc = Bm.reshape(b, c, chunk, n)
+    Cc = Cm.reshape(b, c, chunk, n)
+
+    A_cum = torch.cumsum(A, -1)                                # [b,h,c,l]
+    Lmat = torch.exp(segsum(A))                                # [b,h,c,l,l]
+    Y_diag = torch.einsum("bcln,bcsn,bhcls,bcshp->bclhp", Cc, Bc, Lmat, X)
+    decay_states = torch.exp(A_cum[..., -1:] - A_cum)          # [b,h,c,l]
+    states = torch.einsum("bcln,bhcl,bclhp->bchpn", Bc, decay_states, X)
+    chunk_decay = torch.exp(A_cum[..., -1])                    # [b,h,c]
+    prev = torch.zeros((b, h, pdim, n), dtype=X.dtype, device=X.device) \
+        if init_state is None else init_state
+    prevs = []                                 # the state BEFORE each chunk
+    for ci in range(c):
+        prevs.append(prev)
+        prev = states[:, ci] + chunk_decay[..., ci, None, None] * prev
+    prev_states = torch.stack(prevs, 1)                        # [b,c,h,p,n]
+    state_decay = torch.exp(A_cum)                             # [b,h,c,l]
+    Y_off = torch.einsum("bcln,bchpn,bhcl->bclhp", Cc, prev_states,
+                         state_decay)
+    Y = (Y_diag + Y_off).reshape(b, sp, h, pdim)[:, :s]
+    return Y, prev

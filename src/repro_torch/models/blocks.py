@@ -1,16 +1,18 @@
-"""Residual sub-blocks of the dense family: attention (full sequence, and
-single-token decode against a KV cache) and the MLP.
+"""Residual sub-blocks: attention (full sequence, and single-token decode
+against a KV cache), the MLP, and the Mamba-2 (SSD) block (full sequence,
+and single-token decode against its conv and state cache).
 
 Compression hooks: ``cspec`` — a dict of quant specs
 (``{"w_bits","a_bits"}``, host ints) and float 0/1 pruning masks; ``None``
-means uncompressed. The MoE, SSM and RG-LRU blocks wait for the model-zoo
-slice; ``ssm_dims`` (shape arithmetic only) is here for the layer specs.
+means uncompressed. The MoE and RG-LRU blocks wait for their slices.
 """
 from __future__ import annotations
+
 
 import torch
 
 from ..configs.base import ArchConfig
+from ..kernels import ops, ref
 from . import layers as L
 
 
@@ -150,10 +152,139 @@ def apply_mlp(p, x, cfg: ArchConfig, cspec=None):
     return L.linear(p["w_down"], h, qs_down)
 
 
+# ===========================================================================
+# Mamba-2 (SSD) block
+# ===========================================================================
+
 def ssm_dims(cfg: ArchConfig):
-    """(d_inner, SSD heads, conv width) of an SSM config."""
+    """(d_inner, SSD heads, conv channels) of an SSM config."""
     s = cfg.ssm
     d_inner = s.expand * cfg.d_model
     nheads = d_inner // s.head_dim
     conv_dim = d_inner + 2 * s.d_state
     return d_inner, nheads, conv_dim
+
+
+def init_ssm(gen: torch.Generator, cfg: ArchConfig, dtype, device):
+    """Raw-array weights, as in the JAX package: ``in_proj`` [d, z | x | B
+    | C | dt], ``out_proj``, the depthwise ``conv_w`` [K, conv_dim], the
+    decays ``A_log`` = log(linspace(1, 16)), the skip ``D``, ``dt_bias``
+    and the gated norm's scale."""
+    s = cfg.ssm
+    d_inner, nheads, conv_dim = ssm_dims(cfg)
+    d = cfg.d_model
+    d_proj = 2 * d_inner + 2 * s.d_state + nheads
+    return {
+        "in_proj": L.linear_init(gen, d, d_proj, dtype, device)["w"],
+        "out_proj": L.linear_init(gen, d_inner, d, dtype, device)["w"],
+        "conv_w": (torch.randn((s.conv_width, conv_dim), generator=gen,
+                               device=device) / s.conv_width).to(dtype),
+        "A_log": torch.log(torch.linspace(1.0, 16.0, nheads,
+                                          device=device)),
+        "D": torch.ones((nheads,), device=device),
+        "dt_bias": torch.zeros((nheads,), device=device),
+        "norm_scale": torch.ones((d_inner,), dtype=dtype, device=device),
+    }
+
+
+def ssd_chunked(xh, dA, Bm, Cm, chunk: int, init_state=None):
+    """The chunked SSD scan: xh [b,s,h,p] (dt-scaled inputs), dA [b,s,h]
+    log decays, Bm, Cm [b,s,n] (one group), f32 -> (y [b,s,h,p], final
+    state [b,h,p,n]). A CPU tensor takes the port of the JAX package's
+    jnp path (``ref.ssd_chunked_ref``, zero padding of a ragged s); a
+    CUDA tensor goes through K8 (``ops.ssd_scan``), which starts from a
+    zero state: no path on the card passes ``init_state`` (prefill
+    starts from zero, decode has its own one-step update), so a CUDA
+    call with one raises."""
+    if xh.device.type == "cpu":
+        return ref.ssd_chunked_ref(xh, dA, Bm, Cm, chunk, init_state)
+    if init_state is not None:
+        raise ValueError("ssd_chunked: K8 takes no initial state on the "
+                         "card")
+    return ops.ssd_scan(xh, dA, Bm, Cm, chunk=chunk)
+
+
+def ssd_inputs(p, x, cfg: ArchConfig, cspec, conv_state):
+    """The SSM block's front half, x [B,S,d] -> ``((xh_dt, dA, Bm, Cm),
+    (z, xh, new_conv))``: the first four are exactly what the chunked
+    scan (K8) receives, f32 (xh_dt [B,S,h,P], dA [B,S,h], Bm, Cm
+    [B,S,N], views of the conv output when it is f32); the rest feed
+    the back half.
+    In order: the (fake-quantized) input projection, the causal conv
+    over silu(x | B | C) from ``conv_state``, dt = softplus(dt +
+    dt_bias), dA = dt · -exp(A_log), xh_dt = xh · dt."""
+    s = cfg.ssm
+    d_inner, nheads, conv_dim = ssm_dims(cfg)
+    qs_in = _get(cspec, "in")
+    xin, w_in = L.apply_quant(x, L.getw(p, "in_proj", x.dtype), qs_in)
+    proj = torch.einsum("bsd,dk->bsk", xin, w_in.to(x.dtype))
+    z, xbc, dt = torch.split(proj, [d_inner, conv_dim, nheads], -1)
+    y_conv, new_conv = L.causal_conv1d(xbc * torch.sigmoid(xbc),
+                                       p["conv_w"], conv_state)
+    xs, Bm, Cm = torch.split(y_conv, [d_inner, s.d_state, s.d_state], -1)
+    dtf = dt.float() + p["dt_bias"][None, None]
+    dtf = torch.logaddexp(dtf, torch.zeros_like(dtf))         # softplus
+    a = -torch.exp(p["A_log"])                                 # [h]
+    dA = dtf * a[None, None]
+    xh = xs.reshape(*xs.shape[:2], nheads, s.head_dim)
+    xh_dt = xh.float() * dtf[..., None]
+    return (xh_dt, dA, Bm.float(), Cm.float()), (z, xh, new_conv)
+
+
+def _ssm_inner(p, x, cfg: ArchConfig, cspec, conv_state, ssm_state, *,
+               decode: bool = False):
+    """x: [B,S,d] -> (out [B,S,d], new conv state, new SSM state). The
+    whole sequence goes through ``ssd_chunked``; ``decode`` (S = 1) takes
+    one step of the recurrence from ``ssm_state``."""
+    d_inner = ssm_dims(cfg)[0]
+    (xh_dt, dA, Bm, Cm), (z, xh, new_conv) = ssd_inputs(
+        p, x, cfg, cspec, conv_state)
+    if decode:
+        # single step: state' = exp(dA) state + x_dt ⊗ B ; y = C · state'
+        dec = torch.exp(dA[:, 0])                              # [B,h]
+        upd = torch.einsum("bn,bhp->bhpn", Bm[:, 0], xh_dt[:, 0])
+        new_state = dec[..., None, None] * ssm_state + upd
+        y = torch.einsum("bn,bhpn->bhp", Cm[:, 0], new_state)[:, None]
+    else:
+        y, new_state = ssd_chunked(xh_dt, dA, Bm, Cm, cfg.ssm.chunk_size,
+                                   ssm_state)
+    y = y + p["D"][None, None, :, None] * xh.float()
+    head_mask = _get(cspec, "head_mask")
+    if head_mask is not None:
+        y = y * head_mask[None, None, :, None]
+    y = y.reshape(*x.shape[:2], d_inner).to(x.dtype)
+    # gated RMSNorm (mamba2)
+    y = L.apply_norm("rmsnorm", {"scale": p["norm_scale"]},
+                     y * (z * torch.sigmoid(z)))
+    yq, w_out = L.apply_quant(y, L.getw(p, "out_proj", y.dtype),
+                              _get(cspec, "out"))
+    out = torch.einsum("bsd,dk->bsk", yq, w_out.to(y.dtype))
+    return out, new_conv, new_state
+
+
+def apply_ssm(p, x, cfg: ArchConfig, cspec=None):
+    out, _, _ = _ssm_inner(p, x, cfg, cspec, None, None)
+    return out
+
+
+def init_ssm_cache(cfg: ArchConfig, batch: int, dtype, device) -> dict:
+    """The conv window (the last K-1 inputs, in ``dtype``) and the f32
+    SSM state [batch, heads, P, N]; no length: an SSM's cache does not
+    grow with the context."""
+    s = cfg.ssm
+    _, nheads, conv_dim = ssm_dims(cfg)
+    return {
+        "conv": torch.zeros((batch, s.conv_width - 1, conv_dim),
+                            dtype=dtype, device=device),
+        "state": torch.zeros((batch, nheads, s.head_dim, s.d_state),
+                             device=device),
+    }
+
+
+def decode_ssm(p, x, cache, pos: int, cfg: ArchConfig, cspec=None):
+    """x: [B,1,d]. Replaces the cache's conv window and state in place
+    (the JAX package returns a new cache) and returns the block's
+    output."""
+    out, cache["conv"], cache["state"] = _ssm_inner(
+        p, x, cfg, cspec, cache["conv"], cache["state"], decode=True)
+    return out

@@ -290,3 +290,27 @@ def mlp_act(kind: str, gate: torch.Tensor, up: Optional[torch.Tensor]):
     if kind == "gelu":
         return torch.nn.functional.gelu(gate, approximate="tanh")
     raise ValueError(kind)
+
+
+# ---------------------------------------------------------------------------
+# Depthwise causal conv1d (the SSM block's front conv)
+# ---------------------------------------------------------------------------
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
+                  state: Optional[torch.Tensor] = None):
+    """x: [B,S,C]; w: [K,C] depthwise. Returns y ([B,S,C], in x's dtype)
+    and the new state ([B,K-1,C], x's dtype): the last K-1 inputs, for
+    streaming decode. The JAX package's order: ``sum(xs[:, i:i+S] *
+    w[i])`` over the taps, a bf16 input times the f32 weight promoted to
+    f32 and summed in f32, then cast back."""
+    K = w.shape[0]
+    if state is None:
+        state = torch.zeros((x.shape[0], K - 1, x.shape[2]), dtype=x.dtype,
+                            device=x.device)
+    xs = torch.cat([state.to(x.dtype), x], 1)             # [B, S+K-1, C]
+    S = x.shape[1]
+    y = xs[:, 0:S] * w[0][None, None]
+    for i in range(1, K):
+        y = y + xs[:, i:i + S] * w[i][None, None]
+    new_state = xs[:, -(K - 1):] if K > 1 else state
+    return y.to(x.dtype), new_state

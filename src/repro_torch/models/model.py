@@ -1,5 +1,7 @@
-"""Dense decoder LM: ``init``, ``forward`` (train / prefill),
-``init_cache`` and ``decode_step`` (one new token against a KV cache).
+"""Decoder LM of the dense attention and the Mamba-2 (SSM) families:
+``init``, ``forward`` (train / prefill), ``init_cache`` and
+``decode_step`` (one new token against a KV or SSM cache). Each layer
+dispatches on its kind (``cfg.layer_kinds[i]``).
 
 The JAX package stacks homogeneous layers on a leading axis and scans over
 them; here ``params["blocks"]``, ``cspec["blocks"]`` and the cache are
@@ -17,10 +19,71 @@ from . import layers as L
 
 
 def _check_supported(cfg: ArchConfig) -> None:
-    if set(cfg.layer_kinds) != {"attn"} or cfg.moe is not None \
-            or cfg.frontend != "none":
+    if not set(cfg.layer_kinds) <= {"attn", "ssm"} \
+            or cfg.moe is not None or cfg.frontend != "none":
         raise NotImplementedError(
-            f"{cfg.name}: only the dense attention family is ported")
+            f"{cfg.name}: only the dense attention and SSM families are "
+            f"ported")
+
+
+# ---------------------------------------------------------------------------
+# Per-kind block init / apply / cache / decode dispatch
+# ---------------------------------------------------------------------------
+
+def _init_block(kind: str, gen: torch.Generator, cfg: ArchConfig, dtype,
+                device) -> dict:
+    if kind == "attn":
+        return {"attn_norm": L.norm_init(cfg.norm, cfg.d_model, dtype,
+                                         device),
+                "attn": B.init_attention(gen, cfg, dtype, device),
+                "mlp_norm": L.norm_init(cfg.norm, cfg.d_model, dtype,
+                                        device),
+                "mlp": B.init_mlp(gen, cfg, dtype, device)}
+    if kind == "ssm":
+        return {"norm": L.norm_init(cfg.norm, cfg.d_model, dtype, device),
+                "ssm": B.init_ssm(gen, cfg, dtype, device)}
+    raise ValueError(kind)
+
+
+def _apply_block(kind: str, p, x, cfg: ArchConfig, cspec, positions):
+    cs = cspec or {}
+    if kind == "attn":
+        h = L.apply_norm(cfg.norm, p["attn_norm"], x)
+        x = x + B.apply_attention(p["attn"], h, cfg, cs.get("attn"),
+                                  positions)
+        h = L.apply_norm(cfg.norm, p["mlp_norm"], x)
+        return x + B.apply_mlp(p["mlp"], h, cfg, cs.get("mlp"))
+    if kind == "ssm":
+        h = L.apply_norm(cfg.norm, p["norm"], x)
+        return x + B.apply_ssm(p["ssm"], h, cfg, cs.get("ssm"))
+    raise ValueError(kind)
+
+
+def _init_block_cache(kind: str, cfg: ArchConfig, batch: int, max_len: int,
+                      dtype, device, cache_bits: int = 16) -> dict:
+    """``cache_bits`` sets the KV cache's storage; an SSM's conv window and
+    state ignore it, as in the JAX package."""
+    if kind == "attn":
+        return B.init_attn_cache(cfg, batch, max_len, dtype, device,
+                                 cache_bits)
+    if kind == "ssm":
+        return B.init_ssm_cache(cfg, batch, dtype, device)
+    raise ValueError(kind)
+
+
+def _decode_block(kind: str, p, x, cache, pos: int, cfg: ArchConfig,
+                  cspec):
+    cs = cspec or {}
+    if kind == "attn":
+        h = L.apply_norm(cfg.norm, p["attn_norm"], x)
+        x = x + B.decode_attention_block(p["attn"], h, cache, pos, cfg,
+                                         cs.get("attn"))
+        h = L.apply_norm(cfg.norm, p["mlp_norm"], x)
+        return x + B.apply_mlp(p["mlp"], h, cfg, cs.get("mlp"))
+    if kind == "ssm":
+        h = L.apply_norm(cfg.norm, p["norm"], x)
+        return x + B.decode_ssm(p["ssm"], h, cache, pos, cfg, cs.get("ssm"))
+    raise ValueError(kind)
 
 
 def init(cfg: ArchConfig, seed: int = 0, device="cuda") -> dict:
@@ -34,25 +97,13 @@ def init(cfg: ArchConfig, seed: int = 0, device="cuda") -> dict:
         "embed": (torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
                               device=device)
                   / (cfg.d_model ** 0.5)).to(dtype)}
-    params["blocks"] = [
-        {"attn_norm": L.norm_init(cfg.norm, cfg.d_model, dtype, device),
-         "attn": B.init_attention(gen, cfg, dtype, device),
-         "mlp_norm": L.norm_init(cfg.norm, cfg.d_model, dtype, device),
-         "mlp": B.init_mlp(gen, cfg, dtype, device)}
-        for _ in range(cfg.num_layers)]
+    params["blocks"] = [_init_block(kind, gen, cfg, dtype, device)
+                        for kind in cfg.layer_kinds]
     params["final_norm"] = L.norm_init(cfg.norm, cfg.d_model, dtype, device)
     if not cfg.tie_embeddings:
         params["unembed"] = L.linear_init(gen, cfg.d_model, cfg.vocab_size,
                                           dtype, device)["w"]
     return params
-
-
-def _apply_block(p, x, cfg: ArchConfig, cspec, positions):
-    cs = cspec or {}
-    h = L.apply_norm(cfg.norm, p["attn_norm"], x)
-    x = x + B.apply_attention(p["attn"], h, cfg, cs.get("attn"), positions)
-    h = L.apply_norm(cfg.norm, p["mlp_norm"], x)
-    return x + B.apply_mlp(p["mlp"], h, cfg, cs.get("mlp"))
 
 
 def _embed_inputs(cfg: ArchConfig, params, tokens, cspec) -> torch.Tensor:
@@ -82,7 +133,7 @@ def forward(cfg: ArchConfig, params, tokens, cspec=None,
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
     blocks_cs = None if cspec is None else cspec.get("blocks")
     for i, p_l in enumerate(params["blocks"]):
-        x = _apply_block(p_l, x, cfg,
+        x = _apply_block(cfg.layer_kinds[i], p_l, x, cfg,
                          None if blocks_cs is None else blocks_cs[i],
                          positions)
     x = L.apply_norm(cfg.norm, params["final_norm"], x)
@@ -93,24 +144,16 @@ def forward(cfg: ArchConfig, params, tokens, cspec=None,
 # Decode (single new token against a cache)
 # ---------------------------------------------------------------------------
 
-def _decode_block(p, x, cache, pos: int, cfg: ArchConfig, cspec):
-    cs = cspec or {}
-    h = L.apply_norm(cfg.norm, p["attn_norm"], x)
-    x = x + B.decode_attention_block(p["attn"], h, cache, pos, cfg,
-                                     cs.get("attn"))
-    h = L.apply_norm(cfg.norm, p["mlp_norm"], x)
-    return x + B.apply_mlp(p["mlp"], h, cfg, cs.get("mlp"))
-
-
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None,
                cache_bits: int = 16, device="cuda") -> list:
-    """One attention cache dict per layer (K/V in the compute dtype, or
-    int8 codes and scales with ``cache_bits=8``). The SSM and RG-LRU
-    caches are refused with their families (``_check_supported``)."""
+    """One cache dict per layer: an attention layer's K/V in the compute
+    dtype (int8 codes and scales with ``cache_bits=8``), an SSM layer's
+    conv window and f32 state. The RG-LRU cache is refused with its
+    family (``_check_supported``)."""
     _check_supported(cfg)
     dtype = dtype or L.dtype_of(cfg.compute_dtype)
-    return [B.init_attn_cache(cfg, batch, max_len, dtype, device, cache_bits)
-            for _ in range(cfg.num_layers)]
+    return [_init_block_cache(kind, cfg, batch, max_len, dtype, device,
+                              cache_bits) for kind in cfg.layer_kinds]
 
 
 def decode_step(cfg: ArchConfig, params, cache, tokens, pos: int,
@@ -122,7 +165,7 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, pos: int,
     x = _embed_inputs(cfg, params, tokens, cspec)
     blocks_cs = None if cspec is None else cspec.get("blocks")
     for i, (p_l, c_l) in enumerate(zip(params["blocks"], cache)):
-        x = _decode_block(p_l, x, c_l, pos, cfg,
+        x = _decode_block(cfg.layer_kinds[i], p_l, x, c_l, pos, cfg,
                           None if blocks_cs is None else blocks_cs[i])
     x = L.apply_norm(cfg.norm, params["final_norm"], x)
     return _unembed(cfg, params, x, cspec), cache

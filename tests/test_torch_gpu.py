@@ -18,7 +18,12 @@ against the dense ``attention_ref`` at the JAX package's tolerances,
 f32 atol 2e-5 and bf16 atol 0.04 (online vs one-pass softmax, sums in
 other orders, p rounded to bf16 before P.V); in bf16 also each output
 row within 2^-6 relative (``chip_smoke.py``'s ``K6_ROW_TOL``: 0.04 alone
-is near the size of a late row's values at S 4096).
+is near the size of a late row's values at S 4096); K8 (SSD scan) at the
+JAX tests' 2e-4 (atol and rtol) on y and the final state against both
+plain versions where the decays are mild (dA in [-0.5, 0]) and against
+the chunked plain version at a slow decay (dA in [-0.01, 0], the state
+carried over 16 chunks), and there each (token, head) row within 2^-10
+relative of the sequential one (``chip_smoke.py``'s ``K8_ROW_TOL``).
 """
 import numpy as np
 import pytest
@@ -31,6 +36,7 @@ from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels.mlp_fused import mlp3, polyak_flat  # noqa: E402
 from repro_torch.kernels.quant_matmul import quant_matmul  # noqa: E402
+from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
 from repro_torch.kernels.ref import (fake_quant_ref, mlp3_ref,  # noqa: E402
                                      polyak_ref)
 
@@ -310,3 +316,102 @@ def test_gpu_flash_attention_refuses_bad_operands(cuda):
     with pytest.raises(ValueError, match="kv heads"):
         flash_attention(q[:, :3], k, v)
     assert build.LAUNCHES["flash_attention"] == before
+
+
+# --- K8: SSD chunked scan -----------------------------------------------------
+# The JAX tests' shapes (B, S, H, P, N, chunk), a ragged S at each chunk
+# size of the two configs, and mamba2-780m's heads (48 of 64, state 128).
+SSD_SHAPES = [(2, 64, 4, 16, 8, 16), (1, 128, 2, 32, 16, 32),
+              (2, 96, 3, 8, 8, 32), (2, 100, 3, 16, 16, 32),
+              (1, 1100, 4, 64, 128, 256)]
+
+
+def _ssd_inputs(seed, B, S, H, P, N, max_decay, cuda):
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    return [torch.from_numpy(a).to(cuda) for a in (
+        rng.standard_normal((B, S, H, P)).astype(f32),
+        -rng.uniform(0.0, max_decay, (B, S, H)).astype(f32),
+        rng.standard_normal((B, S, N)).astype(f32),
+        rng.standard_normal((B, S, N)).astype(f32))]
+
+
+def _row_rel(got, want, eps=1e-6):
+    return float(((got - want).norm(dim=-1)
+                  / want.norm(dim=-1).clamp_min(eps)).max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,P,N,chunk", SSD_SHAPES)
+def test_gpu_ssd_scan(cuda, B, S, H, P, N, chunk):
+    xh, dA, Bm, Cm = _ssd_inputs(S, B, S, H, P, N, 0.5, cuda)
+    before = build.LAUNCHES["ssd_scan"]
+    y, fin = ssd_scan(xh, dA, Bm, Cm, chunk=chunk)
+    assert build.LAUNCHES["ssd_scan"] == before + 1
+    for want_y, want_f in (ref.ssd_scan_ref(xh, dA, Bm, Cm),
+                           ref.ssd_chunked_ref(xh, dA, Bm, Cm, chunk)):
+        torch.testing.assert_close(y, want_y, atol=2e-4, rtol=2e-4)
+        torch.testing.assert_close(fin, want_f, atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.gpu
+def test_gpu_ssd_scan_slow_decay_carries_the_state(cuda):
+    """mamba2-780m's head shape at S 4096 with dA in [-0.01, 0]: the state
+    entering a chunk dominates its output, so a wrong carry shows."""
+    xh, dA, Bm, Cm = _ssd_inputs(7, 1, 4096, 48, 64, 128, 0.01, cuda)
+    y, fin = ssd_scan(xh, dA, Bm, Cm, chunk=256)
+    yc, fc = ref.ssd_chunked_ref(xh, dA, Bm, Cm, 256)
+    torch.testing.assert_close(y, yc, atol=2e-4, rtol=2e-4)
+    torch.testing.assert_close(fin, fc, atol=2e-4, rtol=2e-4)
+    ys, fs = ref.ssd_scan_ref(xh, dA, Bm, Cm)
+    assert _row_rel(y, ys) <= 2.0 ** -10
+    assert _row_rel(fin, fs) <= 2.0 ** -10
+
+
+@pytest.mark.gpu
+def test_gpu_ssd_scan_reads_strided_b_and_c(cuda):
+    """B and C as the SSM block makes them in f32: views into one wider
+    tensor, read with their strides."""
+    B, S, H, P, N = 2, 300, 4, 16, 32
+    xh, dA, _, _ = _ssd_inputs(3, B, S, H, P, N, 0.5, cuda)
+    wide = torch.from_numpy(_normal(4, (B, S, 2 * N + 8))).to(cuda)
+    Bm, Cm = wide[..., 8:8 + N], wide[..., 8 + N:]
+    assert not Bm.is_contiguous()
+    y, fin = ssd_scan(xh, dA, Bm, Cm, chunk=64)
+    want_y, want_f = ref.ssd_chunked_ref(xh, dA, Bm.contiguous(),
+                                         Cm.contiguous(), 64)
+    torch.testing.assert_close(y, want_y, atol=2e-4, rtol=2e-4)
+    torch.testing.assert_close(fin, want_f, atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.gpu
+def test_gpu_ssd_chunked_refuses_an_initial_state(cuda):
+    """The model's chunked scan goes through K8 on the card, which starts
+    from a zero state; no path passes one, so a call with one raises."""
+    from repro_torch.models import blocks as TB
+    xh, dA, Bm, Cm = _ssd_inputs(5, 1, 64, 2, 16, 16, 0.5, cuda)
+    before = build.LAUNCHES["ssd_scan"]
+    y, fin = TB.ssd_chunked(xh, dA, Bm, Cm, 32)
+    assert build.LAUNCHES["ssd_scan"] == before + 1
+    with pytest.raises(ValueError, match="initial state"):
+        TB.ssd_chunked(xh, dA, Bm, Cm, 32, init_state=fin)
+
+
+@pytest.mark.gpu
+def test_gpu_ssd_scan_refuses_bad_operands(cuda):
+    xh, dA, Bm, Cm = _ssd_inputs(6, 1, 64, 2, 16, 16, 0.5, cuda)
+    before = build.LAUNCHES["ssd_scan"]
+    with pytest.raises(ValueError, match="head dim"):
+        ssd_scan(xh.repeat(1, 1, 1, 5), dA, Bm, Cm)
+    with pytest.raises(ValueError, match="state"):
+        ssd_scan(xh, dA, Bm[..., :6], Cm[..., :6])
+    with pytest.raises(ValueError, match="CPU"):
+        ssd_scan(xh.cpu(), dA, Bm, Cm)
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_scan(xh, dA.cpu(), Bm, Cm)
+    with pytest.raises(TypeError, match="float32"):
+        ssd_scan(xh, dA, Bm.double(), Cm)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_scan(xh.transpose(1, 2).contiguous().transpose(1, 2), dA, Bm,
+                 Cm)
+    assert build.LAUNCHES["ssd_scan"] == before

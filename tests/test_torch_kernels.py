@@ -38,9 +38,11 @@ from repro_torch.kernels.fake_quant import fake_quant_2d  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.mlp_fused import mlp3, polyak_flat  # noqa: E402
 from repro_torch.kernels.quant_matmul import quant_matmul  # noqa: E402
+from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
 from repro_torch.kernels.ref import (attention_ref,  # noqa: E402
                                      fake_quant_ref, mlp3_ref,
-                                     polyak_ref, quant_matmul_ref)
+                                     polyak_ref, quant_matmul_ref,
+                                     ssd_chunked_ref)
 
 
 def _normal(seed, shape, scale=1.0):
@@ -221,9 +223,15 @@ def test_wrappers_route_cpu_to_plain_without_launching():
     q = torch.from_numpy(_normal(1, (1, 4, 8, 16)))
     kv = torch.from_numpy(_normal(2, (1, 2, 8, 16)))
     assert torch.equal(flash_attention(q, kv, kv), attention_ref(q, kv, kv))
+    xh, dA = torch.from_numpy(_normal(3, (1, 8, 2, 4))), -torch.ones(1, 8, 2)
+    bc = torch.from_numpy(_normal(4, (1, 8, 4)))
+    for a, b in zip(ssd_scan(xh, dA, bc, bc, chunk=4),
+                    ssd_chunked_ref(xh, dA, bc, bc, 4)):
+        assert torch.equal(a, b)
     assert build.LAUNCHES == {"fake_quant": 0, "mlp3": 0, "polyak": 0,
                               "quant_matmul_int8": 0,
-                              "quant_matmul_int4": 0, "flash_attention": 0}
+                              "quant_matmul_int4": 0, "flash_attention": 0,
+                              "ssd_scan": 0}
 
 
 def test_wrappers_refuse_other_devices():
