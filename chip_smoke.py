@@ -8,7 +8,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
 1. Device: requires CUDA (no CPU fallback); prints the card.
 2. Build: compiles the hand-written kernels (K1 fake-quant, K2 fused
    3-layer MLP, K3 Polyak, K4/K5 int8 and packed-int4 quantized matmul,
-   K6 flash attention) from ``src/repro_torch/kernels/csrc``, one nvcc
+   K6 flash attention, K7 RG-LRU scan, K8 SSD scan) from
+   ``src/repro_torch/kernels/csrc``, one nvcc
    per source, all at once, and prints nvcc's registers / shared memory
    per kernel.
 3. Kernels: each kernel against its plain PyTorch version on the card at
@@ -67,7 +68,27 @@ Phases, each fatal on failure (non-zero exit, no result line):
    64 steps, the conv and state cache (no KV cache, so no int8 variant),
    raw and under the policy; one profiled 8-step decode each. At the
    SMOKE widths (f32) the greedy tokens are the prefill's argmaxes.
-11. Lines before the last: the kernels as JSON, then ``nvidia-smi``'s name
+11. RecurrentGemma prefill: ``make_prefill_step`` on recurrentgemma-2b at
+   full width (26 layers in a (rglru, rglru, attn) pattern: 18 RG-LRU
+   layers of width 2,560 and 8 local-attention layers, 10 / 1 heads of
+   256, window 2,048; d 2,560, GeGLU d_ff 7,680, vocab 256,000; seeded
+   random weights) over 1 x 32,768 tokens, raw and under a seeded pq
+   policy, after the earlier models are freed. First K1 exact at every
+   (shape, bits) of the policy, K7 on layer 0's own (a, b) against the
+   sequential plain version (each (token, 256-channel) row within
+   ``K7_ROW_TOL``, the worst row's place printed) and K6 on layer 2's
+   q/k/v (window 2,048) against the chunked plain branch and the dense
+   tail rows, each timed beside its bound; then, as in phase 7, a warm-up
+   and one timed forward each, with exactly 18 K7, 8 K6 and ``k1_calls``'
+   count of K1 launches per forward; a profiled raw forward; the phase's
+   peak device memory; at the SMOKE widths (f32, 2 x 1,100 tokens) the
+   device forward's argmaxes equal the plain CPU path's.
+12. RecurrentGemma decode: ``decode_loop`` and ``sustained_throughput``,
+   batch 8, 64 steps, the RG-LRU state and the ring KV cache (16 and 8
+   bits), raw and under the policy; one profiled 8-step decode each. At
+   the SMOKE widths (f32, window 16) 24 greedy steps (the ring wraps) are
+   the prefill's argmaxes.
+13. Lines before the last: the kernels as JSON, then ``nvidia-smi``'s name
    and power limit. Last line: ``{"ok": true, "device": {...}}``.
 
 K8 (SSD scan) joins phase 3: against the sequential ``ssd_scan_ref`` and
@@ -75,10 +96,19 @@ the chunked plain version at the JAX tests' shapes (dA in [-0.5, 0]) and
 a ragged S 1,100 at mamba2's heads (atol and rtol 2e-4 on y and the final
 state), and at a slow decay (dA in [-0.01, 0], mamba2's 48 heads, S
 4,096, 16 chunks) against the chunked one at 2e-4 and the sequential one
-within ``K8_ROW_TOL`` per row; timed there beside its bound.
+within ``K8_ROW_TOL`` per row; timed there beside its bound. K7 (RG-LRU
+scan) too: at the JAX tests' shapes (a in [0.4, 0.99], with and without
+h0) at atol 2e-5, at the default chunk and at chunk 16 (the carry pass
+runs), a ragged S and C, and recurrentgemma-2b's width at S 4,096 with its
+init's slow decays, each (token, 256-channel) row within ``K7_ROW_TOL``;
+timed there beside its bound. And K6 at head dim 256 (MQA, 10 over 1
+heads) against the dense plain version: f32 at atol 2e-5, bf16 at S 128
+and 4,096, causal and window 2,048, at atol 0.04 and ``K6_ROW_TOL``; the
+S 4,096 window case timed beside SDPA with the window as a boolean mask.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -112,6 +142,11 @@ KERNELS = {
         "replaces": "src/repro/kernels/flash_attention.py:29"},
     "ssd_scan": {"source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
                  "replaces": "src/repro/kernels/ssd_scan.py:28"},
+    "flash_attention_d256": {
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:29"},
+    "rglru_scan": {"source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+                   "replaces": "src/repro/kernels/rglru_scan.py:25"},
 }
 MAIN_PATH_KERNELS = ("fake_quant", "mlp3", "polyak")
 CALIBRATION_KERNELS = ("quant_matmul_int8", "quant_matmul_int4")
@@ -141,6 +176,17 @@ K6_TAIL_ROWS = 1024
 K8_ROW_TOL = 2.0 ** -10
 K8_ROW_EPS = 1e-6
 K8_TOL = 2e-4           # rtol and atol, as the JAX tests hold K8
+# K7 also bounds each (token, 256-channel block) row of h: ||kernel -
+# plain|| / max(||plain||, K8_ROW_EPS). The chunked kernel rounds the
+# state carried into each chunk in another order than the sequential
+# plain version. At recurrentgemma-2b's init the decays are slow (a in
+# [0.9487, 0.9995]: the state carries over ~2,000 steps), and a CPU
+# emulation of the two orders in f32 at S 32,768 put the rows within
+# 4.8e-7; 2^-12 (2.4e-4) leaves ~500x room, and dropping the carry into
+# one chunk moves its rows by ~1 (PERF.md).
+K7_ROW_TOL = 2.0 ** -12
+K7_BLOCK = 256
+K7_TOL = 2e-5           # atol, as the JAX tests hold K7
 DECODE = dict(batch=8, steps=64, max_len=256)
 CARD = "no card"                # nvidia-smi's name and power limit
 
@@ -228,9 +274,10 @@ def k1_calls(cfg, cspec, rows: int) -> list:
     tokens makes under ``cspec``, in launch order: the embedding table,
     then per layer each quantized linear's input [rows, d_in] and weight
     [d_in, d_out] (q, k and v each quantize their input; a gated MLP's up
-    and gate too; an SSM layer's ``in_proj`` and ``out_proj`` once each),
-    then the head weight (the tied embedding's transpose). ``bits >= 32``
-    launches nothing."""
+    and gate too; an SSM layer's ``in_proj`` and ``out_proj`` once each;
+    an RG-LRU layer's input once for ``w_x`` and ``w_y``, then its
+    output projection), then the head weight (the tied embedding's
+    transpose). ``bits >= 32`` launches nothing."""
     from repro_torch.models.blocks import ssm_dims
     if cspec is None:
         return []
@@ -256,8 +303,15 @@ def k1_calls(cfg, cspec, rows: int) -> list:
                    (2 * d_inner + 2 * cfg.ssm.d_state + nheads,))
             linear(b["ssm"]["out"], d_inner, (d,))
             continue
-        linear(b["attn"]["qkv"], d, (H * D, KV * D, KV * D))
-        linear(b["attn"]["o"], H * D, (d,))
+        if kind == "rglru":
+            w, qs = cfg.lru_width, b["rglru"]["in"]
+            add((rows, d), qs["a_bits"])         # the input, once
+            add((d, w), qs["w_bits"])            # w_x
+            add((d, w), qs["w_bits"])            # w_y
+            linear(b["rglru"]["out"], w, (d,))
+        else:
+            linear(b["attn"]["qkv"], d, (H * D, KV * D, KV * D))
+            linear(b["attn"]["o"], H * D, (d,))
         linear(b["mlp"]["up"], d, ups)
         linear(b["mlp"]["down"], ff, (d,))
     add((d, V), cspec.get("head_bits"))
@@ -501,12 +555,17 @@ def check_quant_matmul(cfg, device) -> dict:
     return out
 
 
-def attention_work(B, H, KV, S, D, itemsize, causal=True):
+def attention_work(B, H, KV, S, D, itemsize, causal=True, window=0):
     """(bytes, operations) K6 must at least move and do: q, k, v read and
     the output written once; two products of D multiply-adds for every
-    (query, key) pair the mask keeps (S(S+1)/2 of them per head when
-    causal)."""
-    pairs = S * (S + 1) / 2 if causal else S * S
+    (query, key) pair the mask keeps per head: S(S+1)/2 causal; with a
+    window w, row q keeps min(q + 1, w) keys causal and S - max(0, q - w
+    + 1) otherwise."""
+    w = min(window, S) if window > 0 else S
+    if causal:
+        pairs = w * (w + 1) / 2 + (S - w) * w
+    else:
+        pairs = S * S - (S - w) * (S - w + 1) / 2
     return (itemsize * (2 * B * H * S * D + 2 * B * KV * S * D),
             4.0 * B * H * D * pairs)
 
@@ -519,11 +578,12 @@ def row_rel_err(got, want) -> float:
                   / w.norm(dim=-1).clamp_min(1e-30)).max())
 
 
-def attention_tail_ref(q, k, v, rows: int):
-    """``ref.attention_ref``'s arithmetic (dense f32 softmax, causal) for
-    the last ``rows`` query rows of q [B,H,S,D] only, in q's dtype: at the
-    prefill length the whole score matrix would not fit, its last rows
-    (the q tiles with the most keys) do."""
+def attention_tail_ref(q, k, v, rows: int, window: int = 0):
+    """``ref.attention_ref``'s arithmetic (dense f32 softmax, causal,
+    ``window`` keys when > 0) for the last ``rows`` query rows of q
+    [B,H,S,D] only, in q's dtype: at the prefill length the whole score
+    matrix would not fit, its last rows (the q tiles with the most keys)
+    do."""
     import torch
     B, H, S, D = q.shape
     KV = k.shape[1]
@@ -532,7 +592,10 @@ def attention_tail_ref(q, k, v, rows: int):
                      k.float()) / math.sqrt(D)
     qpos = torch.arange(S - rows, S, device=q.device)[:, None]
     kpos = torch.arange(S, device=q.device)[None, :]
-    s = torch.where(kpos <= qpos, s, torch.full_like(s, -1e30))
+    keep = kpos <= qpos
+    if window > 0:
+        keep &= kpos > qpos - window
+    s = torch.where(keep, s, torch.full_like(s, -1e30))
     o = torch.einsum("bkgql,bkld->bkgqd", torch.softmax(s, -1), v.float())
     return o.reshape(B, H, rows, D).to(q.dtype)
 
@@ -545,28 +608,67 @@ def sdpa(q, k, v, causal=True):
                                           enable_gqa=True)
 
 
-def check_flash_attention(device) -> dict:
-    """K6 against the dense plain version ``attention_ref``: the JAX
-    tests' shapes in f32 (causal, bidirectional, window 96; atol 2e-5),
-    their bf16 case and qwen2-0.5b's heads (14 over 2 of 64) at S 4096 in
-    bf16 (atol 0.04, and each row within ``K6_ROW_TOL``). The S 4096
-    causal case is timed beside the plain version and SDPA. Returns that
-    row; the row of the prefill shape comes from
-    ``check_flash_attention_prefill``."""
+def sdpa_window(q, k, v, window: int):
+    """The library yardstick for K6 with a causal window: SDPA has no
+    window argument, so the window is an explicit boolean [S, S] mask,
+    over k and v repeated to q's heads (SDPA's memory-efficient kernel
+    takes a mask but no grouped heads). Returns a function of no
+    arguments to time (the mask and the repeat are made once, here)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    S = q.shape[2]
+    pos = torch.arange(S, device=q.device)
+    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :]
+                                             > pos[:, None] - window)
+    g = q.shape[1] // k.shape[1]
+    kr, vr = (t.repeat_interleave(g, 1) for t in (k, v))
+
+    def run():
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return F.scaled_dot_product_attention(q, kr, vr, attn_mask=mask)
+    return run
+
+
+FA_MASKS = ((True, 0), (False, 0), (True, 96))
+# (B, S, H, KV, D), dtype, atol, masks: the JAX tests' shapes in f32
+# (causal, bidirectional, window 96) and their bf16 case, qwen2-0.5b's
+# heads (14 over 2 of 64) at S 4096 in bf16; head dim 256 as
+# recurrentgemma-2b has it (MQA, 10 over 1 heads): f32 at a ragged S, bf16
+# at S 128 and at S 4,096 with its window of 2,048.
+FA_CASES = (((2, 128, 4, 4, 32), "float32", 2e-5, FA_MASKS),
+            ((2, 200, 8, 2, 16), "float32", 2e-5, FA_MASKS),
+            ((2, 512, 4, 1, 64), "float32", 2e-5, FA_MASKS),
+            ((1, 128, 4, 2, 32), "bfloat16", 0.04, FA_MASKS),
+            ((1, 4096, 14, 2, 64), "bfloat16", 0.04, FA_MASKS),
+            ((2, 300, 4, 1, 256), "float32", 2e-5, FA_MASKS),
+            ((1, 128, 10, 1, 256), "bfloat16", 0.04,
+             ((True, 0), (True, 2048), (True, 96))),
+            ((1, 4096, 10, 1, 256), "bfloat16", 0.04,
+             ((True, 0), (True, 2048))))
+# (head dim, window) of the S 4096 masks timed: qwen2's causal heads and
+# recurrentgemma's window.
+FA_TIMED = ((64, 0), (256, 2048))
+
+
+def check_flash_attention(device, cases=FA_CASES) -> dict:
+    """K6 against the dense plain version ``attention_ref`` at each case's
+    masks: f32 at atol 2e-5, bf16 at atol 0.04 and each row within
+    ``K6_ROW_TOL``. On the card the S 4096 masks of ``FA_TIMED`` are
+    timed beside the plain version and SDPA (a window as a boolean mask,
+    ``sdpa_window``). Returns those rows by head dim (each with the
+    shape's worst errors over its masks); the rows of the prefill shapes
+    come from ``check_flash_attention_prefill``."""
     import torch
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device=device).manual_seed(5)
-    cases = [((2, 128, 4, 4, 32), torch.float32, 2e-5),
-             ((2, 200, 8, 2, 16), torch.float32, 2e-5),
-             ((2, 512, 4, 1, 64), torch.float32, 2e-5),
-             ((1, 128, 4, 2, 32), torch.bfloat16, 0.04),
-             ((1, 4096, 14, 2, 64), torch.bfloat16, 0.04)]
     out = {}
-    for (B, S, H, KV, D), dtype, tol in cases:
+    for (B, S, H, KV, D), dtype, tol, masks in cases:
+        dtype = getattr(torch, dtype)
         q, k, v = [torch.randn(shape, generator=gen, device=device).to(dtype)
                    for shape in ((B, H, S, D), (B, KV, S, D), (B, KV, S, D))]
         worst = (0.0, 0.0)          # the shape's max over the masks
-        for causal, window in ((True, 0), (False, 0), (True, 96)):
+        for causal, window in masks:
             got = ops.flash_attention(q, k, v, causal=causal, window=window)
             want = ref.attention_ref(q, k, v, causal=causal, window=window)
             err = float((got.float() - want.float()).abs().max())
@@ -581,19 +683,27 @@ def check_flash_attention(device) -> dict:
                                      f"plain version: {err} > {tol} or "
                                      f"{rel} > {rel_tol}")
             worst = (max(worst[0], err), max(worst[1], rel))
-        if S == 4096:
-            ms, paced = cuda_ms(lambda: ops.flash_attention(q, k, v), 10, 2)
-            plain, _ = cuda_ms(lambda: ref.attention_ref(q, k, v), 3, 1)
-            lib, _ = cuda_ms(lambda: sdpa(q, k, v), 10, 2)
-            n_bytes, n_ops = attention_work(B, H, KV, S, D, 2)
+        for d, w in FA_TIMED:
+            if (S, D) != (4096, d) or not q.is_cuda:
+                continue
+            ms, paced = cuda_ms(lambda: ops.flash_attention(
+                q, k, v, window=w), 10, 2)
+            plain, _ = cuda_ms(lambda: ref.attention_ref(q, k, v, window=w),
+                               3, 1)
+            lib, _ = cuda_ms(sdpa_window(q, k, v, w) if w else
+                             (lambda: sdpa(q, k, v)), 10, 2)
+            n_bytes, n_ops = attention_work(B, H, KV, S, D, 2, window=w)
             bound, by = bound_ms(n_bytes, n_ops, BF16_FLOPS)
-            out = dict(shape=[B, H, KV, S, D], ms=ms, paced_ms=paced,
-                       plain_ms=plain, library_ms=lib, bound_ms=bound,
-                       bound_by=by, max_abs_err=worst[0], tolerance=tol,
-                       row_rel_err=worst[1])
-            log(f"    S 4096 causal bf16: {ms:.3f} ms kernel, {plain:.3f} "
-                f"ms plain (dense), {lib:.3f} ms SDPA, bound {bound:.4f} ms "
-                f"({by}); {n_ops / ms / 1e9:.1f} TFLOP/s")
+            out[D] = dict(shape=[B, H, KV, S, D] + ([w] if w else []),
+                          ms=ms, paced_ms=paced, plain_ms=plain,
+                          library_ms=lib, bound_ms=bound, bound_by=by,
+                          max_abs_err=worst[0], tolerance=tol,
+                          row_rel_err=worst[1])
+            log(f"    S 4096 D {D} window {w} bf16, {CARD}: {ms:.3f} ms "
+                f"kernel ({n_ops / ms / 1e9:.1f} TFLOP/s), {plain:.3f} ms "
+                f"plain (dense), {lib:.3f} ms SDPA"
+                f"{' (boolean window mask)' if w else ''}, bound "
+                f"{bound:.4f} ms ({by})")
     return out
 
 
@@ -705,6 +815,112 @@ def check_ssd_scan(device, cases=SSD_CASES) -> dict:
                 f"({n_ops / ms / 1e9:.2f} TFLOP/s), {plain * 1e3:.1f} us "
                 f"chunked plain, bound {bound * 1e3:.1f} us ({by}); no "
                 f"library call computes this function")
+    return out
+
+
+def rglru_work(B, S, C, itemsize=4):
+    """(bytes, operations) K7 must at least move and do: a and b read
+    and h written once; one multiply and one add per element."""
+    return 3.0 * itemsize * B * S * C, 2.0 * B * S * C
+
+
+def rglru_errors(got, want) -> dict:
+    """max |got - want|; the largest ||got - want|| / max(||want||,
+    K8_ROW_EPS) over the (batch, token, ``K7_BLOCK``-channel block) rows
+    (a ragged last block padded with zeros), where that row is and its
+    norm, and the smallest row norm of want."""
+    import torch.nn.functional as F
+    g, w = got.float(), want.float()
+    pad = (-w.shape[-1]) % K7_BLOCK
+    blocks = w.shape[:-1] + (-1, K7_BLOCK)
+    gb = F.pad(g, (0, pad)).reshape(blocks)
+    wb = F.pad(w, (0, pad)).reshape(blocks)
+    norm = wb.norm(dim=-1)
+    rel = (gb - wb).norm(dim=-1) / norm.clamp_min(K8_ROW_EPS)
+    at = [int(i) for i in divmod(int(rel.argmax()), rel.shape[-1])]
+    at = list(divmod(at[0], rel.shape[1])) + at[1:]
+    return {"abs": float((g - w).abs().max()), "row": float(rel.max()),
+            "row_at": at, "row_norm": float(norm[tuple(at)]),
+            "min_norm": float(norm.min())}
+
+
+def lru_case(seed, B, S, C, a_range, device, with_h0=False):
+    """Seeded inputs: b standard normal; a uniform in ``a_range``, or
+    ``"path"``: recurrentgemma-2b's init, a = linspace(0.9, 0.999)^r per
+    channel at its gate r = sigmoid(0) = 0.5, with b = sqrt(1 - a^2) 0.5
+    u (the input gate i = 0.5);
+    h0 standard normal [B, C] or None."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    u = rng.standard_normal((B, S, C)).astype(f32)
+    if a_range == "path":
+        a = np.sqrt(np.linspace(0.9, 0.999, C, dtype=f32))
+        a = np.tile(a, (B, S, 1))
+        b = (np.sqrt(1 - a * a) * 0.5 * u).astype(f32)
+    else:
+        a = rng.uniform(*a_range, (B, S, C)).astype(f32)
+        b = u
+    h0 = rng.standard_normal((B, C)).astype(f32) if with_h0 else None
+    return [None if t is None else torch.from_numpy(t).to(device)
+            for t in (a, b, h0)]
+
+
+# (B, S, C), a's range, with h0: the JAX tests' shapes and their h0 case,
+# a ragged S and C, recurrentgemma-2b's width at S 4,096 with its init's
+# slow decays.
+RGLRU_CASES = (((2, 64, 96), (0.4, 0.99), False),
+               ((1, 128, 32), (0.4, 0.99), False),
+               ((3, 48, 256), (0.4, 0.99), False),
+               ((2, 32, 64), (0.5, 0.95), True),
+               ((2, 1000, 2600), (0.4, 0.99), False),
+               ((1, 4096, 2560), "path", False))
+RGLRU_TIMED_S = 4096
+
+
+def check_rglru_scan(device, cases=RGLRU_CASES) -> dict:
+    """K7 against its sequential plain version ``rglru_scan_ref``, at the
+    default chunk and at chunk 16 (more chunks: the carry pass matters):
+    atol 2e-5 as the JAX tests hold it, each (token, 256-channel) row
+    within ``K7_ROW_TOL``, and bit-equal where S fits one chunk (the same
+    correctly rounded multiply and add per step). The S 4,096 case is
+    timed beside the plain version and the bound; returns that row."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.rglru_scan import CHUNK, rglru_scan
+    out = {}
+    for i, ((B, S, C), a_range, with_h0) in enumerate(cases):
+        a, b, h0 = lru_case(20 + i, B, S, C, a_range, device, with_h0)
+        want = ref.rglru_scan_ref(a, b, h0)
+        for chunk in (CHUNK, 16):
+            got = rglru_scan(a, b, h0, chunk=chunk)
+            e = rglru_errors(got, want)
+            exact = bool((got == want).all())
+            log(f"  rglru_scan {(B, S, C)} a in {a_range}"
+                f"{' with h0' if with_h0 else ''}, chunk {chunk}: max "
+                f"|kernel - plain| {e['abs']:.3g} (tol {K7_TOL}), max row "
+                f"rel {e['row']:.3g} (tol {K7_ROW_TOL:.3g}; min row norm "
+                f"{e['min_norm']:.3g}); bit-equal {exact}")
+            if not (e["abs"] <= K7_TOL and e["row"] <= K7_ROW_TOL
+                    and (exact or S > chunk)):
+                raise AssertionError(f"rglru_scan disagrees with its plain "
+                                     f"version at {(B, S, C)}: {e}")
+        if S == RGLRU_TIMED_S and a.is_cuda:
+            ms, paced = cuda_ms(lambda: ops.rglru_scan(a, b), 20, 3)
+            plain, _ = cuda_ms(lambda: ref.rglru_scan_ref(a, b), 1, 1)
+            n_bytes, n_ops = rglru_work(B, S, C)
+            bound, by = bound_ms(n_bytes, n_ops)
+            g = ops.rglru_scan(a, b)
+            e = rglru_errors(g, want)
+            out = dict(shape=[B, S, C], ms=ms, paced_ms=paced,
+                       plain_ms=plain, library_ms=None, bound_ms=bound,
+                       bound_by=by, max_abs_err=e["abs"], tolerance=K7_TOL,
+                       row_rel_err=e["row"])
+            log(f"    S 4096 C {C}, {CARD}: {ms * 1e3:.1f} us kernel "
+                f"({n_bytes / ms / 1e6:.0f} GB/s of the bound's bytes), "
+                f"{plain:.3f} ms plain (sequential), bound "
+                f"{bound * 1e3:.1f} us ({by}); no library call computes "
+                f"this function")
     return out
 
 
@@ -1003,75 +1219,141 @@ def prefill_tokens(cfg, batch: int, seq: int, seed: int, device):
     return torch.as_tensor(toks, dtype=torch.int64, device=device)
 
 
+def layer_input(cfg, params, tokens, kind: str):
+    """(index, its params, input x, positions) of the first layer of
+    ``kind`` in the uncompressed forward: the embedding, then every
+    earlier layer."""
+    import torch
+    from repro_torch.models import model as M
+    i = cfg.layer_kinds.index(kind)
+    with torch.no_grad():
+        x = M._embed_inputs(cfg, params, tokens, None)
+        pos = torch.arange(x.shape[1], device=x.device)[None, :]
+        for j in range(i):
+            x = M._apply_block(cfg.layer_kinds[j], params["blocks"][j], x,
+                               cfg, None, pos)
+    return i, params["blocks"][i], x, pos
+
+
 def layer_qkv(cfg, params, tokens):
-    """q, k, v [B,S,H,D] / [B,S,KV,D] as layer 0 of the uncompressed
-    forward hands them to the attention: the embedding, the layer's input
-    norm, then ``blocks._qkv_rope``, which ``apply_attention`` calls."""
+    """q, k, v [B,S,H,D] / [B,S,KV,D] as the first attention layer of the
+    uncompressed forward hands them to the attention: its input, its
+    input norm, then ``blocks._qkv_rope``, which ``apply_attention``
+    calls."""
     import torch
     from repro_torch.models import blocks as MB
     from repro_torch.models import layers as ML
-    from repro_torch.models import model as M
+    _, p, x, pos = layer_input(cfg, params, tokens, "attn")
     with torch.no_grad():
-        x = M._embed_inputs(cfg, params, tokens, None)
-        p = params["blocks"][0]
         h = ML.apply_norm(cfg.norm, p["attn_norm"], x)
-        pos = torch.arange(x.shape[1], device=x.device)[None, :]
         return MB._qkv_rope(p["attn"], h, cfg, None, pos)
 
 
-def check_flash_attention_prefill(q, k, v) -> dict:
-    """K6 at the prefill shape on one layer's q/k/v against the chunked
-    plain branch (the dense plain version would need S² scores): bf16's
-    atol 0.04 and each row within ``K6_CHUNKED_ROW_TOL``; its last
-    ``K6_TAIL_ROWS`` rows also against the dense plain version
-    (``attention_tail_ref``) within ``K6_ROW_TOL``. Timed beside the
-    plain branch and SDPA."""
+def layer_rglru_inputs(cfg, params, tokens):
+    """(a, b) as the first RG-LRU layer of the uncompressed forward hands
+    them to K7: its input, its ``mix_norm``, then ``blocks.rglru_inputs``,
+    which ``apply_rglru`` calls."""
+    import torch
+    from repro_torch.models import blocks as MB
+    from repro_torch.models import layers as ML
+    _, p, x, _ = layer_input(cfg, params, tokens, "rglru")
+    with torch.no_grad():
+        h = ML.apply_norm(cfg.norm, p["mix_norm"], x)
+        return MB.rglru_inputs(p["rglru"], h, cfg, None)[0]
+
+
+def check_flash_attention_prefill(q, k, v, window: int = 0) -> dict:
+    """K6 at the prefill shape on one layer's q/k/v (causal, ``window``
+    keys when > 0) against the chunked plain branch (the dense plain
+    version would need S² scores): bf16's atol 0.04 and each row within
+    ``K6_CHUNKED_ROW_TOL``; its last ``K6_TAIL_ROWS`` rows also against
+    the dense plain version (``attention_tail_ref``) within
+    ``K6_ROW_TOL``. Timed beside the plain branch and SDPA (with a
+    window: the window as a boolean mask, ``sdpa_window``)."""
     from repro_torch.kernels import ops
     from repro_torch.models import layers as ML
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    got = ops.flash_attention(qt, kt, vt)
+    got = ops.flash_attention(qt, kt, vt, window=window)
     tail = row_rel_err(got[:, :, -K6_TAIL_ROWS:],
-                       attention_tail_ref(qt, kt, vt, K6_TAIL_ROWS))
+                       attention_tail_ref(qt, kt, vt, K6_TAIL_ROWS, window))
     got = got.transpose(1, 2)
-    want = ML.attention_chunked(q, k, v, causal=True)
+    want = ML.attention_chunked(q, k, v, causal=True, window=window)
     err = float((got.float() - want.float()).abs().max())
     rel = row_rel_err(got, want)
-    del want
+    del want, got
     B, S, H, D = q.shape
-    log(f"  flash_attention {(B, H, k.shape[2], S, D)} bf16 causal, layer 0 "
-        f"q/k/v: max |kernel - chunked plain| {err:.3g} (tol 0.04), max row"
-        f" rel {rel:.3g} (tol {K6_CHUNKED_ROW_TOL:.3g}); last "
-        f"{K6_TAIL_ROWS} rows vs the dense plain version: max row rel "
-        f"{tail:.3g} (tol {K6_ROW_TOL:.3g})")
+    log(f"  flash_attention {(B, H, k.shape[2], S, D)} bf16 causal, window "
+        f"{window}, the first attention layer's q/k/v: max |kernel - "
+        f"chunked plain| {err:.3g} (tol 0.04), max row rel {rel:.3g} (tol "
+        f"{K6_CHUNKED_ROW_TOL:.3g}); last {K6_TAIL_ROWS} rows vs the dense "
+        f"plain version: max row rel {tail:.3g} (tol {K6_ROW_TOL:.3g})")
     if not (err <= 0.04 and rel <= K6_CHUNKED_ROW_TOL
             and tail <= K6_ROW_TOL):
         raise AssertionError(f"flash_attention disagrees with its plain "
                              f"versions: {err}, {rel}, {tail}")
-    ms, paced = cuda_ms(lambda: ops.flash_attention(qt, kt, vt), 3, 1)
-    plain, _ = cuda_ms(lambda: ML.attention_chunked(q, k, v, causal=True),
-                       1, 1)
-    lib, _ = cuda_ms(lambda: sdpa(qt, kt, vt), 5, 2)
-    n_bytes, n_ops = attention_work(B, H, k.shape[2], S, D, 2)
+    ms, paced = cuda_ms(lambda: ops.flash_attention(qt, kt, vt,
+                                                    window=window), 3, 1)
+    plain, _ = cuda_ms(lambda: ML.attention_chunked(q, k, v, causal=True,
+                                                    window=window), 1, 1)
+    lib, _ = cuda_ms(sdpa_window(qt, kt, vt, window) if window else
+                     (lambda: sdpa(qt, kt, vt)), 5, 2)
+    n_bytes, n_ops = attention_work(B, H, k.shape[2], S, D, 2,
+                                    window=window)
     bound, by = bound_ms(n_bytes, n_ops, BF16_FLOPS)
-    log(f"    {ms:.3f} ms kernel ({n_ops / ms / 1e9:.1f} TFLOP/s), {plain:.3f}"
-        f" ms chunked plain, {lib:.3f} ms SDPA, bound {bound:.4f} ms ({by})")
-    return dict(shape=[B, H, k.shape[2], S, D], ms=ms, paced_ms=paced,
-                plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by,
-                max_abs_err=err, tolerance=0.04, row_rel_err=rel,
-                tail_row_rel_err=tail)
+    log(f"    {CARD}: {ms:.3f} ms kernel ({n_ops / ms / 1e9:.1f} TFLOP/s), "
+        f"{plain:.3f} ms chunked plain, {lib:.3f} ms SDPA"
+        f"{' (boolean window mask)' if window else ''}, bound {bound:.4f} "
+        f"ms ({by})")
+    return dict(shape=[B, H, k.shape[2], S, D] + ([window] if window else []),
+                ms=ms, paced_ms=paced, plain_ms=plain, library_ms=lib,
+                bound_ms=bound, bound_by=by, max_abs_err=err, tolerance=0.04,
+                row_rel_err=rel, tail_row_rel_err=tail)
+
+
+def check_rglru_prefill(a, b) -> dict:
+    """K7 at the prefill shape on one layer's (a, b) against the
+    sequential plain version: each (token, 256-channel) row within
+    ``K7_ROW_TOL`` (the worst row's place printed). Timed beside the
+    plain version (a few calls: it walks the tokens from the host) and
+    the bound."""
+    from repro_torch.kernels import ops, ref
+    got = ops.rglru_scan(a, b)
+    want = ref.rglru_scan_ref(a, b)
+    e = rglru_errors(got, want)
+    del got, want
+    B, S, C = a.shape
+    log(f"  rglru_scan {(B, S, C)}, the first RG-LRU layer's (a, b) (a in "
+        f"[{float(a.min()):.4f}, {float(a.max()):.4f}]) vs the sequential "
+        f"plain version: max abs {e['abs']:.3g}, max row rel {e['row']:.3g}"
+        f" (tol {K7_ROW_TOL:.3g}; at token {e['row_at'][1]}, chunk "
+        f"{e['row_at'][1] // 128}, channels {e['row_at'][2] * K7_BLOCK}.."
+        f"{(e['row_at'][2] + 1) * K7_BLOCK - 1}, row norm "
+        f"{e['row_norm']:.3g}; min row norm {e['min_norm']:.3g})")
+    if e["row"] > K7_ROW_TOL:
+        raise AssertionError(f"rglru_scan disagrees with its plain version "
+                             f"at the prefill shape: {e}")
+    ms, paced = cuda_ms(lambda: ops.rglru_scan(a, b), 10, 2)
+    plain, _ = cuda_ms(lambda: ref.rglru_scan_ref(a, b), 1, 1)
+    n_bytes, n_ops = rglru_work(B, S, C)
+    bound, by = bound_ms(n_bytes, n_ops)
+    log(f"    {CARD}: {ms:.4f} ms kernel ({n_bytes / ms / 1e6:.0f} GB/s of "
+        f"the bound's bytes), {plain:.1f} ms plain (sequential), bound "
+        f"{bound:.4f} ms ({by})")
+    return dict(shape=[B, S, C], ms=ms, paced_ms=paced, plain_ms=plain,
+                library_ms=None, bound_ms=bound, bound_by=by,
+                max_abs_err=e["abs"], tolerance=K7_ROW_TOL,
+                row_rel_err=e["row"])
 
 
 def layer_ssd_inputs(cfg, params, tokens):
-    """(xh_dt, dA, Bm, Cm) as layer 0 of the uncompressed forward hands
-    them to K8: the embedding, the layer's input norm, then
+    """(xh_dt, dA, Bm, Cm) as the first SSM layer of the uncompressed
+    forward hands them to K8: its input, its input norm, then
     ``blocks.ssd_inputs``, which ``apply_ssm`` calls."""
     import torch
     from repro_torch.models import blocks as MB
     from repro_torch.models import layers as ML
-    from repro_torch.models import model as M
+    _, p, x, _ = layer_input(cfg, params, tokens, "ssm")
     with torch.no_grad():
-        x = M._embed_inputs(cfg, params, tokens, None)
-        p = params["blocks"][0]
         h = ML.apply_norm(cfg.norm, p["norm"], x)
         return MB.ssd_inputs(p["ssm"], h, cfg, None, None)[0]
 
@@ -1120,11 +1402,27 @@ def check_ssd_prefill(xh, dA, Bm, Cm, chunk: int) -> dict:
 def prefill_launches(cfg, cspec, seq: int) -> dict:
     """The launches one prefill forward over ``seq`` tokens must make on
     the card: K6 once per attention layer (its chunked branch), K8 once
-    per SSM layer, K1 as ``k1_calls`` counts."""
+    per SSM layer, K7 once per RG-LRU layer, K1 as ``k1_calls``
+    counts."""
     kinds = cfg.layer_kinds
     return {"flash_attention": kinds.count("attn") if seq > 512 else 0,
             "ssd_scan": kinds.count("ssm"),
+            "rglru_scan": kinds.count("rglru"),
             "fake_quant": len(k1_calls(cfg, cspec, seq))}
+
+
+def release_cached_memory(device) -> None:
+    """Hand the caching allocator's free blocks back to the card before a
+    forward over a new pattern of tensors. recurrentgemma-2b's prefill
+    holds 10.7 GB of f32 params beside 16.8 GB of bf16 and 33.6 GB of f32
+    logits (a 61 GB peak): a later forward's smaller tensors would split
+    the cached 33.6 GB block, and its logits would then find no block of
+    that size (fragmentation, not a lack of memory)."""
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def timed_prefill(cfg, params, tokens, cspec=None) -> tuple:
@@ -1143,8 +1441,12 @@ def timed_prefill(cfg, params, tokens, cspec=None) -> tuple:
     sync()
     dt = time.perf_counter() - t0
     launches = dict(build.LAUNCHES)
+    # isfinite takes an f32 copy (abs) and two masks of its input: by
+    # rows, so that 32,768 x 256,000 f32 logits (33.6 GB) get no twin.
+    finite = all(bool(torch.isfinite(rows).all())
+                 for rows in logits.flatten(0, 1).split(2048))
     if tuple(logits.shape) != tuple(tokens.shape) + (cfg.vocab_size,) \
-            or not bool(torch.isfinite(logits).all()):
+            or not finite:
         raise AssertionError(f"bad prefill logits {tuple(logits.shape)}")
     return dt, launches
 
@@ -1186,13 +1488,13 @@ def check_prefill_numerics(cfg, device, seq: int, seed: int = 0,
 
 def run_prefill(cfg, params, cspec, device, seq: int, warm_seq: int,
                 seed: int = 0) -> dict:
-    """Layer 0's kernel inputs through its kernel and the plain branch
-    (q/k/v through K6 for an attention model, (xh_dt, dA, B, C) through
-    K8 for an SSM one), then warm-up and timed prefill forwards,
+    """The first layer of each kind's kernel inputs through its kernel
+    and the plain branch (q/k/v through K6, (xh_dt, dA, B, C) through K8,
+    (a, b) through K7), then warm-up and timed prefill forwards,
     uncompressed and under ``cspec``. On the card each timed forward
-    must launch each kernel exactly as ``prefill_launches`` counts (K6
-    or K8 once per layer, K1 under the policy as ``k1_calls`` counts);
-    on the CPU nothing may launch."""
+    must launch each kernel exactly as ``prefill_launches`` counts (K6,
+    K8 or K7 once per layer of its kind, K1 under the policy as
+    ``k1_calls`` counts); on the CPU nothing may launch."""
     import torch
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch.inputs import model_flops
@@ -1200,12 +1502,17 @@ def run_prefill(cfg, params, cspec, device, seq: int, warm_seq: int,
     out = {}
     if tokens.is_cuda and "attn" in cfg.layer_kinds:
         out["k6"] = check_flash_attention_prefill(
-            *layer_qkv(cfg, params, tokens))
+            *layer_qkv(cfg, params, tokens),
+            window=cfg.window if cfg.attention == "sliding" else 0)
     if tokens.is_cuda and "ssm" in cfg.layer_kinds:
         out["k8"] = check_ssd_prefill(*layer_ssd_inputs(cfg, params, tokens),
                                       cfg.ssm.chunk_size)
+    if tokens.is_cuda and "rglru" in cfg.layer_kinds:
+        out["k7"] = check_rglru_prefill(*layer_rglru_inputs(cfg, params,
+                                                            tokens))
     flops = model_flops(cfg, ShapeConfig("prefill", seq, 1, "prefill"))
     for name, cs in (("uncompressed", None), ("policy", cspec)):
+        release_cached_memory(tokens.device)
         timed_prefill(cfg, params, tokens[:, :warm_seq], cs)
         dt, launches = timed_prefill(cfg, params, tokens, cs)
         log(f"  {name}: {dt * 1e3:.1f} ms per forward of 1 x {seq} tokens, "
@@ -1312,7 +1619,7 @@ def profile_prefill(cfg, params, tokens, cspec=None) -> dict:
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.train.train_step import make_prefill_step
     step = make_prefill_step(cfg, cspec)
-    torch.cuda.synchronize()
+    release_cached_memory(tokens.device)
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1348,6 +1655,14 @@ def check_decode_consistency(cfg, device, steps: int = 16,
         raise AssertionError("decode and prefill disagree")
 
 
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
@@ -1357,6 +1672,102 @@ def _to(tree, device):
 
 
 # ---------------------------------------------------------------------------
+
+def recurrentgemma_phases(device, results: dict, launches: dict) -> None:
+    """Phases 11 and 12 on the card: recurrentgemma-2b's prefill and
+    decode (the earlier models freed first). Adds the K6 (D 256) and K7
+    rows to ``results`` and their launch counts to ``launches``."""
+    import torch
+    from repro_torch.core.compress import CompressibleLM
+    from repro_torch.models import model as M
+    from repro_torch.models.registry import get_config
+    rg = get_config("recurrentgemma-2b")
+    kinds = rg.layer_kinds
+    log(f"[recurrentgemma prefill] make_prefill_step on {rg.name} "
+        f"({rg.num_layers} layers: {kinds.count('rglru')} RG-LRU of width "
+        f"{rg.lru_width}, {kinds.count('attn')} local attention with "
+        f"{rg.num_heads}/{rg.num_kv_heads} heads of {rg.head_dim}, window "
+        f"{rg.window}; d={rg.d_model}, {rg.mlp} d_ff {rg.d_ff}, vocab "
+        f"{rg.vocab_size}, {rg.compute_dtype} compute, {rg.param_dtype} "
+        f"params), seeded random weights, 1 x {PREFILL_SEQ} tokens, "
+        f"uncompressed and under a seeded pq policy; {CARD}")
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cm = CompressibleLM(rg, M.init(rg, seed=0, device=device))
+    log(f"  params {sum(t.numel() for t in _leaves(cm.params)) / 1e9:.3f} B "
+        f"({torch.cuda.memory_allocated() / 1e9:.2f} GB on the card)")
+    policy = seeded_policy(cm, 0)
+    r_cspec = cm.build_cspec(policy)
+    log("  policy (keep, w/a bits): " + " ".join(
+        f"{s.name}:{c.keep}/{c.w_bits}/{c.a_bits}"
+        for s, c in zip(cm.specs, policy.cmps)
+        if c.w_bits < 32 or (s.prune_dim and c.keep < s.prune_dim)))
+    k1_r = check_fake_quant_path(rg, r_cspec,
+                                 (PREFILL_SEQ, DECODE["batch"]), device)
+    log(f"  K1 at the {k1_r['pairs']} (shape, bits) of the policy's "
+        f"prefill and decode: max |kernel - plain| "
+        f"{k1_r['max_abs_err']:.3g} (tol 0)")
+    pre_r = run_prefill(rg, cm.params, r_cspec, device, PREFILL_SEQ,
+                        PREFILL_WARM_SEQ)
+    results["flash_attention_d256"] = pre_r["k6"]
+    results["rglru_scan"] = pre_r["k7"]
+    for name, kernel in (("flash_attention_d256", "flash_attention"),
+                         ("rglru_scan", "rglru_scan")):
+        launches[name] = sum(pre_r[n]["launches"][kernel]
+                             for n in ("uncompressed", "policy"))
+    for n in ("uncompressed", "policy"):
+        k7_ms = pre_r["k7"]["ms"] * kinds.count("rglru")
+        k6_ms = pre_r["k6"]["ms"] * kinds.count("attn")
+        log(f"  {n}: K7 {kinds.count('rglru')} x {pre_r['k7']['ms']:.3f} ms"
+            f" = {k7_ms:.1f} ms ({k7_ms / 1e3 / pre_r[n]['seconds']:.1%}), "
+            f"K6 {kinds.count('attn')} x {pre_r['k6']['ms']:.2f} ms = "
+            f"{k6_ms:.1f} ms ({k6_ms / 1e3 / pre_r[n]['seconds']:.1%}) of "
+            f"the forward")
+    prof = profile_prefill(rg, cm.params, prefill_tokens(
+        rg, 1, PREFILL_SEQ, 0, device))
+    busy = prof["device_busy_s"]
+    log(f"  uncompressed, profiled: {prof['wall_s'] * 1e3:.1f} ms wall, "
+        f"device busy {busy * 1e3:.1f} ms ({busy / prof['wall_s']:.1%}), "
+        f"{prof['kernels']} kernels; top device time (us):")
+    for t, key, n in prof["top"]:
+        log(f"    {t:12.1f}  x{n:<5d} {key[:80]}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  peak device memory of the phase: {peak:.2f} GB "
+        f"(torch.cuda.max_memory_allocated; {CARD})")
+    predicted = oracle_prefill_ratio(cm, policy, PREFILL_SEQ)
+    measured = pre_r["policy"]["seconds"] / pre_r["uncompressed"]["seconds"]
+    log(f"  compressed / reference: predicted {predicted:.4f} (analytic "
+        f"oracle, V5E reference data), measured {measured:.4f} ({CARD})")
+    check_prefill_numerics(get_config("recurrentgemma-2b", smoke=True),
+                           device, 1100, min_agree=1.0)
+    log(f"  {time.perf_counter() - t0:.1f} s for the recurrentgemma prefill "
+        f"phase")
+
+    log(f"[recurrentgemma decode] decode_loop and sustained_throughput on "
+        f"{rg.name}, batch {DECODE['batch']}, {DECODE['steps']} steps, "
+        f"max_len {DECODE['max_len']}: the RG-LRU state and conv window, "
+        f"the attention layers' ring KV cache; {CARD}")
+    t0 = time.perf_counter()
+    run_decode(rg, cm.params, {"uncompressed": None, "policy": r_cspec},
+               **DECODE)
+    for name, cs in (("uncompressed", None), ("policy", r_cspec)):
+        prof = profile_decode(rg, cm.params, cs, batch=DECODE["batch"],
+                              steps=8, max_len=DECODE["max_len"])
+        busy = prof["device_busy_s"]
+        log(f"  {name}, 16-bit cache, profiled: {prof['step_s'] * 1e3:.2f} "
+            f"ms per step (unprofiled), device busy {busy * 1e3:.2f} ms "
+            f"({busy / prof['step_s']:.1%}), "
+            f"{prof['kernels_per_step']:.0f} kernels per step; top device "
+            f"time over 8 steps (us):")
+        for t, key, n in prof["top"]:
+            log(f"    {t:10.1f}  x{n:<6d} {key[:80]}")
+    check_decode_consistency(get_config("recurrentgemma-2b", smoke=True),
+                             device, steps=24)
+    log(f"  {time.perf_counter() - t0:.1f} s for the recurrentgemma decode "
+        f"phase")
+
 
 def main() -> int:
     import torch
@@ -1408,6 +1819,7 @@ def main() -> int:
     }
     k6_4096 = check_flash_attention(device)
     k8_4096 = check_ssd_scan(device)
+    k7_4096 = check_rglru_scan(device)
     for name, r in results.items():
         lib_ms = r["library_ms"]
         log(f"  {name} {r['shape']}: {r['ms'] * 1e3:.2f} us kernel "
@@ -1612,16 +2024,24 @@ def main() -> int:
     check_decode_consistency(get_config("mamba2-780m", smoke=True), device)
     log(f"  {time.perf_counter() - t0:.1f} s for the mamba2 decode phase")
 
-    r = k6_4096
-    log(f"  flash_attention at S 4096 {r['shape']}: {r['ms']:.4f} ms kernel,"
-        f" {r['plain_ms']:.4f} ms plain, {r['library_ms']:.4f} ms SDPA, "
-        f"bound {r['bound_ms']:.4f} ms; max err {r['max_abs_err']:.3g}, "
-        f"max row rel {r['row_rel_err']:.3g}")
+    del cm
+    recurrentgemma_phases(device, results, launches)
+
+    for r in k6_4096.values():
+        log(f"  flash_attention at S 4096 {r['shape']}: {r['ms']:.4f} ms "
+            f"kernel, {r['plain_ms']:.4f} ms plain, {r['library_ms']:.4f} "
+            f"ms SDPA, bound {r['bound_ms']:.4f} ms; max err "
+            f"{r['max_abs_err']:.3g}, max row rel {r['row_rel_err']:.3g}")
     r = k8_4096
     log(f"  ssd_scan at S 4096 {r['shape']}: {r['ms']:.4f} ms kernel, "
         f"{r['plain_ms']:.4f} ms chunked plain, bound {r['bound_ms']:.4f} "
         f"ms ({r['bound_by']}); max err {r['max_abs_err']:.3g}, max row rel"
         f" {r['row_rel_err']:.3g} ({CARD})")
+    r = k7_4096
+    log(f"  rglru_scan at S 4096 {r['shape']}: {r['ms']:.4f} ms kernel, "
+        f"{r['plain_ms']:.4f} ms plain, bound {r['bound_ms']:.4f} ms "
+        f"({r['bound_by']}); max err {r['max_abs_err']:.3g}, max row rel "
+        f"{r['row_rel_err']:.3g} ({CARD})")
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", **KERNELS[name],
          "launches": launches[name], "max_abs_err": r["max_abs_err"],

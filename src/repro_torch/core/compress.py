@@ -177,11 +177,14 @@ def _unit_prune_scores(cfg: ArchConfig, p_l, kind: str) -> torch.Tensor:
         d_inner, nheads, _ = B.ssm_dims(cfg)
         return pruning.head_scores(
             p_l["ssm"]["in_proj"][:, d_inner:2 * d_inner], nheads)
+    if kind == "rglru_in":
+        return pruning.l1_scores([p_l["rglru"]["w_x"], p_l["rglru"]["w_y"]])
     raise ValueError(kind)
 
 
-# The prunable unit of each layer kind, whose ℓ1 scores a cspec reads.
-PRUNE_KINDS = {"attn": ("attn_qkv", "mlp_up"), "ssm": ("ssm_in",)}
+# The prunable units of each layer kind, whose ℓ1 scores a cspec reads.
+PRUNE_KINDS = {"attn": ("attn_qkv", "mlp_up"), "ssm": ("ssm_in",),
+               "rglru": ("rglru_in", "mlp_up")}
 
 
 def build_lm_cspec(cfg: ArchConfig, params, policy: Policy,
@@ -189,7 +192,9 @@ def build_lm_cspec(cfg: ArchConfig, params, policy: Policy,
     """The cspec of ``policy``: per attention layer ``{"attn": {"qkv",
     "o", "head_mask"}, "mlp": {"up", "down", "ff_mask"}}``, per SSM layer
     ``{"ssm": {"in", "out", "head_mask"}}`` (SSD heads pruned at the
-    ``ssm_in`` unit), plus the embed and head bits. Masks are always
+    ``ssm_in`` unit), per RG-LRU layer ``{"rglru": {"in", "out",
+    "width_mask"}, "mlp": {...}}`` (LRU channels pruned at the
+    ``rglru_in`` unit), plus the embed and head bits. Masks are always
     present (ones when unpruned), as in the JAX package. ``scores`` may
     hold precomputed ``(layer, kind) -> ℓ1 scores``; they do not depend
     on the policy."""
@@ -221,13 +226,22 @@ def build_lm_cspec(cfg: ArchConfig, params, policy: Policy,
                 "in": _qs(ci), "out": _qs(co),
                 "head_mask": mask(i, "ssm_in", ci, B.ssm_dims(cfg)[1])}})
             continue
-        cq, co = cm.get("attn_qkv"), cm.get("attn_out")
+        if kind == "attn":
+            cq, co = cm.get("attn_qkv"), cm.get("attn_out")
+            cs = {"attn": {"qkv": _qs(cq), "o": _qs(co),
+                           "head_mask": mask(i, "attn_qkv", cq,
+                                             cfg.num_heads)}}
+        elif kind == "rglru":
+            ci, co = cm.get("rglru_in"), cm.get("rglru_out")
+            cs = {"rglru": {"in": _qs(ci), "out": _qs(co),
+                            "width_mask": mask(i, "rglru_in", ci,
+                                               cfg.lru_width)}}
+        else:
+            raise ValueError(f"layer {i}: no cspec for kind {kind!r}")
         cu, cd = cm.get("mlp_up"), cm.get("mlp_down")
-        layer_cspecs.append({
-            "attn": {"qkv": _qs(cq), "o": _qs(co),
-                     "head_mask": mask(i, "attn_qkv", cq, cfg.num_heads)},
-            "mlp": {"up": _qs(cu), "down": _qs(cd),
-                    "ff_mask": mask(i, "mlp_up", cu, cfg.d_ff)}})
+        cs["mlp"] = {"up": _qs(cu), "down": _qs(cd),
+                     "ff_mask": mask(i, "mlp_up", cu, cfg.d_ff)}
+        layer_cspecs.append(cs)
     out: dict[str, Any] = {"blocks": layer_cspecs}
     if embed_bits is not None:
         out["embed_bits"] = embed_bits

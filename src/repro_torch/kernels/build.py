@@ -26,7 +26,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SOURCES = ("fake_quant", "mlp3", "polyak", "quant_matmul",
-           "flash_attention", "ssd_scan")
+           "flash_attention", "ssd_scan", "rglru_scan")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -43,13 +43,14 @@ _SIGNATURES = {
     "ssd_scan": {"ssd_scan_launch":
                  [_P] * 4 + [ctypes.POINTER(ctypes.c_longlong)] + [_P] * 5
                  + [_I] * 6 + [_P]},
+    "rglru_scan": {"rglru_scan_launch": [_P] * 7 + [_I] * 5 + [_P]},
 }
 
 # Kernel launches per wrapper, counted where each wrapper launches its
 # kernel (never for the plain version on a CPU tensor).
 LAUNCHES = {"fake_quant": 0, "mlp3": 0, "polyak": 0,
             "quant_matmul_int8": 0, "quant_matmul_int4": 0,
-            "flash_attention": 0, "ssd_scan": 0}
+            "flash_attention": 0, "ssd_scan": 0, "rglru_scan": 0}
 
 _libs: dict = {}
 build_report: dict = {}     # name -> {"seconds", "ptxas"} of the last build

@@ -27,17 +27,23 @@
 // FMA-flops (half of Q.K^T plus half of P.V): 1.93 TFLOP per call at
 // qwen2-0.5b's prefill (B 1, H 14, KV 2, S 32768, D 64), 1.95 ms at the
 // 989 TFLOP/s bf16 tensor-core peak; it reads q, k, v and writes the
-// output once, ~134 MB in bf16, 0.04 ms at 3.35 TB/s.
+// output once, ~134 MB in bf16, 0.04 ms at 3.35 TB/s.  With a window only
+// the kept pairs count: 0.67 TFLOP at recurrentgemma-2b's (B 1, H 10, KV
+// 1, S 32768, D 256, window 2048), 0.68 ms.
 //
-// Design: one block of 128 threads per (64-row q tile, q head, batch).
-// The q tile and each 64-key K and V tile are staged in shared memory as
-// f32 (read with element strides, so q/k/v may be the [B,S,H,D] layer
-// layout seen through a transpose, and the ragged S edge is masked, no
-// padding).  Thread (ty, tx), ty < 8, tx < 16, holds the scores of rows
-// ty + 8i (i < 8) x keys tx + 16j (j < 4) and the output of rows ty + 8i x
-// columns tx*D/16 .. +D/16: an 8x4 register micro-tile of f32 FMAs for
-// Q.K^T and an 8x(D/16) one for P.V, with the rounded P tile passed
-// through shared memory.  Row statistics reduce over the 16 lanes of a
+// Design: one block of 128 threads per (BQ-row q tile, q head, batch),
+// BQ x BK = 64 x 64 up to D 128 and 32 x 32 at D 256 (FaTile).  The q
+// tile and each BK-key K and V tile are staged in shared memory as f32
+// (read with element strides, so q/k/v may be the [B,S,H,D] layer layout
+// seen through a transpose, and the ragged S edge is masked, no padding).
+// Thread (ty, tx), ty < 8, tx < 16, holds the scores of rows ty + 8i
+// (i < RI = BQ/8) x keys tx + 16j (j < KJ = BK/16) and the output of rows
+// ty + 8i x columns tx*D/16 .. +D/16: an RIxKJ register micro-tile of f32
+// FMAs for Q.K^T and an RIx(D/16) one for P.V, with the rounded P tile
+// passed through shared memory.  At D 256 the 64 x 64 tiles would stage
+// 220 KB (one block per SM) and hold 128 f32 accumulators per thread
+// (spilled); the 32 x 32 tiles stage 104 KB (two blocks per SM) and hold
+// 64.  Row statistics reduce over the 16 lanes of a
 // half-warp with shuffles.  Row strides of the f32 tiles (D + 4, 80) keep
 // the float4 reads free of bank conflicts.  Causal grids start with the
 // q tiles that have the most keys.  The products run on the CUDA cores,
@@ -47,8 +53,6 @@
 #include <cuda_bf16.h>
 #include <math.h>
 
-#define FA_BQ 64
-#define FA_BK 64
 #define FA_THREADS 128
 #define FA_NEG_INF (-1e30f)
 
@@ -69,15 +73,21 @@ from_f32<__nv_bfloat16>(float x) {
     return __float2bfloat16_rn(x);
 }
 
-template <int D> constexpr int tile_floats() {
-    return 3 * FA_BQ * (D + 4) + FA_BQ * (FA_BK + 16);
-}
+template <int D> struct FaTile {
+    static constexpr int BQ = D > 128 ? 32 : 64;   // q rows per block
+    static constexpr int BK = D > 128 ? 32 : 64;   // keys per tile
+    static constexpr int RI = BQ / 8;              // q rows per thread
+    static constexpr int KJ = BK / 16;             // keys per thread
+    static constexpr int LD = D + 4;
+    static constexpr int LDP = BK + 16;
+    static constexpr int FLOATS = (BQ + 2 * BK) * LD + BQ * LDP;
+};
 
-template <typename T, int D>
+template <typename T, int D, int ROWS>
 __device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
                                           Strides st, int s0, int S) {
     constexpr int LD = D + 4;
-    for (int i = threadIdx.x; i < FA_BK * D; i += FA_THREADS) {
+    for (int i = threadIdx.x; i < ROWS * D; i += FA_THREADS) {
         const int r = i / D, c = i % D;
         const int s = s0 + r;
         dst[r * LD + c] = s < S ? to_f32(src[s * st.s + c * st.d]) : 0.0f;
@@ -90,62 +100,64 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o,
                        Strides qs, Strides ks, Strides vs, Strides os, int G,
                        int S, float scale, int causal, int window) {
-    constexpr int LD = D + 4;
-    constexpr int LDP = FA_BK + 16;
+    using Tile = FaTile<D>;
+    constexpr int BQ = Tile::BQ, BK = Tile::BK, RI = Tile::RI, KJ = Tile::KJ;
+    constexpr int LD = Tile::LD;
+    constexpr int LDP = Tile::LDP;
     constexpr int NC = D / 16;
     extern __shared__ __align__(16) float smem[];
     float* Qs = smem;
-    float* Ks = Qs + FA_BQ * LD;
-    float* Vs = Ks + FA_BK * LD;
-    float* Ps = Vs + FA_BK * LD;
+    float* Ks = Qs + BQ * LD;
+    float* Vs = Ks + BK * LD;
+    float* Ps = Vs + BK * LD;
 
     const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-    const int q0 = (gridDim.x - 1 - blockIdx.x) * FA_BQ;
+    const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
     const int h = blockIdx.y, b = blockIdx.z;
     const T* qb = q + b * qs.b + h * qs.h;
     const T* kb = k + b * ks.b + (h / G) * ks.h;
     const T* vb = v + b * vs.b + (h / G) * vs.h;
     T* ob = o + b * os.b + h * os.h;
 
-    load_tile<T, D>(Qs, qb, qs, q0, S);
+    load_tile<T, D, BQ>(Qs, qb, qs, q0, S);
 
-    float m[8], l[8], acc[8][NC];
+    float m[RI], l[RI], acc[RI][NC];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
+    for (int i = 0; i < RI; ++i) {
         m[i] = FA_NEG_INF;
         l[i] = 0.0f;
 #pragma unroll
         for (int c = 0; c < NC; ++c) acc[i][c] = 0.0f;
     }
 
-    const int k_end = causal ? min(S, q0 + FA_BQ) : S;
+    const int k_end = causal ? min(S, q0 + BQ) : S;
     const int k_begin =
-        window > 0 ? (max(0, q0 - window + 1) / FA_BK) * FA_BK : 0;
+        window > 0 ? (max(0, q0 - window + 1) / BK) * BK : 0;
 
-    for (int k0 = k_begin; k0 < k_end; k0 += FA_BK) {
+    for (int k0 = k_begin; k0 < k_end; k0 += BK) {
         __syncthreads();   // the previous tile's readers are done
-        load_tile<T, D>(Ks, kb, ks, k0, S);
-        load_tile<T, D>(Vs, vb, vs, k0, S);
+        load_tile<T, D, BK>(Ks, kb, ks, k0, S);
+        load_tile<T, D, BK>(Vs, vb, vs, k0, S);
         __syncthreads();
 
-        float s[8][4];
+        float s[RI][KJ];
 #pragma unroll
-        for (int i = 0; i < 8; ++i)
+        for (int i = 0; i < RI; ++i)
 #pragma unroll
-            for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
+            for (int j = 0; j < KJ; ++j) s[i][j] = 0.0f;
 #pragma unroll 4
         for (int d = 0; d < D; d += 4) {
-            float4 kf[4];
+            float4 kf[KJ];
 #pragma unroll
-            for (int j = 0; j < 4; ++j)
+            for (int j = 0; j < KJ; ++j)
                 kf[j] = *reinterpret_cast<const float4*>(
                     &Ks[(tx + 16 * j) * LD + d]);
 #pragma unroll
-            for (int i = 0; i < 8; ++i) {
+            for (int i = 0; i < RI; ++i) {
                 const float4 qf = *reinterpret_cast<const float4*>(
                     &Qs[(ty + 8 * i) * LD + d]);
 #pragma unroll
-                for (int j = 0; j < 4; ++j) {
+                for (int j = 0; j < KJ; ++j) {
                     float a = s[i][j];
                     a = fmaf(qf.x, kf[j].x, a);
                     a = fmaf(qf.y, kf[j].y, a);
@@ -157,11 +169,11 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
 
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
+        for (int i = 0; i < RI; ++i) {
             const int qpos = q0 + ty + 8 * i;
             float mx = FA_NEG_INF;
 #pragma unroll
-            for (int j = 0; j < 4; ++j) {
+            for (int j = 0; j < KJ; ++j) {
                 const int kpos = k0 + tx + 16 * j;
                 bool ok = kpos < S;
                 if (causal) ok = ok && kpos <= qpos;
@@ -176,7 +188,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
             const float alpha = expf(m[i] - m_new);
             float rs = 0.0f;
 #pragma unroll
-            for (int j = 0; j < 4; ++j) {
+            for (int j = 0; j < KJ; ++j) {
                 const float p = expf(s[i][j] - m_new);
                 rs += p;
                 Ps[(ty + 8 * i) * LDP + tx + 16 * j] =
@@ -193,10 +205,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         __syncthreads();
 
 #pragma unroll 2
-        for (int kk = 0; kk < FA_BK; kk += 4) {
-            float4 pf[8];
+        for (int kk = 0; kk < BK; kk += 4) {
+            float4 pf[RI];
 #pragma unroll
-            for (int i = 0; i < 8; ++i)
+            for (int i = 0; i < RI; ++i)
                 pf[i] = *reinterpret_cast<const float4*>(
                     &Ps[(ty + 8 * i) * LDP + kk]);
 #pragma unroll
@@ -216,7 +228,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     for (int c = 0; c < NC; ++c) vv[c] = vrow[c];
                 }
 #pragma unroll
-                for (int i = 0; i < 8; ++i) {
+                for (int i = 0; i < RI; ++i) {
                     const float p = e == 0 ? pf[i].x : e == 1 ? pf[i].y
                                   : e == 2 ? pf[i].z : pf[i].w;
 #pragma unroll
@@ -228,7 +240,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
+    for (int i = 0; i < RI; ++i) {
         const int qpos = q0 + ty + 8 * i;
         if (qpos >= S) continue;
         const float den = fmaxf(l[i], 1e-30f);
@@ -243,7 +255,7 @@ template <typename T, int D>
 static int launch(const void* q, const void* k, const void* v, void* o,
                   const long long* st, int B, int H, int KV, int S,
                   float scale, int causal, int window, cudaStream_t stream) {
-    const int smem = tile_floats<D>() * (int)sizeof(float);
+    const int smem = FaTile<D>::FLOATS * (int)sizeof(float);
     cudaError_t err = cudaFuncSetAttribute(
         flash_attention_kernel<T, D>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -252,7 +264,8 @@ static int launch(const void* q, const void* k, const void* v, void* o,
     const Strides ks{st[4], st[5], st[6], st[7]};
     const Strides vs{st[8], st[9], st[10], st[11]};
     const Strides os{st[12], st[13], st[14], st[15]};
-    dim3 grid((S + FA_BQ - 1) / FA_BQ, H, B);
+    constexpr int BQ = FaTile<D>::BQ;
+    dim3 grid((S + BQ - 1) / BQ, H, B);
     flash_attention_kernel<T, D><<<grid, FA_THREADS, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<T*>(o), qs, ks, vs, os,
@@ -272,6 +285,8 @@ static int launch_d(const void* q, const void* k, const void* v, void* o,
         case 64: return launch<T, 64>(q, k, v, o, st, B, H, KV, S, scale,
                                       causal, window, s);
         case 128: return launch<T, 128>(q, k, v, o, st, B, H, KV, S, scale,
+                                        causal, window, s);
+        case 256: return launch<T, 256>(q, k, v, o, st, B, H, KV, S, scale,
                                         causal, window, s);
         default: return (int)cudaErrorInvalidValue;
     }

@@ -15,6 +15,7 @@ from . import flash_attention as _fa
 from . import mlp_fused as _mlp
 from . import quant_matmul as _qm
 from . import ref as _ref
+from . import rglru_scan as _rg
 from . import ssd_scan as _ssd
 
 
@@ -123,6 +124,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     to its blocks' multiple; the kernel masks the ragged edge instead.
     No gradient, as the JAX op has none."""
     return _fa.flash_attention(q, k, v, causal=causal, window=window)
+
+
+def rglru_scan(a: torch.Tensor, b: torch.Tensor,
+               h0=None) -> torch.Tensor:
+    """a, b [B,S,C]; h0 [B,C] or None -> h [B,S,C] in a's dtype, ``h_t =
+    a_t h_{t-1} + b_t`` (K7). The JAX op halves its blocks until they
+    divide S and C; the kernel masks ragged edges instead. No gradient,
+    as the JAX op has none."""
+    return _rg.rglru_scan(a, b, h0)
 
 
 def ssd_scan(xh: torch.Tensor, dA: torch.Tensor, Bm: torch.Tensor,

@@ -145,6 +145,23 @@ def attention_ref(q, k, v, *, causal: bool = True,
     return o.reshape(B, H, S, D).to(q.dtype)
 
 
+# --- RG-LRU scan (K7) ---------------------------------------------------------
+
+def rglru_scan_ref(a, b, h0=None) -> torch.Tensor:
+    """K7's function, sequential: ``h_t = a_t * h_{t-1} + b_t`` over a, b
+    [B,S,C] in f32 from h0 [B,C] (zero by default), one multiply and one
+    add per step, each correctly rounded; returns a's dtype (the JAX
+    package's ``ref.rglru_scan_ref``)."""
+    B, S, C = a.shape
+    h = torch.zeros((B, C), device=a.device) if h0 is None else h0.float()
+    af, bf = a.float(), b.float()
+    out = torch.empty((B, S, C), device=a.device)
+    for t in range(S):
+        h = af[:, t] * h + bf[:, t]
+        out[:, t] = h
+    return out.to(a.dtype)
+
+
 # --- SSD chunked scan (K8) ----------------------------------------------------
 
 def ssd_scan_ref(xh, dA, Bm, Cm):

@@ -1,17 +1,19 @@
 """Residual sub-blocks: attention (full sequence, and single-token decode
-against a KV cache), the MLP, and the Mamba-2 (SSD) block (full sequence,
-and single-token decode against its conv and state cache).
+against a KV cache), the MLP, the Mamba-2 (SSD) block and the RG-LRU
+(Griffin) recurrent block (each full sequence, and single-token decode
+against its conv and state cache).
 
 Compression hooks: ``cspec`` — a dict of quant specs
 (``{"w_bits","a_bits"}``, host ints) and float 0/1 pruning masks; ``None``
-means uncompressed. The MoE and RG-LRU blocks wait for their slices.
+means uncompressed. The MoE block waits for its slice.
 """
 from __future__ import annotations
 
-
 import torch
+import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
+from ..core.quantization import fake_quant_act, fake_quant_weight
 from ..kernels import ops, ref
 from . import layers as L
 
@@ -287,4 +289,115 @@ def decode_ssm(p, x, cache, pos: int, cfg: ArchConfig, cspec=None):
     output."""
     out, cache["conv"], cache["state"] = _ssm_inner(
         p, x, cfg, cspec, cache["conv"], cache["state"], decode=True)
+    return out
+
+
+# ===========================================================================
+# RG-LRU (Griffin / RecurrentGemma) recurrent block
+# ===========================================================================
+
+_LRU_C = 8.0
+
+
+def init_rglru(gen: torch.Generator, cfg: ArchConfig, dtype, device):
+    """Raw-array weights, as in the JAX package: the input projections
+    ``w_x`` (recurrence) and ``w_y`` (gate branch), ``w_out``, the
+    depthwise ``conv_w`` [4, width], the per-channel (diagonal) gates
+    ``w_a``, ``b_a``, ``w_i``, ``b_i`` (zero) and ``a_param``, set so that
+    a^c is U(0.9, 0.999) at r = 1 (Griffin App. A); gates and a_param f32."""
+    d, w = cfg.d_model, cfg.lru_width
+
+    def zeros():
+        return torch.zeros((w,), device=device)
+
+    lin = torch.linspace(0.9, 0.999, w, device=device)
+    return {
+        "w_x": L.linear_init(gen, d, w, dtype, device)["w"],
+        "w_y": L.linear_init(gen, d, w, dtype, device)["w"],
+        "w_out": L.linear_init(gen, w, d, dtype, device)["w"],
+        "conv_w": (torch.randn((4, w), generator=gen, device=device)
+                   / 4.0).to(dtype),
+        "w_a": zeros(), "b_a": zeros(), "w_i": zeros(), "b_i": zeros(),
+        "a_param": torch.log(torch.expm1(-torch.log(lin) / _LRU_C)),
+    }
+
+
+def _rglru_gates(p, u):
+    """u [B,S,w] (the conv output) -> (a, b), f32: the recurrence gate r
+    and input gate i, log a = -c softplus(a_param) r, and b = sqrt(1 -
+    a^2) (i u), in the JAX package's order (sqrt of max(1 - exp(2 log a),
+    1e-12); softplus as logaddexp(x, 0))."""
+    uf = u.float()
+    r = torch.sigmoid(uf * p["w_a"] + p["b_a"])
+    i = torch.sigmoid(uf * p["w_i"] + p["b_i"])
+    a_param = p["a_param"]
+    softplus = torch.logaddexp(a_param, torch.zeros_like(a_param))
+    log_a = -_LRU_C * softplus * r
+    a = torch.exp(log_a)
+    b = torch.sqrt(torch.clamp_min(1.0 - torch.exp(2.0 * log_a), 1e-12)) \
+        * (i * uf)
+    return a, b
+
+
+def rglru_inputs(p, x, cfg: ArchConfig, cspec, conv_state=None):
+    """The RG-LRU block's front half, x [B,S,d] -> ``((a, b), (y,
+    new_conv))``: a and b [B,S,w] f32 are exactly what the scan (K7)
+    receives; y is the gate branch gelu(x w_y) and new_conv the conv
+    window after these tokens. In order: the fake-quantized input (once)
+    and ``w_x``, ``w_y``, the two projections, the causal conv over x w_x
+    from ``conv_state``, the gates."""
+    qs_in = _get(cspec, "in")
+    w_x = L.getw(p, "w_x", x.dtype)
+    w_y = L.getw(p, "w_y", x.dtype)
+    xin = x
+    if qs_in is not None:
+        xin = fake_quant_act(xin, qs_in["a_bits"])
+        w_x = fake_quant_weight(w_x, qs_in["w_bits"])
+        w_y = fake_quant_weight(w_y, qs_in["w_bits"])
+    y = F.gelu(torch.einsum("bsd,dw->bsw", xin, w_y.to(x.dtype)),
+               approximate="tanh")
+    u = torch.einsum("bsd,dw->bsw", xin, w_x.to(x.dtype))
+    u, new_conv = L.causal_conv1d(u, p["conv_w"], conv_state)
+    return _rglru_gates(p, u), (y, new_conv)
+
+
+def _rglru_out(p, h, y, cspec):
+    """The back half: g = h y (width-masked), then the fake-quantized
+    output projection."""
+    g = h * y
+    wmask = _get(cspec, "width_mask")
+    if wmask is not None:
+        g = g * wmask.to(g.dtype)
+    gq, w_out = L.apply_quant(g, L.getw(p, "w_out", g.dtype),
+                              _get(cspec, "out"))
+    return torch.einsum("bsw,wd->bsd", gq, w_out.to(g.dtype))
+
+
+def apply_rglru(p, x, cfg: ArchConfig, cspec=None):
+    """x [B,S,d] -> [B,S,d]. The recurrence h_t = a_t h_{t-1} + b_t runs
+    through ``ops.rglru_scan``: K7 for a CUDA tensor, the sequential plain
+    version for a CPU one. The JAX package's model takes an
+    ``associative_scan`` there, which sums in another order (within
+    2.3e-6 of the sequential walk per row at S 32,768: ``PERF.md``)."""
+    (a, b), (y, _) = rglru_inputs(p, x, cfg, cspec)
+    h = ops.rglru_scan(a, b).to(x.dtype)
+    return _rglru_out(p, h, y, cspec)
+
+
+def init_rglru_cache(cfg: ArchConfig, batch: int, dtype, device) -> dict:
+    """The f32 recurrence state [batch, width] and the conv window (the
+    last 3 inputs, in ``dtype``); no length."""
+    return {"state": torch.zeros((batch, cfg.lru_width), device=device),
+            "conv": torch.zeros((batch, 3, cfg.lru_width), dtype=dtype,
+                                device=device)}
+
+
+def decode_rglru(p, x, cache, pos: int, cfg: ArchConfig, cspec=None):
+    """x: [B,1,d]. One step of the recurrence from the cached state;
+    replaces the cache's state and conv window in place (the JAX package
+    returns a new cache) and returns the block's output."""
+    (a, b), (y, conv) = rglru_inputs(p, x, cfg, cspec, cache["conv"])
+    h = a[:, 0] * cache["state"] + b[:, 0]
+    out = _rglru_out(p, h[:, None].to(x.dtype), y, cspec)
+    cache["state"], cache["conv"] = h, conv
     return out

@@ -1,7 +1,7 @@
-"""Decoder LM of the dense attention and the Mamba-2 (SSM) families:
-``init``, ``forward`` (train / prefill), ``init_cache`` and
-``decode_step`` (one new token against a KV or SSM cache). Each layer
-dispatches on its kind (``cfg.layer_kinds[i]``).
+"""Decoder LM of the dense attention, the Mamba-2 (SSM) and the RG-LRU
+hybrid (Griffin) families: ``init``, ``forward`` (train / prefill),
+``init_cache`` and ``decode_step`` (one new token against a KV, SSM or
+RG-LRU cache). Each layer dispatches on its kind (``cfg.layer_kinds[i]``).
 
 The JAX package stacks homogeneous layers on a leading axis and scans over
 them; here ``params["blocks"]``, ``cspec["blocks"]`` and the cache are
@@ -19,11 +19,11 @@ from . import layers as L
 
 
 def _check_supported(cfg: ArchConfig) -> None:
-    if not set(cfg.layer_kinds) <= {"attn", "ssm"} \
+    if not set(cfg.layer_kinds) <= {"attn", "ssm", "rglru"} \
             or cfg.moe is not None or cfg.frontend != "none":
         raise NotImplementedError(
-            f"{cfg.name}: only the dense attention and SSM families are "
-            f"ported")
+            f"{cfg.name}: only the dense attention, SSM and RG-LRU "
+            f"families are ported")
 
 
 # ---------------------------------------------------------------------------
@@ -42,6 +42,13 @@ def _init_block(kind: str, gen: torch.Generator, cfg: ArchConfig, dtype,
     if kind == "ssm":
         return {"norm": L.norm_init(cfg.norm, cfg.d_model, dtype, device),
                 "ssm": B.init_ssm(gen, cfg, dtype, device)}
+    if kind == "rglru":
+        return {"mix_norm": L.norm_init(cfg.norm, cfg.d_model, dtype,
+                                        device),
+                "rglru": B.init_rglru(gen, cfg, dtype, device),
+                "mlp_norm": L.norm_init(cfg.norm, cfg.d_model, dtype,
+                                        device),
+                "mlp": B.init_mlp(gen, cfg, dtype, device)}
     raise ValueError(kind)
 
 
@@ -56,18 +63,25 @@ def _apply_block(kind: str, p, x, cfg: ArchConfig, cspec, positions):
     if kind == "ssm":
         h = L.apply_norm(cfg.norm, p["norm"], x)
         return x + B.apply_ssm(p["ssm"], h, cfg, cs.get("ssm"))
+    if kind == "rglru":
+        h = L.apply_norm(cfg.norm, p["mix_norm"], x)
+        x = x + B.apply_rglru(p["rglru"], h, cfg, cs.get("rglru"))
+        h = L.apply_norm(cfg.norm, p["mlp_norm"], x)
+        return x + B.apply_mlp(p["mlp"], h, cfg, cs.get("mlp"))
     raise ValueError(kind)
 
 
 def _init_block_cache(kind: str, cfg: ArchConfig, batch: int, max_len: int,
                       dtype, device, cache_bits: int = 16) -> dict:
-    """``cache_bits`` sets the KV cache's storage; an SSM's conv window and
-    state ignore it, as in the JAX package."""
+    """``cache_bits`` sets the KV cache's storage; an SSM's or an RG-LRU's
+    conv window and state ignore it, as in the JAX package."""
     if kind == "attn":
         return B.init_attn_cache(cfg, batch, max_len, dtype, device,
                                  cache_bits)
     if kind == "ssm":
         return B.init_ssm_cache(cfg, batch, dtype, device)
+    if kind == "rglru":
+        return B.init_rglru_cache(cfg, batch, dtype, device)
     raise ValueError(kind)
 
 
@@ -83,6 +97,12 @@ def _decode_block(kind: str, p, x, cache, pos: int, cfg: ArchConfig,
     if kind == "ssm":
         h = L.apply_norm(cfg.norm, p["norm"], x)
         return x + B.decode_ssm(p["ssm"], h, cache, pos, cfg, cs.get("ssm"))
+    if kind == "rglru":
+        h = L.apply_norm(cfg.norm, p["mix_norm"], x)
+        x = x + B.decode_rglru(p["rglru"], h, cache, pos, cfg,
+                               cs.get("rglru"))
+        h = L.apply_norm(cfg.norm, p["mlp_norm"], x)
+        return x + B.apply_mlp(p["mlp"], h, cfg, cs.get("mlp"))
     raise ValueError(kind)
 
 
@@ -147,9 +167,9 @@ def forward(cfg: ArchConfig, params, tokens, cspec=None,
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None,
                cache_bits: int = 16, device="cuda") -> list:
     """One cache dict per layer: an attention layer's K/V in the compute
-    dtype (int8 codes and scales with ``cache_bits=8``), an SSM layer's
-    conv window and f32 state. The RG-LRU cache is refused with its
-    family (``_check_supported``)."""
+    dtype (int8 codes and scales with ``cache_bits=8``; a ring of
+    ``window`` slots for a sliding-window layer), an SSM or RG-LRU layer's
+    conv window and f32 state."""
     _check_supported(cfg)
     dtype = dtype or L.dtype_of(cfg.compute_dtype)
     return [_init_block_cache(kind, cfg, batch, max_len, dtype, device,

@@ -23,7 +23,14 @@ JAX tests' 2e-4 (atol and rtol) on y and the final state against both
 plain versions where the decays are mild (dA in [-0.5, 0]) and against
 the chunked plain version at a slow decay (dA in [-0.01, 0], the state
 carried over 16 chunks), and there each (token, head) row within 2^-10
-relative of the sequential one (``chip_smoke.py``'s ``K8_ROW_TOL``).
+relative of the sequential one (``chip_smoke.py``'s ``K8_ROW_TOL``); K7
+(RG-LRU scan) exact against the sequential plain version where S fits one
+chunk (the same correctly rounded multiply and add per step), and where
+the carry pass runs at the JAX tests' atol 2e-5 (the carried state is
+rounded in another order), at the path's slow decay (a in [0.9487,
+0.9995]) each (token, 256-channel block) row within 2^-12 relative
+(``chip_smoke.py``'s ``K7_ROW_TOL``), in bf16 within one bf16 rounding
+(2^-8 relative) of the f32 plain version.
 """
 import numpy as np
 import pytest
@@ -36,6 +43,7 @@ from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels.mlp_fused import mlp3, polyak_flat  # noqa: E402
 from repro_torch.kernels.quant_matmul import quant_matmul  # noqa: E402
+from repro_torch.kernels.rglru_scan import rglru_scan  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
 from repro_torch.kernels.ref import (fake_quant_ref, mlp3_ref,  # noqa: E402
                                      polyak_ref)
@@ -233,10 +241,11 @@ def test_gpu_quant_matmul_refuses_bad_operands(cuda):
 
 
 # --- K6: flash attention ----------------------------------------------------
-# The JAX tests' shapes (B 2, f32) and bf16 case, and qwen2-0.5b's heads
-# (14 over 2 KV heads of 64) at S 4096 in bf16.
+# The JAX tests' shapes (B 2, f32) and bf16 case, qwen2-0.5b's heads (14
+# over 2 KV heads of 64) at S 4096 in bf16, and head dim 256 (MQA, as
+# recurrentgemma-2b's 10 over 1).
 FA_SHAPES = [(2, 128, 4, 4, 32), (2, 200, 8, 2, 16), (2, 512, 4, 1, 64),
-             (1, 300, 4, 2, 128)]
+             (1, 300, 4, 2, 128), (2, 300, 4, 1, 256)]
 FA_MASKS = [(True, 0), (False, 0), (True, 96)]
 
 
@@ -260,8 +269,9 @@ def test_gpu_flash_attention_f32(cuda, B, S, H, KV, D, causal, window):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,S,H,KV,D", [(1, 128, 4, 2, 32),
-                                        (1, 4096, 14, 2, 64)])
-@pytest.mark.parametrize("causal,window", FA_MASKS)
+                                        (1, 4096, 14, 2, 64),
+                                        (1, 4096, 10, 1, 256)])
+@pytest.mark.parametrize("causal,window", FA_MASKS + [(True, 2048)])
 def test_gpu_flash_attention_bf16(cuda, B, S, H, KV, D, causal, window):
     q, k, v = _qkv(D, B, S, H, KV, D, torch.bfloat16, cuda)
     got = flash_attention(q, k, v, causal=causal, window=window)
@@ -415,3 +425,122 @@ def test_gpu_ssd_scan_refuses_bad_operands(cuda):
         ssd_scan(xh.transpose(1, 2).contiguous().transpose(1, 2), dA, Bm,
                  Cm)
     assert build.LAUNCHES["ssd_scan"] == before
+
+
+# --- K7: RG-LRU scan ----------------------------------------------------------
+# The JAX tests' shapes (a in [0.4, 0.99]), at the default chunk of 128
+# (one chunk: no carry) and at chunk 16 (the carry pass runs), and a ragged
+# S and C.
+LRU_SHAPES = [(2, 64, 96), (1, 128, 32), (3, 48, 256), (2, 1000, 2600)]
+
+
+def _lru_inputs(seed, B, S, C, lo, hi, cuda, dtype=torch.float32):
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(lo, hi, (B, S, C)).astype(np.float32)
+    b = rng.standard_normal((B, S, C)).astype(np.float32)
+    return [torch.from_numpy(t).to(cuda, dtype) for t in (a, b)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,C", LRU_SHAPES)
+@pytest.mark.parametrize("chunk", [128, 16])
+def test_gpu_rglru_scan(cuda, B, S, C, chunk):
+    a, b = _lru_inputs(S + C, B, S, C, 0.4, 0.99, cuda)
+    before = build.LAUNCHES["rglru_scan"]
+    got = rglru_scan(a, b, chunk=chunk)
+    assert build.LAUNCHES["rglru_scan"] == before + 1
+    want = ref.rglru_scan_ref(a, b)
+    if S <= chunk:
+        assert torch.equal(got, want)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk", [128, 8])
+def test_gpu_rglru_scan_initial_state(cuda, chunk):
+    a, b = _lru_inputs(1, 2, 32, 64, 0.5, 0.95, cuda)
+    h0 = torch.from_numpy(_normal(2, (2, 64))).to(cuda)
+    got = rglru_scan(a, b, h0, chunk=chunk)
+    want = ref.rglru_scan_ref(a, b, h0)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
+    assert float((got - ref.rglru_scan_ref(a, b)).abs().max()) > 1e-3
+
+
+def _block_row_rel(got, want, block=256):
+    """max over (batch, token, channel block) of ||got - want|| /
+    ||want|| over the block's channels."""
+    B, S, C = want.shape
+    g = got.float().reshape(B, S, C // block, block)
+    w = want.float().reshape(B, S, C // block, block)
+    return float(((g - w).norm(dim=-1) / w.norm(dim=-1)).max())
+
+
+@pytest.mark.gpu
+def test_gpu_rglru_scan_slow_decay_carries_the_state(cuda):
+    """recurrentgemma-2b's width at S 4096 with its init's decays (a =
+    sqrt(linspace(0.9, 0.999)) per channel, r = 0.5) and b = sqrt(1 - a^2)
+    0.5 u: the state carries over ~2,000 steps, across 32 chunks."""
+    S, C = 4096, 2560
+    rng = np.random.default_rng(3)
+    a = np.sqrt(np.linspace(0.9, 0.999, C, dtype=np.float32))
+    a = np.tile(a, (1, S, 1))
+    b = (np.sqrt(1 - a * a) * 0.5
+         * rng.standard_normal((1, S, C))).astype(np.float32)
+    a, b = (torch.from_numpy(t).to(cuda) for t in (a, b))
+    got = rglru_scan(a, b)
+    want = ref.rglru_scan_ref(a, b)
+    assert _block_row_rel(got, want) <= 2.0 ** -12
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk", [128, 32])
+def test_gpu_rglru_scan_bf16(cuda, chunk):
+    a, b = _lru_inputs(4, 2, 300, 200, 0.4, 0.99, cuda, torch.bfloat16)
+    got = rglru_scan(a, b, chunk=chunk)
+    assert got.dtype == torch.bfloat16
+    want = ref.rglru_scan_ref(a.float(), b.float())
+    err = (got.float() - want).abs()
+    assert bool((err <= 2.0 ** -8 * want.abs() + 2e-5).all())
+
+
+@pytest.mark.gpu
+def test_gpu_apply_rglru_goes_through_k7(cuda):
+    """The RG-LRU block on the card launches K7 once and agrees with the
+    same block on the CPU (the sequential plain version) in f32."""
+    from repro_torch.configs.recurrentgemma_2b import SMOKE
+    from repro_torch.models import blocks as TB
+    cfg = SMOKE.replace(compute_dtype="float32")
+    gen = torch.Generator().manual_seed(0)
+    p = TB.init_rglru(gen, cfg, torch.float32, "cpu")
+    x = torch.from_numpy(_normal(5, (2, 300, cfg.d_model)))
+    want = TB.apply_rglru(p, x, cfg)
+    before = build.LAUNCHES["rglru_scan"]
+    got = TB.apply_rglru({k: v.to(cuda) for k, v in p.items()}, x.to(cuda),
+                         cfg)
+    assert build.LAUNCHES["rglru_scan"] == before + 1
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_gpu_rglru_scan_refuses_bad_operands(cuda):
+    a, b = _lru_inputs(6, 1, 64, 32, 0.4, 0.99, cuda)
+    before = build.LAUNCHES["rglru_scan"]
+    with pytest.raises(ValueError, match="CPU"):
+        rglru_scan(a.cpu(), b)
+    with pytest.raises(ValueError, match="CUDA"):
+        rglru_scan(a, b.cpu())
+    with pytest.raises(TypeError, match="float32"):
+        rglru_scan(a, b.bfloat16())
+    with pytest.raises(TypeError, match="float32"):
+        rglru_scan(a.double(), b.double())
+    with pytest.raises(ValueError, match="expected"):
+        rglru_scan(a, b[:, :32])
+    with pytest.raises(ValueError, match="contiguous"):
+        rglru_scan(a.transpose(1, 2).contiguous().transpose(1, 2), b)
+    with pytest.raises(TypeError, match="float32"):
+        rglru_scan(a, b, torch.zeros((1, 32), device=cuda,
+                                     dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="chunk"):
+        rglru_scan(a, b, chunk=0)
+    assert build.LAUNCHES["rglru_scan"] == before

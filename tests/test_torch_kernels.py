@@ -37,12 +37,14 @@ from repro_torch.kernels import build, ops as tops  # noqa: E402
 from repro_torch.kernels.fake_quant import fake_quant_2d  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.mlp_fused import mlp3, polyak_flat  # noqa: E402
+from repro_torch.kernels.flash_attention import HEAD_DIMS  # noqa: E402
 from repro_torch.kernels.quant_matmul import quant_matmul  # noqa: E402
+from repro_torch.kernels.rglru_scan import rglru_scan  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
 from repro_torch.kernels.ref import (attention_ref,  # noqa: E402
                                      fake_quant_ref, mlp3_ref,
                                      polyak_ref, quant_matmul_ref,
-                                     ssd_chunked_ref)
+                                     rglru_scan_ref, ssd_chunked_ref)
 
 
 def _normal(seed, shape, scale=1.0):
@@ -228,10 +230,14 @@ def test_wrappers_route_cpu_to_plain_without_launching():
     for a, b in zip(ssd_scan(xh, dA, bc, bc, chunk=4),
                     ssd_chunked_ref(xh, dA, bc, bc, 4)):
         assert torch.equal(a, b)
+    a = torch.from_numpy(_normal(5, (2, 8, 4))).sigmoid()
+    h0 = torch.from_numpy(_normal(6, (2, 4)))
+    assert torch.equal(rglru_scan(a, bc[:, :, :4].expand(2, 8, 4), h0),
+                       rglru_scan_ref(a, bc[:, :, :4].expand(2, 8, 4), h0))
     assert build.LAUNCHES == {"fake_quant": 0, "mlp3": 0, "polyak": 0,
                               "quant_matmul_int8": 0,
                               "quant_matmul_int4": 0, "flash_attention": 0,
-                              "ssd_scan": 0}
+                              "ssd_scan": 0, "rglru_scan": 0}
 
 
 def test_wrappers_refuse_other_devices():
@@ -253,6 +259,17 @@ def test_wrappers_refuse_other_devices():
     q = torch.empty((1, 2, 8, 16), device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="CUDA"):
+        rglru_scan(x[None], x[None])
+
+
+def test_flash_attention_takes_head_dims_up_to_256():
+    """K6 is built for head dims 16 to 256; 256 is recurrentgemma-2b's
+    (its own 32 x 32 tile instantiation in ``csrc/flash_attention.cu``)."""
+    assert HEAD_DIMS == (16, 32, 64, 128, 256)
+    src = (build.CSRC / "flash_attention.cu").read_text()
+    for d in HEAD_DIMS:
+        assert f"case {d}: return launch<T, {d}>" in src
 
 
 def test_kernel_sources_carry_their_notes():

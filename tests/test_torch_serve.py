@@ -314,9 +314,10 @@ def test_sustained_throughput_and_serve_main_on_cpu():
 
 
 def test_unported_families_are_refused():
-    """The RG-LRU and MoE families are still refused (mamba2-780m, the SSM
-    family, is served since its slice: ``tests/test_torch_ssm.py``)."""
-    for arch in ("recurrentgemma-2b", "mixtral-8x22b"):
+    """The MoE family and the frontend stubs are still refused (mamba2-780m
+    and recurrentgemma-2b are served since their slices:
+    ``tests/test_torch_ssm.py``, ``tests/test_torch_rglru.py``)."""
+    for arch in ("mixtral-8x22b", "hubert-xlarge"):
         cfg = treg.get_config(arch, smoke=True)
         with pytest.raises(NotImplementedError):
             TM.init_cache(cfg, 1, 8, device="cpu")
