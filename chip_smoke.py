@@ -11,11 +11,19 @@ Phases, each fatal on failure (non-zero exit, no result line):
    K6 flash attention, K7 RG-LRU scan, K8 SSD scan) from
    ``src/repro_torch/kernels/csrc``, one nvcc
    per source, all at once, and prints nvcc's registers / shared memory
-   per kernel.
+   per kernel. ``cuobjdump -sass`` of K6's library must show tensor-core
+   products (``HGMMA``) and TMA loads (``UTMALDG``): their counts are
+   printed, and 0 of either fails.
 3. Kernels: each kernel against its plain PyTorch version on the card at
    the shapes its path gives it, with its tolerance, and timed with CUDA
    events (kernel, plain version, one library call where one computes
-   the same function) beside its bound. K4/K5 also: the asymmetric
+   the same function) beside its bound. K6 has two routes, chosen by
+   its wrapper (``kernels.flash_attention.route``): bf16 at head dim 64,
+   128 or 256 on the tensor cores (wgmma on TMA-fed tiles, counted in
+   ``flash_attention_tc`` as well as ``flash_attention``), f32 and bf16
+   at head dims 16 / 32 on the CUDA cores; each K6 line prints its route
+   and TFLOP/s, and each call must have counted a launch of its route.
+   K4/K5 also: the asymmetric
    zero-point case with its SUBTRACT-convention canary, a padded K with
    ``k_true``, and ``torch._int_mm`` on the same codes as a yardstick for
    the int8 product alone. K6 against the dense ``attention_ref`` at the
@@ -43,10 +51,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
    (bf16, atol 0.04), timed beside the plain branch and SDPA; then one
    warm-up forward at 2,048 tokens each and one timed forward each, the
    launch counts reset before and read after each (24 K6 launches per
-   forward). Prints ms, tokens/s, MFU against 989 TFLOP/s and the
-   oracle's predicted compressed/reference ratio beside the measured
-   one. The whole prefill at the SMOKE widths and 1,100 tokens (f32)
-   must agree with the plain CPU path.
+   forward, all 24 on the tensor-core route). Prints ms, tokens/s, MFU
+   against 989 TFLOP/s, K6's share, one profiled raw forward's top
+   kernels and the oracle's predicted compressed/reference ratio beside
+   the measured one. The whole prefill at the SMOKE widths and 1,100
+   tokens (f32) must agree with the plain CPU path.
 8. Decode: ``decode_loop`` and ``sustained_throughput`` on the same
    model, batch 8, 64 steps, max_len 256, KV cache 16 and 8 bits, raw
    and under the policy; tok/s per variant, then one profiled 8-step
@@ -79,10 +88,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ``K7_ROW_TOL``, the worst row's place printed) and K6 on layer 2's
    q/k/v (window 2,048) against the chunked plain branch and the dense
    tail rows, each timed beside its bound; then, as in phase 7, a warm-up
-   and one timed forward each, with exactly 18 K7, 8 K6 and ``k1_calls``'
-   count of K1 launches per forward; a profiled raw forward; the phase's
-   peak device memory; at the SMOKE widths (f32, 2 x 1,100 tokens) the
-   device forward's argmaxes equal the plain CPU path's.
+   and one timed forward each, with exactly 18 K7, 8 K6 (all 8 on the
+   tensor-core route) and ``k1_calls``' count of K1 launches per
+   forward; a profiled raw forward; the phase's peak device memory; at
+   the SMOKE widths (f32, 2 x 1,100 tokens) the device forward's argmaxes
+   equal the plain CPU path's.
 12. RecurrentGemma decode: ``decode_loop`` and ``sustained_throughput``,
    batch 8, 64 steps, the RG-LRU state and the ring KV cache (16 and 8
    bits), raw and under the policy; one profiled 8-step decode each. At
@@ -112,6 +122,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -225,6 +236,18 @@ def bound_ms(n_bytes: float, n_ops: float, peak: float = F32_FLOPS):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sass_counts(name: str, ops=("HGMMA", "UTMALDG")) -> dict:
+    """How many of each SASS instruction ``cuobjdump -sass`` finds in the
+    built library of ``csrc/<name>.cu``."""
+    from repro_torch.kernels import build
+    tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    sass = subprocess.run(
+        [tool if os.path.exists(tool) else "cuobjdump", "-sass",
+         str(build._lib_path(name))], capture_output=True, text=True,
+        timeout=300, check=True).stdout
+    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in ops}
 
 
 # ---------------------------------------------------------------------------
@@ -651,14 +674,35 @@ FA_CASES = (((2, 128, 4, 4, 32), "float32", 2e-5, FA_MASKS),
 FA_TIMED = ((64, 0), (256, 2048))
 
 
+def k6_launch(call, dtype, head_dim: int):
+    """``call()`` (one K6 call) and the route it must have taken: on the
+    card it must count one ``flash_attention`` launch, and one
+    ``flash_attention_tc`` launch exactly when ``route`` says "tc"; on
+    the CPU none. Returns (output, route)."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import route
+    before = dict(build.LAUNCHES)
+    got = call()
+    path = route(dtype, head_dim)
+    on_card = got.is_cuda
+    want = (int(on_card), int(on_card and path == "tc"))
+    seen = tuple(build.LAUNCHES[k] - before[k]
+                 for k in ("flash_attention", "flash_attention_tc"))
+    if seen != want:
+        raise AssertionError(f"K6 launches (all, tc) {seen}, {want} "
+                             f"expected on route {path}")
+    return got, path
+
+
 def check_flash_attention(device, cases=FA_CASES) -> dict:
     """K6 against the dense plain version ``attention_ref`` at each case's
     masks: f32 at atol 2e-5, bf16 at atol 0.04 and each row within
-    ``K6_ROW_TOL``. On the card the S 4096 masks of ``FA_TIMED`` are
-    timed beside the plain version and SDPA (a window as a boolean mask,
-    ``sdpa_window``). Returns those rows by head dim (each with the
-    shape's worst errors over its masks); the rows of the prefill shapes
-    come from ``check_flash_attention_prefill``."""
+    ``K6_ROW_TOL``; each call on the route ``k6_launch`` checks. On the
+    card the S 4096 masks of ``FA_TIMED`` are timed beside the plain
+    version and SDPA (a window as a boolean mask, ``sdpa_window``).
+    Returns those rows by head dim (each with the shape's worst errors
+    over its masks); the rows of the prefill shapes come from
+    ``check_flash_attention_prefill``."""
     import torch
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device=device).manual_seed(5)
@@ -669,15 +713,16 @@ def check_flash_attention(device, cases=FA_CASES) -> dict:
                    for shape in ((B, H, S, D), (B, KV, S, D), (B, KV, S, D))]
         worst = (0.0, 0.0)          # the shape's max over the masks
         for causal, window in masks:
-            got = ops.flash_attention(q, k, v, causal=causal, window=window)
+            got, path = k6_launch(lambda: ops.flash_attention(
+                q, k, v, causal=causal, window=window), dtype, D)
             want = ref.attention_ref(q, k, v, causal=causal, window=window)
             err = float((got.float() - want.float()).abs().max())
             rel = row_rel_err(got, want)
             rel_tol = K6_ROW_TOL if dtype == torch.bfloat16 else math.inf
             log(f"  flash_attention {(B, H, KV, S, D)} {str(dtype)[6:]} "
-                f"causal={causal} window={window}: max |kernel - plain| "
-                f"{err:.3g} (tol {tol}), max row rel {rel:.3g} (tol "
-                f"{rel_tol:.3g})")
+                f"causal={causal} window={window}, route {path}: max "
+                f"|kernel - plain| {err:.3g} (tol {tol}), max row rel "
+                f"{rel:.3g} (tol {rel_tol:.3g})")
             if not (err <= tol and rel <= rel_tol):
                 raise AssertionError(f"flash_attention disagrees with its "
                                      f"plain version: {err} > {tol} or "
@@ -698,8 +743,10 @@ def check_flash_attention(device, cases=FA_CASES) -> dict:
                           ms=ms, paced_ms=paced, plain_ms=plain,
                           library_ms=lib, bound_ms=bound, bound_by=by,
                           max_abs_err=worst[0], tolerance=tol,
-                          row_rel_err=worst[1])
-            log(f"    S 4096 D {D} window {w} bf16, {CARD}: {ms:.3f} ms "
+                          row_rel_err=worst[1], route=path,
+                          tflops=n_ops / ms / 1e9)
+            log(f"    S 4096 D {D} window {w} bf16, route {path}, {CARD}: "
+                f"{ms:.3f} ms "
                 f"kernel ({n_ops / ms / 1e9:.1f} TFLOP/s), {plain:.3f} ms "
                 f"plain (dense), {lib:.3f} ms SDPA"
                 f"{' (boolean window mask)' if w else ''}, bound "
@@ -1273,7 +1320,9 @@ def check_flash_attention_prefill(q, k, v, window: int = 0) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.models import layers as ML
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    got = ops.flash_attention(qt, kt, vt, window=window)
+    got, path = k6_launch(lambda: ops.flash_attention(qt, kt, vt,
+                                                      window=window),
+                          q.dtype, q.shape[-1])
     tail = row_rel_err(got[:, :, -K6_TAIL_ROWS:],
                        attention_tail_ref(qt, kt, vt, K6_TAIL_ROWS, window))
     got = got.transpose(1, 2)
@@ -1283,7 +1332,8 @@ def check_flash_attention_prefill(q, k, v, window: int = 0) -> dict:
     del want, got
     B, S, H, D = q.shape
     log(f"  flash_attention {(B, H, k.shape[2], S, D)} bf16 causal, window "
-        f"{window}, the first attention layer's q/k/v: max |kernel - "
+        f"{window}, route {path}, the first attention layer's q/k/v: max "
+        f"|kernel - "
         f"chunked plain| {err:.3g} (tol 0.04), max row rel {rel:.3g} (tol "
         f"{K6_CHUNKED_ROW_TOL:.3g}); last {K6_TAIL_ROWS} rows vs the dense "
         f"plain version: max row rel {tail:.3g} (tol {K6_ROW_TOL:.3g})")
@@ -1307,7 +1357,8 @@ def check_flash_attention_prefill(q, k, v, window: int = 0) -> dict:
     return dict(shape=[B, H, k.shape[2], S, D] + ([window] if window else []),
                 ms=ms, paced_ms=paced, plain_ms=plain, library_ms=lib,
                 bound_ms=bound, bound_by=by, max_abs_err=err, tolerance=0.04,
-                row_rel_err=rel, tail_row_rel_err=tail)
+                row_rel_err=rel, tail_row_rel_err=tail, route=path,
+                tflops=n_ops / ms / 1e9)
 
 
 def check_rglru_prefill(a, b) -> dict:
@@ -1401,11 +1452,16 @@ def check_ssd_prefill(xh, dA, Bm, Cm, chunk: int) -> dict:
 
 def prefill_launches(cfg, cspec, seq: int) -> dict:
     """The launches one prefill forward over ``seq`` tokens must make on
-    the card: K6 once per attention layer (its chunked branch), K8 once
-    per SSM layer, K7 once per RG-LRU layer, K1 as ``k1_calls``
-    counts."""
+    the card: K6 once per attention layer (its chunked branch), all of
+    them on the tensor-core route where ``route`` gives it the config's
+    compute dtype and head dim (bf16 at 64, 128, 256), K8 once per SSM
+    layer, K7 once per RG-LRU layer, K1 as ``k1_calls`` counts."""
+    import torch
+    from repro_torch.kernels.flash_attention import route
     kinds = cfg.layer_kinds
-    return {"flash_attention": kinds.count("attn") if seq > 512 else 0,
+    k6 = kinds.count("attn") if seq > 512 else 0
+    tc = route(getattr(torch, cfg.compute_dtype), cfg.head_dim) == "tc"
+    return {"flash_attention": k6, "flash_attention_tc": k6 if tc else 0,
             "ssd_scan": kinds.count("ssm"),
             "rglru_scan": kinds.count("rglru"),
             "fake_quant": len(k1_calls(cfg, cspec, seq))}
@@ -1635,6 +1691,20 @@ def profile_prefill(cfg, params, tokens, cspec=None) -> dict:
             "top": sorted(rows, reverse=True)[:8]}
 
 
+def log_prefill_profile(cfg, params, device) -> None:
+    """One profiled uncompressed forward over ``PREFILL_SEQ`` seeded
+    tokens (``profile_prefill``): the device's busy share and the top
+    kernels by device time."""
+    prof = profile_prefill(cfg, params, prefill_tokens(cfg, 1, PREFILL_SEQ,
+                                                       0, device))
+    busy = prof["device_busy_s"]
+    log(f"  uncompressed, profiled: {prof['wall_s'] * 1e3:.1f} ms wall, "
+        f"device busy {busy * 1e3:.1f} ms ({busy / prof['wall_s']:.1%}), "
+        f"{prof['kernels']} kernels; top device time (us; {CARD}):")
+    for t, key, n in prof["top"]:
+        log(f"    {t:12.1f}  x{n:<5d} {key[:80]}")
+
+
 def check_decode_consistency(cfg, device, steps: int = 16,
                              seed: int = 0) -> None:
     """At ``cfg`` with f32 compute, the greedy tokens of ``decode_loop``
@@ -1725,14 +1795,7 @@ def recurrentgemma_phases(device, results: dict, launches: dict) -> None:
             f"K6 {kinds.count('attn')} x {pre_r['k6']['ms']:.2f} ms = "
             f"{k6_ms:.1f} ms ({k6_ms / 1e3 / pre_r[n]['seconds']:.1%}) of "
             f"the forward")
-    prof = profile_prefill(rg, cm.params, prefill_tokens(
-        rg, 1, PREFILL_SEQ, 0, device))
-    busy = prof["device_busy_s"]
-    log(f"  uncompressed, profiled: {prof['wall_s'] * 1e3:.1f} ms wall, "
-        f"device busy {busy * 1e3:.1f} ms ({busy / prof['wall_s']:.1%}), "
-        f"{prof['kernels']} kernels; top device time (us):")
-    for t, key, n in prof["top"]:
-        log(f"    {t:12.1f}  x{n:<5d} {key[:80]}")
+    log_prefill_profile(rg, cm.params, device)
     peak = torch.cuda.max_memory_allocated() / 1e9
     log(f"  peak device memory of the phase: {peak:.2f} GB "
         f"(torch.cuda.max_memory_allocated; {CARD})")
@@ -1802,6 +1865,12 @@ def main() -> int:
     for name, r in sorted(report.items()):
         for row in r["ptxas"]:
             log(f"  {name}: {row}")
+    sass = sass_counts("flash_attention")
+    log(f"  flash_attention SASS (cuobjdump -sass): {sass['HGMMA']} HGMMA "
+        f"(wgmma), {sass['UTMALDG']} UTMALDG (TMA loads)")
+    if not all(sass.values()):
+        raise AssertionError(f"K6's tensor-core route compiled to no "
+                             f"wgmma or no TMA load: {sass}")
 
     log("[kernels] each kernel against its plain version on the card")
     A = n_actions("pq")
@@ -1926,6 +1995,12 @@ def main() -> int:
     launches["flash_attention"] = sum(
         pre[n]["launches"]["flash_attention"] for n in ("uncompressed",
                                                          "policy"))
+    k6_ms = pre["k6"]["ms"] * qwen.num_layers
+    for n in ("uncompressed", "policy"):
+        log(f"  {n}: K6 {qwen.num_layers} x {pre['k6']['ms']:.3f} ms = "
+            f"{k6_ms:.1f} ms, {k6_ms / 1e3 / pre[n]['seconds']:.1%} of "
+            f"the forward")
+    log_prefill_profile(qwen, cm.params, device)
     predicted = oracle_prefill_ratio(cm, policy, PREFILL_SEQ)
     measured = pre["policy"]["seconds"] / pre["uncompressed"]["seconds"]
     log(f"  compressed / reference: predicted {predicted:.4f} (analytic "
@@ -1988,14 +2063,7 @@ def main() -> int:
         log(f"  {n}: K8 {mamba.num_layers} x {pre_m['k8']['ms']:.3f} ms = "
             f"{k8_ms:.1f} ms, {k8_ms / 1e3 / pre_m[n]['seconds']:.1%} of the"
             f" forward")
-    prof = profile_prefill(mamba, cm.params, prefill_tokens(
-        mamba, 1, PREFILL_SEQ, 0, device))
-    busy = prof["device_busy_s"]
-    log(f"  uncompressed, profiled: {prof['wall_s'] * 1e3:.1f} ms wall, "
-        f"device busy {busy * 1e3:.1f} ms ({busy / prof['wall_s']:.1%}), "
-        f"{prof['kernels']} kernels; top device time (us):")
-    for t, key, n in prof["top"]:
-        log(f"    {t:12.1f}  x{n:<5d} {key[:80]}")
+    log_prefill_profile(mamba, cm.params, device)
     predicted = oracle_prefill_ratio(cm, policy, PREFILL_SEQ)
     measured = pre_m["policy"]["seconds"] / pre_m["uncompressed"]["seconds"]
     log(f"  compressed / reference: predicted {predicted:.4f} (analytic "

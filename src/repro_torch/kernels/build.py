@@ -39,7 +39,10 @@ _SIGNATURES = {
                      "quant_matmul_int4_launch": [_P] * 7 + [_I] * 4 + [_P]},
     "flash_attention": {"flash_attention_launch":
                         [_P] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
-                        + [_I] * 6 + [ctypes.c_float, _I, _I, _P]},
+                        + [_I] * 6 + [ctypes.c_float, _I, _I, _P],
+                        "flash_attention_tc_launch":
+                        [_P] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
+                        + [_I] * 5 + [ctypes.c_float, _I, _I, _P]},
     "ssd_scan": {"ssd_scan_launch":
                  [_P] * 4 + [ctypes.POINTER(ctypes.c_longlong)] + [_P] * 5
                  + [_I] * 6 + [_P]},
@@ -48,9 +51,12 @@ _SIGNATURES = {
 
 # Kernel launches per wrapper, counted where each wrapper launches its
 # kernel (never for the plain version on a CPU tensor).
+# "flash_attention" counts every K6 launch, "flash_attention_tc" those of
+# its tensor-core route.
 LAUNCHES = {"fake_quant": 0, "mlp3": 0, "polyak": 0,
             "quant_matmul_int8": 0, "quant_matmul_int4": 0,
-            "flash_attention": 0, "ssd_scan": 0, "rglru_scan": 0}
+            "flash_attention": 0, "flash_attention_tc": 0, "ssd_scan": 0,
+            "rglru_scan": 0}
 
 _libs: dict = {}
 build_report: dict = {}     # name -> {"seconds", "ptxas"} of the last build

@@ -161,3 +161,51 @@ def test_chip_smoke_k6_row_check_refuses_a_dropped_key_tile():
     torch.testing.assert_close(
         chip_smoke.attention_tail_ref(fq, fk, fv, 300),
         tref.attention_ref(fq, fk, fv)[:, :, -300:], atol=1e-6, rtol=0)
+
+
+def test_flash_attention_route_by_dtype_and_head_dim():
+    """The one place K6's route is decided: bf16 at head dims 64, 128 and
+    256 (every full-width config served) takes the tensor cores; f32 (its
+    2e-5 parity) and bf16 at 16 / 32 (the JAX tests' shapes only) the
+    CUDA-core template."""
+    from repro_torch.kernels import flash_attention as tfa
+    for D in tfa.HEAD_DIMS:
+        want = "tc" if D in (64, 128, 256) else "simt"
+        assert tfa.route(torch.bfloat16, D) == want
+        assert tfa.route(torch.float32, D) == "simt"
+
+
+def _bf16(shape, strides=None, offset=0):
+    base = torch.zeros(offset + 4096 * 64, dtype=torch.bfloat16)
+    if strides is None:
+        return base[offset:offset + int(np.prod(shape))].view(shape)
+    return base.as_strided(shape, strides, offset)
+
+
+@pytest.mark.parametrize("shape,strides,offset", [
+    ((1, 14, 64, 64), None, 0),                      # contiguous [B,H,S,D]
+    ((1, 14, 64, 64), (14 * 64 * 64, 64, 14 * 64, 1), 0),   # layer view
+    ((2, 1, 64, 256), (64 * 256, 7, 256, 1), 0),     # one kv head: free
+    ((1, 2, 32, 128), None, 8),                      # base 16 bytes in
+])
+def test_tma_terms_accept_the_layouts_k6_is_given(shape, strides, offset):
+    """``check_tma_terms`` passes the layer's transposed views, a size-1
+    head dim with any stride and a base on a 16-byte boundary."""
+    from repro_torch.kernels.flash_attention import check_tma_terms
+    check_tma_terms(_bf16(shape, strides, offset), "q")
+
+
+@pytest.mark.parametrize("shape,strides,offset,term", [
+    ((1, 4, 64, 64), (4 * 64 * 64, 64, 1, 64), 0, "d-stride"),
+    ((1, 4, 64, 64), (4 * 64 * 68, 68, 4 * 68, 1), 0, "dim 1 has stride 68"),
+    ((1, 4, 64, 64), (4 * 64 * 64, 64, 4 * 64 + 4, 1), 0,
+     "dim 2 has stride 260"),
+    ((1, 4, 64, 64), None, 1, "16-byte aligned"),
+])
+def test_tma_terms_refuse_what_tma_cannot_read(shape, strides, offset, term):
+    """Each of TMA's terms that fails is named in the ValueError; the
+    check neither copies nor re-routes."""
+    from repro_torch.kernels.flash_attention import check_tma_terms
+    t = _bf16(shape, strides, offset)
+    with pytest.raises(ValueError, match=term):
+        check_tma_terms(t, "k")

@@ -328,6 +328,109 @@ def test_gpu_flash_attention_refuses_bad_operands(cuda):
     assert build.LAUNCHES["flash_attention"] == before
 
 
+# --- K6's tensor-core route: bf16 at head dims 64, 128, 256 ----------------
+# The same tolerances as the bf16 cases above (atol 0.04 and each row
+# within 2^-6 of the dense plain version). Every call must count one
+# launch in both ``flash_attention`` and ``flash_attention_tc``.
+
+def _k6_tc(q, k, v, **mask):
+    before = (build.LAUNCHES["flash_attention"],
+              build.LAUNCHES["flash_attention_tc"])
+    got = flash_attention(q, k, v, **mask)
+    assert (build.LAUNCHES["flash_attention"],
+            build.LAUNCHES["flash_attention_tc"]) == (before[0] + 1,
+                                                      before[1] + 1)
+    return got
+
+
+def _assert_bf16_close(got, want):
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), atol=0.04, rtol=0)
+    rel = (got.float() - want.float()).norm(dim=-1) \
+        / want.float().norm(dim=-1)
+    assert float(rel.max()) <= 2.0 ** -6
+
+
+def _layer_qkv(seed, B, S, H, KV, D, cuda):
+    """q, k, v as the attention layer holds them ([B,S,H,D] memory) seen
+    as [B,H,S,D] through transpose(1, 2), the views K6 receives."""
+    return [torch.from_numpy(_normal(seed + i, shape)).to(cuda, torch.bfloat16)
+            .transpose(1, 2) for i, shape in enumerate(((B, S, H, D),
+                                                         (B, S, KV, D),
+                                                         (B, S, KV, D)))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,KV,D,window", [(14, 2, 64, 0), (10, 1, 256, 2048)])
+def test_gpu_flash_attention_tc_reads_the_layers_views(cuda, H, KV, D,
+                                                       window):
+    """qwen2-0.5b's and recurrentgemma-2b's heads at S 1,100 in the
+    layer's [B,S,H,D] layout: TMA reads the views in place, the output
+    comes back in q's layout, and the layer's chunked branch on the card
+    launches the same kernel."""
+    from repro_torch.models import layers as TL
+    q, k, v = _layer_qkv(11, 1, 1100, H, KV, D, cuda)
+    assert not q.is_contiguous()
+    got = _k6_tc(q, k, v, causal=True, window=window)
+    assert got.stride() == q.stride()
+    _assert_bf16_close(got, ref.attention_ref(q, k, v, causal=True,
+                                              window=window))
+    before = build.LAUNCHES["flash_attention_tc"]
+    lay = TL.attention(q.transpose(1, 2), k.transpose(1, 2),
+                       v.transpose(1, 2), causal=True, window=window)
+    assert build.LAUNCHES["flash_attention_tc"] == before + 1
+    assert torch.equal(lay, got.transpose(1, 2))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [1, 37, 300, 4097])
+@pytest.mark.parametrize("H,KV,D,causal,window", [
+    (14, 2, 64, True, 0), (10, 1, 256, True, 2048), (4, 2, 128, False, 0),
+    (4, 1, 64, False, 96)])
+def test_gpu_flash_attention_tc_ragged_s(cuda, S, H, KV, D, causal, window):
+    """S that is a multiple of neither the 64 · NC q rows nor the 64 /
+    128 keys of a tile, down to one row (one key tile, boxes taller than
+    S): TMA zero-fills the ragged loads and drops the ragged output rows;
+    the mask keeps kpos < S."""
+    q, k, v = _qkv(S + D, 1, S, H, KV, D, torch.bfloat16, cuda)
+    got = _k6_tc(q, k, v, causal=causal, window=window)
+    _assert_bf16_close(got, ref.attention_ref(q, k, v, causal=causal,
+                                              window=window))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,KV", [(14, 2), (10, 1)])
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_gpu_flash_attention_tc_grouped_heads(cuda, H, KV, D):
+    """GQA with groups of 7 (qwen2-0.5b's 14 over 2) and MQA (10 over
+    1), batch 2, at every head dim of the route, causal and with a
+    window."""
+    q, k, v = _qkv(H + D, 2, 640, H, KV, D, torch.bfloat16, cuda)
+    for causal, window in ((True, 0), (True, 100)):
+        got = _k6_tc(q, k, v, causal=causal, window=window)
+        _assert_bf16_close(got, ref.attention_ref(q, k, v, causal=causal,
+                                                  window=window))
+
+
+@pytest.mark.gpu
+def test_gpu_flash_attention_tc_refuses_views_tma_cannot_read(cuda):
+    """A bf16 view that breaks one of TMA's terms is refused with a
+    ValueError naming it, before any launch: d-stride other than 1, a
+    stride that is no multiple of 8 elements, a base off 16 bytes."""
+    q, k, v = _qkv(3, 1, 256, 4, 2, 64, torch.bfloat16, cuda)
+    d_major = q.transpose(2, 3).contiguous().transpose(2, 3)
+    padded = torch.zeros((1, 256, 4, 68), dtype=torch.bfloat16,
+                         device=cuda)[..., :64].transpose(1, 2)
+    shifted = torch.zeros(q.numel() + 1, dtype=torch.bfloat16,
+                          device=cuda)[1:].view(q.shape)
+    before = dict(build.LAUNCHES)
+    for bad, term in ((d_major, "d-stride"), (padded, "multiples of 8"),
+                      (shifted, "16-byte aligned")):
+        with pytest.raises(ValueError, match=term):
+            flash_attention(bad, k, v)
+    assert dict(build.LAUNCHES) == before
+
+
 # --- K8: SSD chunked scan -----------------------------------------------------
 # The JAX tests' shapes (B, S, H, P, N, chunk), a ragged S at each chunk
 # size of the two configs, and mamba2-780m's heads (48 of 64, state 128).

@@ -237,7 +237,8 @@ def test_wrappers_route_cpu_to_plain_without_launching():
     assert build.LAUNCHES == {"fake_quant": 0, "mlp3": 0, "polyak": 0,
                               "quant_matmul_int8": 0,
                               "quant_matmul_int4": 0, "flash_attention": 0,
-                              "ssd_scan": 0, "rglru_scan": 0}
+                              "flash_attention_tc": 0, "ssd_scan": 0,
+                              "rglru_scan": 0}
 
 
 def test_wrappers_refuse_other_devices():
