@@ -11,9 +11,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    K6 flash attention, K7 RG-LRU scan, K8 SSD scan) from
    ``src/repro_torch/kernels/csrc``, one nvcc
    per source, all at once, and prints nvcc's registers / shared memory
-   per kernel. ``cuobjdump -sass`` of K6's library must show tensor-core
-   products (``HGMMA``) and TMA loads (``UTMALDG``): their counts are
-   printed, and 0 of either fails.
+   per kernel. ``cuobjdump -sass`` of K6's and K8's libraries must show
+   tensor-core products (``HGMMA``) and TMA loads (``UTMALDG``): their
+   counts are printed, and 0 of either fails.
 3. Kernels: each kernel against its plain PyTorch version on the card at
    the shapes its path gives it, with its tolerance, and timed with CUDA
    events (kernel, plain version, one library call where one computes
@@ -23,7 +23,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ``flash_attention_tc`` as well as ``flash_attention``), f32 and bf16
    at head dims 16 / 32 on the CUDA cores; each K6 line prints its route
    and TFLOP/s, and each call must have counted a launch of its route.
-   K4/K5 also: the asymmetric
+   K3 updates the 12 leaves of both DDPG target networks in one launch,
+   read in place (and leaves that start off 16 bytes), exact; its line
+   times the whole update beside ``torch._foreach_lerp`` over the same
+   leaves (its library call) and ``torch.lerp`` on one flat buffer of
+   the same size. K4/K5 also: the asymmetric
    zero-point case with its SUBTRACT-convention canary, a padded K with
    ``k_true``, and ``torch._int_mm`` on the same codes as a yardstick for
    the int8 product alone. K6 against the dense ``attention_ref`` at the
@@ -34,8 +38,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    testbed (seeded random weights, bf16 compute, analytic oracle):
    sensitivity analysis, then episodes of rollout, validation, reward and
    DDPG updates. The launch counts are reset just before and read just
-   after; K1-K3 must have launched. The best policy's validation is
-   checked against the plain CPU path on a small batch.
+   after; K1-K3 must have launched, K3 exactly once per DDPG step. The
+   best policy's validation is checked against the plain CPU path on a
+   small batch.
 5. Calibration path: ``repro_torch.launch.calibrate.run`` at full width
    (unit, kernel and whole-model deploy-path timings, the fitted table,
    the int8/int4 demo rows), launch counts reset before and read after;
@@ -68,9 +73,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
    under a seeded pq policy (SSD heads pruned at ``ssm_in``). First K8
    on layer 0's (xh_dt, dA, B, C) at that shape against the chunked
    plain branch (each (token, head) row within ``K8_ROW_TOL``, the final
-   state within 2e-4), timed beside it and its bound; then, as in phase
-   7, a warm-up and one timed forward each, with exactly 48 K8 launches
-   and ``k1_calls``' count of K1 launches per forward. At the SMOKE
+   state within 2e-4), timed beside it and its bounds (f32 on the CUDA
+   cores, split TF32 on the tensor cores), its route and its four
+   kernels' times (profiler); then, as in phase 7, a warm-up and one
+   timed forward each, with exactly 48 K8 launches, all 48 on the
+   tensor-core route, and ``k1_calls``' count of K1 launches per
+   forward. At the SMOKE
    widths (f32, 2 x 1,100 tokens, chunk 32: a ragged last chunk) the
    device forward's argmaxes equal the plain CPU path's.
 10. Mamba-2 decode: ``decode_loop`` and ``sustained_throughput``, batch 8,
@@ -102,11 +110,15 @@ Phases, each fatal on failure (non-zero exit, no result line):
    and power limit. Last line: ``{"ok": true, "device": {...}}``.
 
 K8 (SSD scan) joins phase 3: against the sequential ``ssd_scan_ref`` and
-the chunked plain version at the JAX tests' shapes (dA in [-0.5, 0]) and
-a ragged S 1,100 at mamba2's heads (atol and rtol 2e-4 on y and the final
-state), and at a slow decay (dA in [-0.01, 0], mamba2's 48 heads, S
-4,096, 16 chunks) against the chunked one at 2e-4 and the sequential one
-within ``K8_ROW_TOL`` per row; timed there beside its bound. K7 (RG-LRU
+the chunked plain version at the JAX tests' shapes (dA in [-0.5, 0]), a
+ragged S 1,100 at mamba2's heads and B and C as strided views of one
+wider tensor (atol and rtol 2e-4 on y and the final state), and at a
+slow decay (dA in [-0.01, 0], mamba2's 48 heads, S 4,096, 16 chunks)
+against the chunked one at 2e-4 and the sequential one within
+``K8_ROW_TOL`` per row; timed there beside its bound. Its route
+(``kernels.ssd_scan.route``: mamba2's head dim 64 and state 128 on the
+tensor cores, the JAX tests' small shapes on the CUDA cores) is printed
+per case, and each call must have counted a launch of its route. K7 (RG-LRU
 scan) too: at the JAX tests' shapes (a in [0.4, 0.99], with and without
 h0) at atol 2e-5, at the default chunk and at chunk 16 (the carry pass
 runs), a ragged S and C, and recurrentgemma-2b's width at S 4,096 with its
@@ -132,6 +144,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOPS = 67e12              # f32 outside the tensor cores
+TF32_FLOPS = 495e12            # TF32 tensor cores, dense
 INT8_OPS = 1979e12             # int8 tensor cores, dense
 BF16_FLOPS = 989e12            # bf16 tensor cores, dense
 
@@ -429,25 +442,67 @@ def check_mlp3(state_dim, action_dim, hidden, batch, device) -> dict:
     return out
 
 
-def check_polyak(sizes, tau, device) -> dict:
-    """K3 over the actor's and the critic's flat sizes; tolerance: exact
-    (the same two products and sum, each correctly rounded)."""
+def ddpg_leaf_shapes(state_dim, action_dim, hidden) -> list:
+    """The leaves of the DDPG target networks as ``ddpg_step`` hands them
+    to K3 (actor, then critic; per layer "b" then "w")."""
+    out = []
+    for d0, d3 in ((state_dim, action_dim), (state_dim + action_dim, 1)):
+        dims = (d0,) + tuple(hidden) + (d3,)
+        for a, b in zip(dims[:-1], dims[1:]):
+            out += [(b,), (a, b)]
+    return out
+
+
+def check_polyak(shapes, tau, device) -> dict:
+    """K3 over the leaves of both target networks (``shapes``) in one
+    launch, and over leaves that start off 16 bytes with sizes that are
+    not multiples of 4 (views into one buffer); tolerance: exact (the
+    same two products and sum, each correctly rounded). Times the whole
+    update beside its plain version (per leaf), ``torch._foreach_lerp``
+    over the same leaves (one PyTorch call computing the same update:
+    the library time) and ``torch.lerp`` on one flat buffer of the same
+    total size."""
     import torch
-    from repro_torch.kernels.mlp_fused import polyak_flat
+    from repro_torch.kernels import build
+    from repro_torch.kernels.mlp_fused import polyak_leaves
     from repro_torch.kernels.ref import polyak_ref
     gen = torch.Generator(device=device).manual_seed(3)
-    err, out = 0.0, {}
-    for n in sizes:
-        t = torch.randn(n, generator=gen, device=device)
-        p = torch.randn(n, generator=gen, device=device)
-        err = max(err, float((polyak_flat(t, p, tau)
-                              - polyak_ref(t, p, tau)).abs().max()))
-        log(f"  polyak n={n}: max |kernel - plain| so far {err:.3g}")
-    out["ms"], out["paced_ms"] = cuda_ms(lambda: polyak_flat(t, p, tau))
-    out["plain_ms"], _ = cuda_ms(lambda: polyak_ref(t, p, tau))
-    out["library_ms"], _ = cuda_ms(lambda: torch.lerp(t, p, tau))
+    t = [torch.randn(sh, generator=gen, device=device) for sh in shapes]
+    p = [torch.randn(sh, generator=gen, device=device) for sh in shapes]
+    before = build.LAUNCHES["polyak"]
+    got = polyak_leaves(t, p, tau)
+    if build.LAUNCHES["polyak"] != before + 1:
+        raise AssertionError("K3 took more than one launch for the update")
+    err = max(float((g - polyak_ref(a, b, tau)).abs().max())
+              for g, a, b in zip(got, t, p))
+    wide_t = torch.randn(70_010, generator=gen, device=device)
+    wide_p = torch.randn(70_010, generator=gen, device=device)
+    spans = ((1, 4_099), (4_101, 7), (9_003, 30_001), (40_000, 30_000))
+    tm = [wide_t[a:a + n] for a, n in spans]
+    pm = [wide_p[a + 2:a + 2 + n] for a, n in spans]
+    err = max([err] + [float((g - polyak_ref(a, b, tau)).abs().max())
+                       for g, a, b in zip(polyak_leaves(tm, pm, tau), tm,
+                                          pm)])
+    n = sum(x.numel() for x in t)
+    off16 = sum(x.data_ptr() % 16 != 0 for x in tm + pm)
+    log(f"  polyak, both networks in one call: {len(shapes)} leaves, {n} "
+        f"elements, 1 launch, no torch.cat; {len(spans)} leaves off 16 "
+        f"bytes ({off16} pointers); max |kernel - plain| {err:.3g}")
+    flat_t, flat_p = torch.cat([x.reshape(-1) for x in t]), \
+        torch.cat([x.reshape(-1) for x in p])
+    out = {"leaves": len(shapes), "shape": [n]}
+    out["ms"], out["paced_ms"] = cuda_ms(lambda: polyak_leaves(t, p, tau))
+    out["plain_ms"], _ = cuda_ms(
+        lambda: [polyak_ref(a, b, tau) for a, b in zip(t, p)])
+    out["library_ms"], _ = cuda_ms(lambda: torch._foreach_lerp(t, p, tau))
+    out["lerp_ms"], _ = cuda_ms(lambda: torch.lerp(flat_t, flat_p, tau))
     out["bound_ms"], out["bound_by"] = bound_ms(12.0 * n, 3.0 * n)
-    out.update(max_abs_err=err, tolerance=0.0, shape=[n])
+    out.update(max_abs_err=err, tolerance=0.0)
+    log(f"    whole update, {CARD}: {out['ms'] * 1e3:.2f} us kernel (1 "
+        f"launch), {out['plain_ms'] * 1e3:.2f} us plain (per leaf), "
+        f"{out['library_ms'] * 1e3:.2f} us torch._foreach_lerp, "
+        f"{out['lerp_ms'] * 1e3:.2f} us torch.lerp on one flat buffer, "
+        f"bound {out['bound_ms'] * 1e3:.3f} us ({out['bound_by']})")
     if err > 0.0:
         raise AssertionError(f"polyak disagrees with its plain version: "
                              f"max abs err {err}")
@@ -788,24 +843,34 @@ def ssd_errors(got, want) -> dict:
             "min_norm": float(norm.min())}
 
 
-def ssd_case(seed, B, S, H, P, N, max_decay, device):
+def ssd_case(seed, B, S, H, P, N, max_decay, device, views=False):
     """Seeded inputs: x, B, C standard normal, dA uniform in
-    [-max_decay, 0]."""
+    [-max_decay, 0]; with ``views`` B and C are strided views into one
+    wider tensor, as the SSM block makes them in f32."""
     import numpy as np
     import torch
     rng = np.random.default_rng(seed)
     f32 = np.float32
+    x, dA = (rng.standard_normal((B, S, H, P)).astype(f32),
+             -rng.uniform(0.0, max_decay, (B, S, H)).astype(f32))
+    if views:
+        wide = torch.from_numpy(rng.standard_normal(
+            (B, S, 2 * N + 8)).astype(f32)).to(device)
+        return [torch.from_numpy(x).to(device),
+                torch.from_numpy(dA).to(device), wide[..., 8:8 + N],
+                wide[..., 8 + N:]]
     return [torch.from_numpy(a).to(device) for a in (
-        rng.standard_normal((B, S, H, P)).astype(f32),
-        -rng.uniform(0.0, max_decay, (B, S, H)).astype(f32),
-        rng.standard_normal((B, S, N)).astype(f32),
+        x, dA, rng.standard_normal((B, S, N)).astype(f32),
         rng.standard_normal((B, S, N)).astype(f32))]
 
 
-# (B, S, H, P, N), chunk, max decay: the JAX tests' shapes, a ragged S at
-# mamba2's heads, the slow decay at its 48 heads.
+# (B, S, H, P, N), chunk, max decay[, B and C as views]: the JAX tests'
+# shapes (the CUDA-core route), a ragged S at mamba2's heads, its B and C
+# as views of one wider tensor, the slow decay at its 48 heads (the
+# tensor-core route).
 SSD_CASES = (((2, 64, 4, 16, 8), 16, 0.5), ((1, 128, 2, 32, 16), 32, 0.5),
              ((2, 96, 3, 8, 8), 32, 0.5), ((1, 1100, 4, 64, 128), 256, 0.5),
+             ((2, 600, 3, 64, 128), 256, 0.5, True),
              ((1, 4096, 48, 64, 128), 256, 0.01))
 SSD_TIMED_S = 4096
 
@@ -820,11 +885,19 @@ def check_ssd_scan(device, cases=SSD_CASES) -> dict:
     each row within ``K8_ROW_TOL`` of both. Times the slow-decay case
     beside the chunked plain version and the bound; returns that row."""
     import torch
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels.ssd_scan import route
     out = {}
-    for i, ((B, S, H, P, N), chunk, decay) in enumerate(cases):
-        xh, dA, Bm, Cm = ssd_case(10 + i, B, S, H, P, N, decay, device)
+    for i, ((B, S, H, P, N), chunk, decay, *views) in enumerate(cases):
+        xh, dA, Bm, Cm = ssd_case(10 + i, B, S, H, P, N, decay, device,
+                                  views=bool(views))
+        path = route(P, N, min(chunk, S))
+        before = build.LAUNCHES["ssd_scan_tc"]
         y, fin = ops.ssd_scan(xh, dA, Bm, Cm, chunk=chunk)
+        if xh.is_cuda and build.LAUNCHES["ssd_scan_tc"] != \
+                before + (path == "tc"):
+            raise AssertionError(f"ssd_scan at {(B, S, H, P, N)} did not "
+                                 f"take its {path} route")
         ok = True
         for name, (wy, wf) in (
                 ("sequential", ref.ssd_scan_ref(xh, dA, Bm, Cm)),
@@ -833,7 +906,8 @@ def check_ssd_scan(device, cases=SSD_CASES) -> dict:
             close = torch.allclose(y, wy, K8_TOL, K8_TOL) and \
                 torch.allclose(fin, wf, K8_TOL, K8_TOL)
             held = decay > 0.01 or name == "chunked"
-            log(f"  ssd_scan {(B, S, H, P, N)} chunk {chunk} dA in "
+            log(f"  ssd_scan {(B, S, H, P, N)} chunk {chunk} route {path}"
+                f"{' (B, C views)' if views else ''} dA in "
                 f"[-{decay}, 0] vs {name}: y max abs {ey['abs']:.3g}, max "
                 f"row rel {ey['row']:.3g} (min row norm "
                 f"{ey['min_norm']:.3g}); final state max abs "
@@ -854,13 +928,15 @@ def check_ssd_scan(device, cases=SSD_CASES) -> dict:
                                                            chunk), 3, 1)
             n_bytes, n_ops = ssd_work(B, S, H, P, N, chunk)
             bound, by = bound_ms(n_bytes, n_ops)
+            tc_bound, tc_by = bound_ms(n_bytes, 3 * n_ops, TF32_FLOPS)
             out = dict(shape=[B, S, H, P, N, chunk], ms=ms, paced_ms=paced,
                        plain_ms=plain, library_ms=None, bound_ms=bound,
-                       bound_by=by, max_abs_err=err, tolerance=K8_TOL,
-                       row_rel_err=row)
-            log(f"    S 4096, {CARD}: {ms * 1e3:.1f} us kernel "
-                f"({n_ops / ms / 1e9:.2f} TFLOP/s), {plain * 1e3:.1f} us "
-                f"chunked plain, bound {bound * 1e3:.1f} us ({by}); no "
+                       bound_by=by, tc_bound_ms=tc_bound, max_abs_err=err,
+                       tolerance=K8_TOL, row_rel_err=row, route=path)
+            log(f"    S 4096, route {path}, {CARD}: {ms * 1e3:.1f} us "
+                f"kernel ({n_ops / ms / 1e9:.2f} TFLOP/s), {plain * 1e3:.1f}"
+                f" us chunked plain, bound {bound * 1e3:.1f} us f32 ({by}),"
+                f" {tc_bound * 1e3:.1f} us split TF32 ({tc_by}); no "
                 f"library call computes this function")
     return out
 
@@ -1418,6 +1494,7 @@ def check_ssd_prefill(xh, dA, Bm, Cm, chunk: int) -> dict:
     the bound."""
     import torch
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.ssd_scan import route
     y, fin = ops.ssd_scan(xh, dA, Bm, Cm, chunk=chunk)
     wy, wf = ref.ssd_chunked_ref(xh, dA, Bm, Cm, chunk)
     ey, ef = ssd_errors(y, wy), ssd_errors(fin, wf)
@@ -1425,7 +1502,9 @@ def check_ssd_prefill(xh, dA, Bm, Cm, chunk: int) -> dict:
     del wy, wf, y, fin
     B, S, H, P = xh.shape
     N = Bm.shape[-1]
-    log(f"  ssd_scan {(B, S, H, P, N)} chunk {chunk}, layer 0's inputs "
+    path = route(P, N, chunk)
+    log(f"  ssd_scan {(B, S, H, P, N)} chunk {chunk} route {path}, layer "
+        f"0's inputs "
         f"(dA in [{float(dA.min()):.3g}, {float(dA.max()):.3g}]) vs the "
         f"chunked plain branch: y max abs {ey['abs']:.3g}, max row rel "
         f"{ey['row']:.3g} (tol {K8_ROW_TOL:.3g}; at token "
@@ -1442,12 +1521,43 @@ def check_ssd_prefill(xh, dA, Bm, Cm, chunk: int) -> dict:
                        1, 1)
     n_bytes, n_ops = ssd_work(B, S, H, P, N, chunk)
     bound, by = bound_ms(n_bytes, n_ops)
-    log(f"    {CARD}: {ms:.3f} ms kernel ({n_ops / ms / 1e9:.2f} TFLOP/s), "
-        f"{plain:.3f} ms chunked plain, bound {bound:.4f} ms ({by})")
+    tc_bound, tc_by = bound_ms(n_bytes, 3 * n_ops, TF32_FLOPS)
+    log(f"    route {path}, {CARD}: {ms:.3f} ms kernel ({n_ops / ms / 1e9:.2f}"
+        f" TFLOP/s), {plain:.3f} ms chunked plain, bound {bound:.4f} ms f32 "
+        f"({by}), {tc_bound:.4f} ms split TF32 ({tc_by})")
+    passes = kernel_times_us(
+        lambda: ops.ssd_scan(xh, dA, Bm, Cm, chunk=chunk), 3)
+    log("    its kernels (profiler, us per launch): " + (", ".join(
+        f"{k} {v:.1f}" for k, v in passes.items()) or "not measured (the "
+        "profiler recorded no device time)"))
     return dict(shape=[B, S, H, P, N, chunk], ms=ms, paced_ms=paced,
                 plain_ms=plain, library_ms=None, bound_ms=bound, bound_by=by,
-                max_abs_err=max(ey["abs"], ef["abs"]), tolerance=K8_ROW_TOL,
-                row_rel_err=max(ey["row"], ef["row"]))
+                tc_bound_ms=tc_bound, max_abs_err=max(ey["abs"], ef["abs"]),
+                tolerance=K8_ROW_TOL, row_rel_err=max(ey["row"], ef["row"]),
+                route=path, passes_us=passes)
+
+
+def kernel_times_us(fn, calls: int) -> dict:
+    """Device time per launch of each kernel that ``fn`` launches, by
+    kernel name (template arguments and parameters cut), from the
+    profiler over ``calls`` calls, averaged over the launches it
+    recorded of each; empty when it records none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total, count = {}, {}
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", 0.0)
+        if t > 0:
+            name = re.sub(r"^void |[<(].*$", "", e.key)
+            total[name] = total.get(name, 0.0) + t
+            count[name] = count.get(name, 0) + e.count
+    return {k: total[k] / count[k] for k in total}
 
 
 def prefill_launches(cfg, cspec, seq: int) -> dict:
@@ -1455,14 +1565,21 @@ def prefill_launches(cfg, cspec, seq: int) -> dict:
     the card: K6 once per attention layer (its chunked branch), all of
     them on the tensor-core route where ``route`` gives it the config's
     compute dtype and head dim (bf16 at 64, 128, 256), K8 once per SSM
-    layer, K7 once per RG-LRU layer, K1 as ``k1_calls`` counts."""
+    layer (on the tensor-core route where ``ssd_scan.route`` gives it the
+    config's head dim, state and chunk), K7 once per RG-LRU layer, K1 as
+    ``k1_calls`` counts."""
     import torch
     from repro_torch.kernels.flash_attention import route
+    from repro_torch.kernels.ssd_scan import route as ssd_route
     kinds = cfg.layer_kinds
     k6 = kinds.count("attn") if seq > 512 else 0
     tc = route(getattr(torch, cfg.compute_dtype), cfg.head_dim) == "tc"
+    k8 = kinds.count("ssm")
+    k8_tc = k8 if cfg.ssm is not None and ssd_route(
+        cfg.ssm.head_dim, cfg.ssm.d_state,
+        min(cfg.ssm.chunk_size, seq)) == "tc" else 0
     return {"flash_attention": k6, "flash_attention_tc": k6 if tc else 0,
-            "ssd_scan": kinds.count("ssm"),
+            "ssd_scan": k8, "ssd_scan_tc": k8_tc,
             "rglru_scan": kinds.count("rglru"),
             "fake_quant": len(k1_calls(cfg, cspec, seq))}
 
@@ -1865,25 +1982,24 @@ def main() -> int:
     for name, r in sorted(report.items()):
         for row in r["ptxas"]:
             log(f"  {name}: {row}")
-    sass = sass_counts("flash_attention")
-    log(f"  flash_attention SASS (cuobjdump -sass): {sass['HGMMA']} HGMMA "
-        f"(wgmma), {sass['UTMALDG']} UTMALDG (TMA loads)")
-    if not all(sass.values()):
-        raise AssertionError(f"K6's tensor-core route compiled to no "
-                             f"wgmma or no TMA load: {sass}")
+    for name in ("flash_attention", "ssd_scan"):
+        sass = sass_counts(name)
+        log(f"  {name} SASS (cuobjdump -sass): {sass['HGMMA']} HGMMA "
+            f"(wgmma), {sass['UTMALDG']} UTMALDG (TMA loads)")
+        if not all(sass.values()):
+            raise AssertionError(f"{name}'s tensor-core route compiled to "
+                                 f"no wgmma or no TMA load: {sass}")
 
     log("[kernels] each kernel against its plain version on the card")
     A = n_actions("pq")
     S = state_dim(A)
     ddpg = DDPGConfig(state_dim=S, action_dim=A)
     batch = 64
-    d1, d2 = ddpg.hidden
-    actor_n = S * d1 + d1 + d1 * d2 + d2 + d2 * A + A
-    critic_n = (S + A) * d1 + d1 + d1 * d2 + d2 + d2 + 1
     results = {
         "fake_quant": check_fake_quant(LM_CFG, device),
         "mlp3": check_mlp3(S, A, ddpg.hidden, batch, device),
-        "polyak": check_polyak((actor_n, critic_n), ddpg.tau, device),
+        "polyak": check_polyak(ddpg_leaf_shapes(S, A, ddpg.hidden),
+                               ddpg.tau, device),
         **check_quant_matmul(LM_CFG, device),
     }
     k6_4096 = check_flash_attention(device)
@@ -1914,6 +2030,13 @@ def main() -> int:
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
+    steps = (episodes - warmup) * updates
+    log(f"  K3: {launches['polyak']} launches for {steps} DDPG steps "
+        f"({launches['polyak'] / steps:.2f} per step, both target networks "
+        f"in each)")
+    if launches["polyak"] != steps:
+        raise AssertionError(f"K3 launched {launches['polyak']} times for "
+                             f"{steps} DDPG steps, not once per step")
     check_main_path(search, history, LM_CFG, episodes)
 
     prof = profile_episodes(search, episodes, 2)
@@ -2101,10 +2224,12 @@ def main() -> int:
             f"ms SDPA, bound {r['bound_ms']:.4f} ms; max err "
             f"{r['max_abs_err']:.3g}, max row rel {r['row_rel_err']:.3g}")
     r = k8_4096
-    log(f"  ssd_scan at S 4096 {r['shape']}: {r['ms']:.4f} ms kernel, "
-        f"{r['plain_ms']:.4f} ms chunked plain, bound {r['bound_ms']:.4f} "
-        f"ms ({r['bound_by']}); max err {r['max_abs_err']:.3g}, max row rel"
-        f" {r['row_rel_err']:.3g} ({CARD})")
+    log(f"  ssd_scan at S 4096 {r['shape']}, route {r['route']}: "
+        f"{r['ms']:.4f} ms kernel, {r['plain_ms']:.4f} ms chunked plain, "
+        f"bound {r['bound_ms']:.4f} ms f32 ({r['bound_by']}), "
+        f"{r['tc_bound_ms']:.4f} ms split TF32; max err "
+        f"{r['max_abs_err']:.3g}, max row rel {r['row_rel_err']:.3g} "
+        f"({CARD})")
     r = k7_4096
     log(f"  rglru_scan at S 4096 {r['shape']}: {r['ms']:.4f} ms kernel, "
         f"{r['plain_ms']:.4f} ms plain, bound {r['bound_ms']:.4f} ms "

@@ -13,9 +13,10 @@ weights), manipulated by plain functions (``update_step``,
 
 Kernels: the actor/critic trunk runs through K2
 (``kernels.ops.fused_mlp3``, whose backward is plain tensor ops) and the
-soft target update through K3 (``kernels.ops.fused_polyak``). Acting stays
-host numpy with ``np.random.default_rng(seed)``, as in the JAX package, so
-exploration draws match it bit for bit.
+soft target update of both networks through one K3 launch
+(``kernels.ops.fused_polyak_nets``). Acting stays host numpy with
+``np.random.default_rng(seed)``, as in the JAX package, so exploration
+draws match it bit for bit.
 """
 from __future__ import annotations
 
@@ -111,11 +112,13 @@ def adam_step(params, grads, st, lr, b1=0.9, b2=0.999, eps=1e-8):
     return new_p, {"m": new_m, "v": new_v, "t": t}
 
 
-def polyak_update(target, online, tau: float):
-    """Soft-target update ``(1 - tau) * target + tau * online`` of a whole
-    network as one flat pass: K3 on the card, its plain version on the
-    CPU (the same arithmetic as the JAX package's per-leaf tree map)."""
-    return ops.fused_polyak(target, online, tau)
+def polyak_update_targets(targets, onlines, tau: float):
+    """Soft-target update ``(1 - tau) * target + tau * online`` of the
+    target networks (a sequence, here the actor's and the critic's) as
+    one pass over all their leaves: one K3 launch on the card, its plain
+    version on the CPU (the same arithmetic as the JAX package's per-leaf
+    tree map). Returns the new target networks in order."""
+    return ops.fused_polyak_nets(targets, onlines, tau)
 
 
 @dataclass
@@ -216,8 +219,8 @@ def ddpg_step(cfg: DDPGConfig, actor, critic, t_actor, t_critic,
     la = -torch.mean(critic_forward(critic, s, actor_forward(ap, s)))
     actor, opt_a = adam_step(actor, _grads(la, ap), opt_a, cfg.actor_lr)
 
-    t_actor = polyak_update(t_actor, actor, cfg.tau)
-    t_critic = polyak_update(t_critic, critic, cfg.tau)
+    t_actor, t_critic = polyak_update_targets(
+        (t_actor, t_critic), (actor, critic), cfg.tau)
     return (actor, critic, t_actor, t_critic, opt_a, opt_c, lc.detach(),
             la.detach())
 

@@ -33,8 +33,9 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "fake_quant": {"fake_quant_launch": [_P, _P, _I, _I, _I, _P]},
     "mlp3": {"mlp3_launch": [_P] * 10 + [_I] * 6 + [_P]},
-    "polyak": {"polyak_launch": [_P, _P, _P, ctypes.c_longlong,
-                                 ctypes.c_float, ctypes.c_float, _P]},
+    "polyak": {"polyak_launch":
+               [ctypes.POINTER(ctypes.c_longlong)] * 4
+               + [_I, ctypes.c_float, ctypes.c_float, _P]},
     "quant_matmul": {"quant_matmul_int8_launch": [_P] * 7 + [_I] * 4 + [_P],
                      "quant_matmul_int4_launch": [_P] * 7 + [_I] * 4 + [_P]},
     "flash_attention": {"flash_attention_launch":
@@ -45,6 +46,9 @@ _SIGNATURES = {
                         + [_I] * 5 + [ctypes.c_float, _I, _I, _P]},
     "ssd_scan": {"ssd_scan_launch":
                  [_P] * 4 + [ctypes.POINTER(ctypes.c_longlong)] + [_P] * 5
+                 + [_I] * 6 + [_P],
+                 "ssd_scan_tc_launch":
+                 [_P] * 4 + [ctypes.POINTER(ctypes.c_longlong)] + [_P] * 6
                  + [_I] * 6 + [_P]},
     "rglru_scan": {"rglru_scan_launch": [_P] * 7 + [_I] * 5 + [_P]},
 }
@@ -52,11 +56,12 @@ _SIGNATURES = {
 # Kernel launches per wrapper, counted where each wrapper launches its
 # kernel (never for the plain version on a CPU tensor).
 # "flash_attention" counts every K6 launch, "flash_attention_tc" those of
-# its tensor-core route.
+# its tensor-core route; "ssd_scan" and "ssd_scan_tc" likewise for K8.
+# "polyak" counts K3 launches, each over all the leaves it is given.
 LAUNCHES = {"fake_quant": 0, "mlp3": 0, "polyak": 0,
             "quant_matmul_int8": 0, "quant_matmul_int4": 0,
             "flash_attention": 0, "flash_attention_tc": 0, "ssd_scan": 0,
-            "rglru_scan": 0}
+            "ssd_scan_tc": 0, "rglru_scan": 0}
 
 _libs: dict = {}
 build_report: dict = {}     # name -> {"seconds", "ptxas"} of the last build

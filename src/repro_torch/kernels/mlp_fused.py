@@ -1,12 +1,17 @@
 """K2 and K3 wrappers: the fused 3-layer MLP forward (``csrc/mlp3.cu``)
-and the flat Polyak update (``csrc/polyak.cu``), which replace the JAX
-package's ``kernels/mlp_fused.py::_mlp3_kernel`` and ``_polyak_kernel``."""
+and the Polyak update over a list of leaves (``csrc/polyak.cu``), which
+replace the JAX package's ``kernels/mlp_fused.py::_mlp3_kernel`` and
+``_polyak_kernel``."""
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from . import build
 from .ref import mlp3_ref, polyak_ref
+
+MAX_LEAVES = 32     # the kernel's table of leaves (POLYAK_MAX_LEAVES)
 
 
 def mlp3(x, w1, b1, w2, b2, w3, b3, *, sigmoid: bool = False):
@@ -43,25 +48,45 @@ def mlp3(x, w1, b1, w2, b2, w3, b3, *, sigmoid: bool = False):
     return y, h1, h2
 
 
-def polyak_flat(target: torch.Tensor, online: torch.Tensor,
-                tau: float) -> torch.Tensor:
-    """``(1 - tau) * target + tau * online`` over two flat f32 buffers,
-    into a new buffer. A CPU tensor takes the plain version; a CUDA
-    tensor launches the kernel or raises."""
-    if target.device.type == "cpu":
-        return polyak_ref(target, online, tau)
-    build.check_operand(target, "target", 1)
-    build.check_operand(online, "online", 1)
-    if online.shape != target.shape:
-        raise ValueError(f"online {tuple(online.shape)} != target "
-                         f"{tuple(target.shape)}")
-    out = torch.empty_like(target)
-    n = target.numel()
-    if n == 0:
-        return out
+def polyak_leaves(targets, onlines, tau: float) -> list:
+    """``(1 - tau) * t + tau * p`` for every pair of leaves (f32 tensors
+    of any shape, pairs of equal shape) in one kernel launch, read where
+    they lie (no copy into a flat buffer). Returns the new leaves: on the
+    card, views of one fresh buffer (each leaf starting on 16 bytes); on
+    the CPU, the plain version per leaf. A CPU leaf takes the plain
+    version; CUDA leaves launch the kernel or raise."""
+    targets, onlines = list(targets), list(onlines)
+    if len(targets) != len(onlines):
+        raise ValueError(f"{len(targets)} target leaves, {len(onlines)} "
+                         f"online leaves")
+    if targets and targets[0].device.type == "cpu":
+        return [polyak_ref(t, p, tau) for t, p in zip(targets, onlines)]
+    if not 1 <= len(targets) <= MAX_LEAVES:
+        raise ValueError(f"polyak: 1 to {MAX_LEAVES} leaves per launch, "
+                         f"got {len(targets)}")
+    offsets, total = [], 0
+    for i, (t, p) in enumerate(zip(targets, onlines)):
+        build.check_operand(t, f"target[{i}]", t.dim())
+        build.check_operand(p, f"online[{i}]", p.dim())
+        if p.shape != t.shape:
+            raise ValueError(f"online[{i}] {tuple(p.shape)} != target[{i}] "
+                             f"{tuple(t.shape)}")
+        offsets.append(total)
+        total += -(-t.numel() // 4) * 4
+    flat = torch.empty(total, device=targets[0].device, dtype=torch.float32)
+    outs = [flat[o:o + t.numel()].view(t.shape)
+            for o, t in zip(offsets, targets)]
+    live = [i for i, t in enumerate(targets) if t.numel()]
+    if not live:
+        return outs
+    n = len(live)
+    ptrs = [(ctypes.c_longlong * n)(*[seq[i].data_ptr() for i in live])
+            for seq in (targets, onlines, outs)]
+    sizes = (ctypes.c_longlong * n)(*[targets[i].numel() for i in live])
     err = build.lib("polyak").polyak_launch(
-        target.data_ptr(), online.data_ptr(), out.data_ptr(), n,
-        1 - tau, tau, torch.cuda.current_stream(target.device).cuda_stream)
+        *ptrs, sizes, n, 1 - tau, tau,
+        torch.cuda.current_stream(targets[0].device).cuda_stream)
     build.check(err, "polyak")
     build.LAUNCHES["polyak"] += 1
-    return out
+    return outs
+

@@ -97,25 +97,23 @@ def fused_mlp3(params, x: torch.Tensor, final: str = "linear"):
                        l3["w"], l3["b"], final == "sigmoid")
 
 
+def fused_polyak_nets(targets, onlines, tau: float):
+    """Soft-target update of several networks (each a list of ``{"w",
+    "b"}`` layers) as one kernel launch over all their leaves, read where
+    they lie (K3's table of leaves; no flattening copy). Returns the new
+    networks, whose leaves are views of one new buffer (no in-place
+    update)."""
+    t_leaves = [l[k] for net in targets for l in net for k in sorted(l)]
+    p_leaves = [l[k] for net in onlines for l in net for k in sorted(l)]
+    new = iter(_mlp.polyak_leaves(t_leaves, p_leaves, tau))
+    return [[{k: next(new) for k in sorted(l)} for l in net]
+            for net in targets]
+
+
 def fused_polyak(target, online, tau: float):
-    """Soft-target update of a whole network (a list of ``{"w", "b"}``
-    layers) as one kernel pass: both networks are flattened into one
-    buffer each, updated, and the result is split back into views of
-    the new buffer (no in-place update)."""
-    t_leaves = [l[k] for l in target for k in sorted(l)]
-    p_leaves = [l[k] for l in online for k in sorted(l)]
-    flat = _mlp.polyak_flat(torch.cat([t.reshape(-1) for t in t_leaves]),
-                            torch.cat([p.reshape(-1) for p in p_leaves]),
-                            tau)
-    out, off = [], 0
-    for layer in target:
-        new = {}
-        for k in sorted(layer):
-            n = layer[k].numel()
-            new[k] = flat[off:off + n].view(layer[k].shape)
-            off += n
-        out.append(new)
-    return out
+    """Soft-target update of one network (a list of ``{"w", "b"}``
+    layers) as one kernel pass (``fused_polyak_nets`` of one network)."""
+    return fused_polyak_nets([target], [online], tau)[0]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

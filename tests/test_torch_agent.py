@@ -159,3 +159,33 @@ def test_trunk_runs_through_k2_or_raises():
         T.actor_forward(meta, torch.empty((4, S), device="meta"))
     with pytest.raises(ValueError, match="3 layers"):
         T.actor_forward(st.actor[:2], torch.zeros((4, S)))
+
+
+def test_ddpg_step_targets_equal_the_per_network_update_exactly():
+    """``ddpg_step`` updates both target networks in one K3 call over all
+    12 leaves; on the CPU the targets it returns equal, bit for bit, the
+    update of each network as one flat buffer (the path before the
+    single launch: concatenate, ``polyak_ref``, split)."""
+    from repro_torch.kernels.ref import polyak_ref
+    tcfg = _cfgs()[1]
+    st = T.agent_init(tcfg, torch.Generator().manual_seed(3), "cpu")
+    # targets that differ from the online networks
+    ta = [{k: v + 0.01 for k, v in l.items()} for l in st.target_actor]
+    tc = [{k: v - 0.02 for k, v in l.items()} for l in st.target_critic]
+    s, a, r, s2, done = (torch.from_numpy(x[:B]) for x in _transitions(B, 4))
+    actor, critic, t_actor, t_critic, *_ = T.ddpg_step(
+        tcfg, st.actor, st.critic, ta, tc, st.opt_a, st.opt_c,
+        (s, a, r, s2, done))
+    for got, target, online in ((t_actor, ta, actor),
+                                (t_critic, tc, critic)):
+        keys = [(i, k) for i, l in enumerate(target) for k in sorted(l)]
+        flat = polyak_ref(
+            torch.cat([target[i][k].reshape(-1) for i, k in keys]),
+            torch.cat([online[i][k].reshape(-1) for i, k in keys]),
+            tcfg.tau)
+        off = 0
+        for i, k in keys:
+            n = target[i][k].numel()
+            assert torch.equal(got[i][k],
+                               flat[off:off + n].view(target[i][k].shape))
+            off += n

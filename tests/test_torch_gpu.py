@@ -41,9 +41,10 @@ from repro_torch.kernels import build, ops as tops  # noqa: E402
 from repro_torch.kernels.fake_quant import fake_quant_2d  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
-from repro_torch.kernels.mlp_fused import mlp3, polyak_flat  # noqa: E402
+from repro_torch.kernels.mlp_fused import mlp3, polyak_leaves  # noqa: E402
 from repro_torch.kernels.quant_matmul import quant_matmul  # noqa: E402
 from repro_torch.kernels.rglru_scan import rglru_scan  # noqa: E402
+from repro_torch.kernels.ssd_scan import route as ssd_route  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
 from repro_torch.kernels.ref import (fake_quant_ref, mlp3_ref,  # noqa: E402
                                      polyak_ref)
@@ -134,7 +135,79 @@ def test_gpu_mlp3_refuses_widths_past_shared_memory(cuda):
 def test_gpu_polyak_kernel_exact(cuda, n):
     t = torch.from_numpy(_normal(1, (n,))).to(cuda)
     p = torch.from_numpy(_normal(2, (n,))).to(cuda)
-    assert torch.equal(polyak_flat(t, p, 0.01), polyak_ref(t, p, 0.01))
+    assert torch.equal(polyak_leaves([t], [p], 0.01)[0],
+                       polyak_ref(t, p, 0.01))
+
+
+def _ddpg_leaf_shapes(S=33, A=3, hidden=(400, 300)):
+    out = []
+    for d0, d3 in ((S, A), (S + A, 1)):
+        dims = (d0,) + hidden + (d3,)
+        for a, b in zip(dims[:-1], dims[1:]):
+            out += [(b,), (a, b)]
+    return out
+
+
+@pytest.mark.gpu
+def test_gpu_polyak_both_networks_one_launch_exact(cuda):
+    """The 12 leaves of the DDPG target actor and critic in one launch,
+    read where they lie, bit for bit the plain version per leaf."""
+    shapes = _ddpg_leaf_shapes()
+    t = [torch.from_numpy(_normal(i, sh)).to(cuda)
+         for i, sh in enumerate(shapes)]
+    p = [torch.from_numpy(_normal(50 + i, sh)).to(cuda)
+         for i, sh in enumerate(shapes)]
+    before = build.LAUNCHES["polyak"]
+    got = polyak_leaves(t, p, 0.01)
+    assert build.LAUNCHES["polyak"] == before + 1
+    for g, a, b in zip(got, t, p):
+        assert g.shape == a.shape
+        assert torch.equal(g, polyak_ref(a, b, 0.01))
+
+
+@pytest.mark.gpu
+def test_gpu_polyak_leaves_off_16_bytes_exact(cuda):
+    """Leaves whose starts are not 16-byte aligned (views into one
+    buffer at odd offsets) and whose sizes are not multiples of 4 take
+    the element-by-element path of the same launch, exactly."""
+    wide_t = torch.from_numpy(_normal(1, (70_010,))).to(cuda)
+    wide_p = torch.from_numpy(_normal(2, (70_010,))).to(cuda)
+    spans = ((1, 4_099), (4_101, 7), (9_003, 30_001), (40_000, 30_000),
+             (3, 1))
+    t = [wide_t[a:a + n] for a, n in spans]
+    p = [wide_p[a + 2:a + 2 + n] for a, n in spans]
+    assert any(x.data_ptr() % 16 for x in t + p)
+    before = build.LAUNCHES["polyak"]
+    got = polyak_leaves(t, p, 0.3)
+    assert build.LAUNCHES["polyak"] == before + 1
+    for g, a, b in zip(got, t, p):
+        assert torch.equal(g, polyak_ref(a, b, 0.3))
+
+
+@pytest.mark.gpu
+def test_gpu_ddpg_step_launches_polyak_once(cuda):
+    """One ``ddpg_step`` updates both target networks with one K3
+    launch."""
+    from repro_torch.core import ddpg
+    cfg = ddpg.DDPGConfig(state_dim=33, action_dim=3, batch_size=16)
+    st = ddpg.agent_init(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         cuda)
+    rng = np.random.default_rng(0)
+    batch = tuple(torch.from_numpy(a).to(cuda) for a in (
+        rng.standard_normal((16, 33)).astype(np.float32),
+        rng.random((16, 3)).astype(np.float32),
+        rng.standard_normal(16).astype(np.float32),
+        rng.standard_normal((16, 33)).astype(np.float32),
+        np.zeros(16, np.float32)))
+    before = build.LAUNCHES["polyak"]
+    out = ddpg.ddpg_step(cfg, st.actor, st.critic, st.target_actor,
+                         st.target_critic, st.opt_a, st.opt_c, batch)
+    assert build.LAUNCHES["polyak"] == before + 1
+    for got, target, online in ((out[2], st.target_actor, out[0]),
+                                (out[3], st.target_critic, out[1])):
+        for gl, tl, ol in zip(got, target, online):
+            for k in tl:
+                assert torch.equal(gl[k], polyak_ref(tl[k], ol[k], cfg.tau))
 
 
 # the calibration's kernel shape, the testbed's unit shapes at 192 tokens,
@@ -436,7 +509,7 @@ def test_gpu_flash_attention_tc_refuses_views_tma_cannot_read(cuda):
 # size of the two configs, and mamba2-780m's heads (48 of 64, state 128).
 SSD_SHAPES = [(2, 64, 4, 16, 8, 16), (1, 128, 2, 32, 16, 32),
               (2, 96, 3, 8, 8, 32), (2, 100, 3, 16, 16, 32),
-              (1, 1100, 4, 64, 128, 256)]
+              (1, 1100, 4, 64, 128, 256), (2, 700, 3, 64, 64, 128)]
 
 
 def _ssd_inputs(seed, B, S, H, P, N, max_decay, cuda):
@@ -458,9 +531,11 @@ def _row_rel(got, want, eps=1e-6):
 @pytest.mark.parametrize("B,S,H,P,N,chunk", SSD_SHAPES)
 def test_gpu_ssd_scan(cuda, B, S, H, P, N, chunk):
     xh, dA, Bm, Cm = _ssd_inputs(S, B, S, H, P, N, 0.5, cuda)
-    before = build.LAUNCHES["ssd_scan"]
+    before = (build.LAUNCHES["ssd_scan"], build.LAUNCHES["ssd_scan_tc"])
     y, fin = ssd_scan(xh, dA, Bm, Cm, chunk=chunk)
-    assert build.LAUNCHES["ssd_scan"] == before + 1
+    tc = ssd_route(P, N, chunk) == "tc"
+    assert (build.LAUNCHES["ssd_scan"], build.LAUNCHES["ssd_scan_tc"]) == \
+        (before[0] + 1, before[1] + tc)
     for want_y, want_f in (ref.ssd_scan_ref(xh, dA, Bm, Cm),
                            ref.ssd_chunked_ref(xh, dA, Bm, Cm, chunk)):
         torch.testing.assert_close(y, want_y, atol=2e-4, rtol=2e-4)
@@ -472,7 +547,9 @@ def test_gpu_ssd_scan_slow_decay_carries_the_state(cuda):
     """mamba2-780m's head shape at S 4096 with dA in [-0.01, 0]: the state
     entering a chunk dominates its output, so a wrong carry shows."""
     xh, dA, Bm, Cm = _ssd_inputs(7, 1, 4096, 48, 64, 128, 0.01, cuda)
+    before = build.LAUNCHES["ssd_scan_tc"]
     y, fin = ssd_scan(xh, dA, Bm, Cm, chunk=256)
+    assert build.LAUNCHES["ssd_scan_tc"] == before + 1
     yc, fc = ref.ssd_chunked_ref(xh, dA, Bm, Cm, 256)
     torch.testing.assert_close(y, yc, atol=2e-4, rtol=2e-4)
     torch.testing.assert_close(fin, fc, atol=2e-4, rtol=2e-4)
@@ -495,6 +572,40 @@ def test_gpu_ssd_scan_reads_strided_b_and_c(cuda):
                                          Cm.contiguous(), 64)
     torch.testing.assert_close(y, want_y, atol=2e-4, rtol=2e-4)
     torch.testing.assert_close(fin, want_f, atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.gpu
+def test_gpu_ssd_scan_tc_reads_strided_b_and_c(cuda):
+    """The tensor-core route reads B and C through TMA tensor maps with
+    the views' own strides (mamba2's heads, a ragged last chunk)."""
+    B, S, H, P, N = 2, 600, 3, 64, 128
+    xh, dA, _, _ = _ssd_inputs(8, B, S, H, P, N, 0.5, cuda)
+    wide = torch.from_numpy(_normal(9, (B, S, 2 * N + 8))).to(cuda)
+    Bm, Cm = wide[..., 8:8 + N], wide[..., 8 + N:]
+    assert not Bm.is_contiguous()
+    before = build.LAUNCHES["ssd_scan_tc"]
+    y, fin = ssd_scan(xh, dA, Bm, Cm, chunk=256)
+    assert build.LAUNCHES["ssd_scan_tc"] == before + 1
+    for want_y, want_f in (
+            ref.ssd_scan_ref(xh, dA, Bm, Cm),
+            ref.ssd_chunked_ref(xh, dA, Bm.contiguous(), Cm.contiguous(),
+                                256)):
+        torch.testing.assert_close(y, want_y, atol=2e-4, rtol=2e-4)
+        torch.testing.assert_close(fin, want_f, atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.gpu
+def test_gpu_ssd_scan_tc_refuses_views_tma_cannot_read(cuda):
+    """A tensor-core shape whose B view TMA cannot read (a token stride
+    that is not a multiple of 16 bytes) raises; it is never copied and
+    never sent to the other route."""
+    B, S, H, P, N = 1, 300, 2, 64, 128
+    xh, dA, Bm, Cm = _ssd_inputs(10, B, S, H, P, N, 0.5, cuda)
+    odd = torch.from_numpy(_normal(11, (B, S, N + 2))).to(cuda)[..., :N]
+    before = dict(build.LAUNCHES)
+    with pytest.raises(ValueError, match="TMA"):
+        ssd_scan(xh, dA, odd, Cm, chunk=256)
+    assert dict(build.LAUNCHES) == before
 
 
 @pytest.mark.gpu

@@ -17,7 +17,11 @@ Tolerances:
     of s. At 31 bits, ≤4 ulp of the offset z ~ 2^30 carried back through
     1/s: the f32 sum q + z + 0.5 drops the low bits on both sides.
   * K2 forward and backward vs ``ops.fused_mlp3``: ≤1e-5.
-  * K3 vs ``ops.fused_polyak``: ≤1e-6.
+  * K3 vs ``ops.fused_polyak``: ≤1e-6, one network or both DDPG targets
+    in one call.
+  * K8's split TF32, emulated in torch f32 (operands rounded to 10
+    mantissa bits), against the chunked plain branch: 2e-4, the JAX
+    tests' bound; plain TF32 misses it.
 
 The kernels themselves are held against their plain versions on a card
 in ``test_torch_gpu.py``.
@@ -36,11 +40,13 @@ from repro_torch.core import quantization as tq  # noqa: E402
 from repro_torch.kernels import build, ops as tops  # noqa: E402
 from repro_torch.kernels.fake_quant import fake_quant_2d  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
-from repro_torch.kernels.mlp_fused import mlp3, polyak_flat  # noqa: E402
+from repro_torch.kernels.mlp_fused import mlp3, polyak_leaves  # noqa: E402
 from repro_torch.kernels.flash_attention import HEAD_DIMS  # noqa: E402
 from repro_torch.kernels.quant_matmul import quant_matmul  # noqa: E402
 from repro_torch.kernels.rglru_scan import rglru_scan  # noqa: E402
-from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.kernels.ssd_scan import (check_tma_terms,  # noqa: E402
+                                          route as ssd_route, ssd_scan)
 from repro_torch.kernels.ref import (attention_ref,  # noqa: E402
                                      fake_quant_ref, mlp3_ref,
                                      polyak_ref, quant_matmul_ref,
@@ -200,6 +206,56 @@ def test_polyak_matches_jax(dims):
                                        rtol=1e-6, atol=1e-6)
 
 
+def test_polyak_both_networks_in_one_call_match_jax():
+    """The DDPG update's target actor and critic (the paper's widths, pq
+    state and actions) through one ``fused_polyak_nets`` call, each leaf
+    against the JAX ``ops.fused_polyak`` of its own network."""
+    dims = {"actor": (33, 400, 300, 3), "critic": (36, 400, 300, 1)}
+    targets = [_mlp_params(10 + i, d) for i, d in enumerate(dims.values())]
+    onlines = [_mlp_params(20 + i, d) for i, d in enumerate(dims.values())]
+    got = tops.fused_polyak_nets([_torch_params(t) for t in targets],
+                                 [_torch_params(o) for o in onlines], 0.01)
+    assert len(got) == 2
+    for net, t, o in zip(got, targets, onlines):
+        want = jops.fused_polyak(jax.tree.map(jnp.asarray, t),
+                                 jax.tree.map(jnp.asarray, o), 0.01)
+        for wl, gl in zip(want, net):
+            assert sorted(gl) == sorted(wl)
+            for k in wl:
+                assert gl[k].shape == wl[k].shape
+                np.testing.assert_allclose(gl[k].numpy(), np.asarray(wl[k]),
+                                           rtol=1e-6, atol=1e-6)
+
+
+def test_polyak_leaves_on_the_cpu_are_the_plain_version_per_leaf():
+    """A CPU leaf takes the plain version, leaf by leaf (the flat buffer
+    of the old path gave the same numbers: the update is elementwise),
+    and nothing launches."""
+    build.reset_launches()
+    shapes = [(7,), (3, 5), (1,), (33, 400), (2, 2, 2)]
+    t = [torch.from_numpy(_normal(30 + i, sh)) for i, sh in enumerate(shapes)]
+    p = [torch.from_numpy(_normal(40 + i, sh)) for i, sh in enumerate(shapes)]
+    got = polyak_leaves(t, p, 0.3)
+    flat = polyak_ref(torch.cat([x.reshape(-1) for x in t]),
+                      torch.cat([x.reshape(-1) for x in p]), 0.3)
+    off = 0
+    for g, a, b in zip(got, t, p):
+        assert torch.equal(g, polyak_ref(a, b, 0.3))
+        assert torch.equal(g.reshape(-1), flat[off:off + a.numel()])
+        off += a.numel()
+    assert build.LAUNCHES["polyak"] == 0
+
+
+def test_polyak_leaves_refuse_other_devices_and_bad_tables():
+    meta = [torch.empty(4, device="meta")]
+    with pytest.raises(ValueError, match="CUDA"):
+        polyak_leaves(meta, meta, 0.1)
+    with pytest.raises(ValueError, match="leaves"):
+        polyak_leaves(meta * 33, meta * 33, 0.1)
+    with pytest.raises(ValueError, match="online"):
+        polyak_leaves(meta * 2, meta, 0.1)
+
+
 # --------------------------------------------------------------------------
 # Routing: a CPU tensor takes the plain version, nothing else does
 # --------------------------------------------------------------------------
@@ -209,7 +265,8 @@ def test_wrappers_route_cpu_to_plain_without_launching():
     x = torch.from_numpy(_normal(0, (8, 4)))
     assert torch.equal(fake_quant_2d(x, 4), fake_quant_ref(x, 4))
     t, p = torch.ones(10), torch.zeros(10)
-    assert torch.equal(polyak_flat(t, p, 0.5), polyak_ref(t, p, 0.5))
+    assert torch.equal(polyak_leaves([t], [p], 0.5)[0],
+                       polyak_ref(t, p, 0.5))
     params = _mlp_params(0, (4, 6, 5, 2))
     flat = [torch.from_numpy(l[k]) for l in params for k in ("w", "b")]
     for a, b in zip(mlp3(x, *flat, sigmoid=False),
@@ -238,7 +295,7 @@ def test_wrappers_route_cpu_to_plain_without_launching():
                               "quant_matmul_int8": 0,
                               "quant_matmul_int4": 0, "flash_attention": 0,
                               "flash_attention_tc": 0, "ssd_scan": 0,
-                              "rglru_scan": 0}
+                              "ssd_scan_tc": 0, "rglru_scan": 0}
 
 
 def test_wrappers_refuse_other_devices():
@@ -248,8 +305,8 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="CUDA"):
         fake_quant_2d(x, 4)
     with pytest.raises(ValueError, match="CUDA"):
-        polyak_flat(torch.empty(4, device="meta"),
-                    torch.empty(4, device="meta"), 0.1)
+        polyak_leaves([torch.empty(4, device="meta")],
+                      [torch.empty(4, device="meta")], 0.1)
     with pytest.raises(ValueError, match="CUDA"):
         mlp3(x, *[torch.empty(s, device="meta") for s in
                   ((4, 6), (6,), (6, 5), (5,), (5, 2), (2,))])
@@ -282,3 +339,91 @@ def test_kernel_sources_carry_their_notes():
         assert 'extern "C" int' in src, name
     assert "--use_fast_math" not in build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+
+
+# --------------------------------------------------------------------------
+# K8's routes and its split TF32
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("P,N,chunk,want", [
+    (64, 128, 256, "tc"), (64, 64, 128, "tc"), (64, 128, 64, "tc"),
+    (64, 128, 100, "simt"), (64, 32, 256, "simt"), (64, 256, 256, "simt"),
+    (32, 128, 256, "simt"), (16, 8, 16, "simt"), (8, 8, 32, "simt")])
+def test_ssd_route_is_chosen_by_shape(P, N, chunk, want):
+    """mamba2's full-width heads (P 64, N 128, chunk 256) take the
+    tensor-core route; the JAX tests' small shapes the CUDA cores."""
+    assert ssd_route(P, N, chunk) == want
+
+
+def test_ssd_tma_terms_refuse_views_tma_cannot_read():
+    wide = torch.zeros((2, 40, 2 * 128 + 8))
+    check_tma_terms(wide[..., 8:136], "Bm")          # strides 264, 10560
+    with pytest.raises(ValueError, match="multiples of 4"):
+        check_tma_terms(torch.zeros((2, 40, 130))[..., 2:130], "Bm")
+    with pytest.raises(ValueError, match="aligned"):
+        check_tma_terms(wide[..., 9:137], "Cm")
+    with pytest.raises(ValueError, match="last stride"):
+        check_tma_terms(wide.transpose(1, 2)[:, :40, :40], "Cm")
+
+
+def _tf32(x):
+    """x rounded to TF32 (10 mantissa bits, to nearest) by masking."""
+    i = x.contiguous().view(torch.int32)
+    return ((i + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_matmul(a, b, split):
+    ah, bh = _tf32(a), _tf32(b)
+    if not split:
+        return ah @ bh
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return ah @ bh + (al @ bh + ah @ bl)
+
+
+def _ssd_tf32(xh, dA, Bm, Cm, L, split):
+    """``ref.ssd_chunked_ref`` (S a multiple of L, zero initial state)
+    with K8's four products, C·Bᵀ, scores·X, (B ⊙ decay)ᵀ·X and
+    C·stateᵀ, on TF32 operands: split (hi·hi + lo·hi + hi·lo, as the
+    tensor-core route) or plain."""
+    b, s, h, p = xh.shape
+    n, c = Bm.shape[-1], s // L
+    X = xh.reshape(b, c, L, h, p).permute(0, 3, 1, 2, 4)      # [b,h,c,l,p]
+    A = dA.reshape(b, c, L, h).permute(0, 3, 1, 2)             # [b,h,c,l]
+    Bc, Cc = Bm.reshape(b, c, L, n), Cm.reshape(b, c, L, n)
+    A_cum = torch.cumsum(A, -1)
+    CB = _tf32_matmul(Cc, Bc.transpose(-1, -2), split)         # [b,c,l,l]
+    y_diag = _tf32_matmul(CB[:, None] * torch.exp(tref.segsum(A)), X, split)
+    dec = torch.exp(A_cum[..., -1:] - A_cum)
+    states = _tf32_matmul((Bc[:, None] * dec[..., None]).transpose(-1, -2),
+                          X, split)                            # [b,h,c,n,p]
+    prev, prevs = torch.zeros_like(states[:, :, 0]), []
+    for ci in range(c):
+        prevs.append(prev)
+        prev = states[:, :, ci] + torch.exp(
+            A_cum[:, :, ci, -1])[..., None, None] * prev
+    y_off = _tf32_matmul(Cc[:, None], torch.stack(prevs, 2), split) \
+        * torch.exp(A_cum)[..., None]
+    return (y_diag + y_off).permute(0, 2, 3, 1, 4).reshape(b, s, h, p)
+
+
+def test_split_tf32_holds_k8_to_2e4_where_plain_tf32_misses():
+    """Why the tensor-core route splits every operand: at the magnitudes
+    of ``chip_smoke.py``'s slow-decay check (mamba2's head dim 64 and
+    state 128, dA in [-0.01, 0], the state carried over chunks, y up to
+    ~5 x 10^2), K8's four products on split TF32 operands stay within
+    the JAX tests' 2e-4 of the chunked plain branch; on plain TF32
+    operands (10 mantissa bits) they miss it by three orders."""
+    rng = np.random.default_rng(11)
+    S, H = 1024, 2
+    xh, Bm, Cm = (torch.from_numpy(rng.standard_normal(sh).astype(
+        np.float32)) for sh in ((1, S, H, 64), (1, S, 128), (1, S, 128)))
+    dA = torch.from_numpy(-rng.uniform(0, 0.01, (1, S, H)).astype(
+        np.float32))
+    want, _ = ssd_chunked_ref(xh, dA, Bm, Cm, 256)
+    assert float(want.abs().max()) > 100
+    split = _ssd_tf32(xh, dA, Bm, Cm, 256, True)
+    plain = _ssd_tf32(xh, dA, Bm, Cm, 256, False)
+    torch.testing.assert_close(split, want, atol=2e-4, rtol=2e-4)
+    assert not torch.allclose(plain, want, atol=2e-4, rtol=2e-4)
+    assert float((plain - want).abs().max()) > 100 * float(
+        (split - want).abs().max())

@@ -462,7 +462,7 @@ def test_chip_smoke_recurrentgemma_phases_on_cpu():
     assert chip_smoke.prefill_launches(treg.get_config(ARCH), None,
                                        32768) == {
         "flash_attention": 8, "flash_attention_tc": 8, "ssd_scan": 0,
-        "rglru_scan": 18, "fake_quant": 0}
+        "ssd_scan_tc": 0, "rglru_scan": 18, "fake_quant": 0}
 
 
 def test_chip_smoke_checks_k7_and_k6_on_the_paths_inputs(monkeypatch):

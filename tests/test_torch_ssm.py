@@ -429,7 +429,7 @@ def test_chip_smoke_mamba2_phases_on_cpu():
     assert chip_smoke.prefill_launches(
         treg.get_config(ARCH), None, 32768) == {
             "flash_attention": 0, "flash_attention_tc": 0, "ssd_scan": 48,
-            "rglru_scan": 0, "fake_quant": 0}
+            "ssd_scan_tc": 48, "rglru_scan": 0, "fake_quant": 0}
 
 
 def test_chip_smoke_checks_k8_on_the_paths_inputs(monkeypatch):
