@@ -23,9 +23,16 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ``flash_attention_tc`` as well as ``flash_attention``), f32 and bf16
    at head dims 16 / 32 on the CUDA cores; each K6 line prints its route
    and TFLOP/s, and each call must have counted a launch of its route.
-   K3 updates the 12 leaves of both DDPG target networks in one launch,
-   read in place (and leaves that start off 16 bytes), exact; its line
-   times the whole update beside ``torch._foreach_lerp`` over the same
+   K1 runs f32 and bf16 (and f16 at the testbed's shapes), plain and
+   straight-through (against the chain of
+   ``core.quantization.fake_quant``), exact, at every shape it meets
+   (here and at each serving model's ``k1_calls``); it is timed at
+   [3072, 256] (straight-through in the compute dtype, the search's
+   call) and, per serving model, at its largest shape and its most
+   launched activation. K2 runs the actor and the critic at B 64 and
+   128 (the critic timed at both). K3 updates the 12 leaves of both DDPG
+   target networks in one launch, read in place (and leaves that start
+   off 16 bytes), exact; its line times the whole update beside ``torch._foreach_lerp`` over the same
    leaves (its library call) and ``torch.lerp`` on one flat buffer of
    the same size. K4/K5 also: the asymmetric
    zero-point case with its SUBTRACT-convention canary, a padded K with
@@ -267,13 +274,58 @@ def sass_counts(name: str, ops=("HGMMA", "UTMALDG")) -> dict:
 # Phase 3: each kernel against its plain version
 # ---------------------------------------------------------------------------
 
-def check_fake_quant(cfg, device) -> dict:
-    """K1 at the activation shapes ([64*48, 256] and [64*48, 1024]) and
-    every weight shape of the testbed; tolerance: exact (the plain
-    version on the card runs the same correctly rounded f32 ops)."""
-    import torch
+def fake_quant_errors(x, bits) -> float:
+    """Largest |kernel - plain| of K1 on x (f32, bf16 or f16) in both modes:
+    plain against ``fake_quant_ref`` and straight-through against the
+    chain of ``core.quantization.fake_quant``, ``(xf + (xq - xf))`` in
+    x's dtype."""
     from repro_torch.kernels.fake_quant import fake_quant_2d
     from repro_torch.kernels.ref import fake_quant_ref
+    xf = x.float()
+    chain = x.clone() if bits >= 32 else \
+        (xf + (fake_quant_ref(xf, bits) - xf)).to(x.dtype)
+    err = 0.0
+    for got, want in ((fake_quant_2d(x, bits), fake_quant_ref(x, bits)),
+                      (fake_quant_2d(x, bits, ste=True), chain)):
+        if got.dtype != x.dtype:
+            raise AssertionError(f"fake_quant returned {got.dtype} for "
+                                 f"{x.dtype}")
+        err = max(err, float((got.float() - want.float()).abs().max()))
+    return err
+
+
+def time_fake_quant(x, bits, ste: bool, iters: int = 20) -> dict:
+    """K1 on x (device and host-paced ms) beside its plain version and its
+    bound: each element read once and written once in x's dtype, against
+    10 f32 operations an element (min, max, scale, subtract, floor, clip
+    twice, two adds, divide) and 2 more straight-through."""
+    from repro_torch.kernels.fake_quant import fake_quant_2d
+    from repro_torch.kernels.ref import fake_quant_ref, fake_quant_ste_ref
+    plain_fn = fake_quant_ste_ref if ste else fake_quant_ref
+    ms, paced = cuda_ms(lambda: fake_quant_2d(x, bits, ste=ste), iters, 3)
+    plain, _ = cuda_ms(lambda: plain_fn(x, bits), max(2, iters // 4), 1)
+    n = x.numel()
+    bound, by = bound_ms(2.0 * x.element_size() * n,
+                         (12.0 if ste else 10.0) * n)
+    mode = "straight-through" if ste else "plain"
+    log(f"    {list(x.shape)} {str(x.dtype)[6:]} {bits} bits {mode}: "
+        f"{ms * 1e3:.2f} us kernel ({paced * 1e3:.2f} paced), "
+        f"{plain * 1e3:.2f} us plain, bound {bound * 1e3:.3f} us ({by}); "
+        f"{CARD}")
+    return dict(shape=list(x.shape), dtype=str(x.dtype)[6:], bits=bits,
+                ste=ste, ms=ms, paced_ms=paced, plain_ms=plain,
+                bound_ms=bound, bound_by=by)
+
+
+def check_fake_quant(cfg, device) -> dict:
+    """K1 at the activation shapes ([64*48, 256] and [64*48, 1024]) and
+    every weight shape of the testbed, f32, bf16 and f16, plain and
+    straight-through; tolerance: exact (the plain versions on the card
+    run the same correctly rounded f32 ops). Times [3072, 256] at 4 bits
+    in the compute dtype, straight-through: the call the search's
+    quantized linears make, which the kernels line's row times; and f32
+    plain beside it (``f32_plain``, the mode earlier rows timed)."""
+    import torch
     from repro_torch.configs.testbed import VAL_BATCH, VAL_SEQ
     rows = VAL_BATCH * VAL_SEQ
     d, ff, hd = cfg.d_model, cfg.d_ff, cfg.head_dim
@@ -284,20 +336,14 @@ def check_fake_quant(cfg, device) -> dict:
     err, out = 0.0, {}
     for shape in dict.fromkeys(shapes):
         x = torch.randn(shape, generator=gen, device=device)
-        for bits in (2, 4, 6, 8, 32):
-            e = (fake_quant_2d(x, bits) - fake_quant_ref(x, bits)).abs()
-            err = max(err, float(e.max()))
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            for bits in (2, 4, 6, 8, 32):
+                err = max(err, fake_quant_errors(x.to(dtype), bits))
         log(f"  fake_quant {shape}: max |kernel - plain| so far {err:.3g}")
-        if shape[0] == rows:        # the activation shapes: time them
-            ms, paced = cuda_ms(lambda: fake_quant_2d(x, 4))
-            plain, _ = cuda_ms(lambda: fake_quant_ref(x, 4))
-            n = x.numel()
-            bound, by = bound_ms(8.0 * n, 10.0 * n)
-            log(f"    {list(shape)} 4 bits: {ms * 1e3:.2f} us kernel, "
-                f"{plain * 1e3:.2f} us plain, bound {bound * 1e3:.3f} us")
-            if shape == (rows, d):
-                out.update(ms=ms, paced_ms=paced, plain_ms=plain,
-                           bound_ms=bound, bound_by=by, shape=list(shape))
+        if shape == (rows, d):
+            out.update(time_fake_quant(
+                x.to(getattr(torch, cfg.compute_dtype)), 4, True, 50))
+            out["f32_plain"] = time_fake_quant(x, 4, False, 50)
     out.update(max_abs_err=err, tolerance=0.0, library_ms=None)
     if err > 0.0:
         raise AssertionError(f"fake_quant disagrees with its plain version: "
@@ -354,37 +400,49 @@ def k1_calls(cfg, cspec, rows: int) -> list:
     return calls
 
 
+def k1_call_dtype(cfg, shape, rows: int):
+    """The dtype K1 receives at ``shape`` in a forward over ``rows``
+    tokens: an activation [rows, d_in] comes in the compute dtype, a
+    weight in the parameter dtype."""
+    import torch
+    return getattr(torch, cfg.compute_dtype if shape[0] == rows
+                   else cfg.param_dtype)
+
+
 def check_fake_quant_path(cfg, cspec, rows: tuple, device) -> dict:
     """K1 at every (shape, bits) that a forward over each count of
     ``rows`` tokens gives it under ``cspec`` (``k1_calls``: the prefill's
     [32768, 896] and [32768, 4864] activations, the layer weights, the
-    head weight [896, 151936], decode's [8, 896] activations); tolerance:
-    exact, as ``check_fake_quant``. On the card the largest shape is timed
+    head weight [896, 151936], decode's [8, 896] activations), f32 and
+    bf16, plain and straight-through; tolerance: exact, as
+    ``check_fake_quant``. On the card the largest shape is timed in f32
+    (the widest call) and the activation launched most often
+    in the path's dtype, straight-through (the layers' call), each
     beside its bound."""
     import torch
-    from repro_torch.kernels.fake_quant import fake_quant_2d
-    from repro_torch.kernels.ref import fake_quant_ref
     gen = torch.Generator(device=device).manual_seed(2)
-    pairs = sorted({c for r in rows for c in k1_calls(cfg, cspec, r)})
+    calls = {r: k1_calls(cfg, cspec, r) for r in rows}
+    pairs = sorted({c for cs in calls.values() for c in cs})
     if not pairs:
         raise AssertionError("the policy quantizes nothing: K1 never runs")
     err, out = 0.0, {}
     for shape, bits in pairs:
         x = torch.randn(shape, generator=gen, device=device)
-        e = float((fake_quant_2d(x, bits) - fake_quant_ref(x, bits)).abs()
-                  .max())
+        e = max(fake_quant_errors(x.to(dtype), bits)
+                for dtype in (torch.float32, torch.bfloat16))
         err = max(err, e)
-        log(f"  fake_quant {list(shape)} {bits} bits: max |kernel - plain| "
-            f"{e:.3g}")
-    big, bits = max(pairs, key=lambda c: c[0][0] * c[0][1])
+        log(f"  fake_quant {list(shape)} {bits} bits, f32 and bf16, plain "
+            f"and straight-through: max |kernel - plain| {e:.3g}")
     if torch.device(device).type == "cuda":
+        big, bits = max(pairs, key=lambda c: c[0][0] * c[0][1])
         x = torch.randn(big, generator=gen, device=device)
-        ms, _ = cuda_ms(lambda: fake_quant_2d(x, bits), 10, 2)
-        plain, _ = cuda_ms(lambda: fake_quant_ref(x, bits), 10, 2)
-        bound, by = bound_ms(8.0 * x.numel(), 10.0 * x.numel())
-        log(f"    {list(big)} {bits} bits: {ms * 1e3:.2f} us kernel, "
-            f"{plain * 1e3:.2f} us plain, bound {bound * 1e3:.3f} us ({by})")
-        out.update(shape=list(big), ms=ms, plain_ms=plain, bound_ms=bound)
+        out["largest"] = time_fake_quant(x, bits, False, 10)
+        acts = [c for c in calls[rows[0]] if c[0][0] == rows[0]]
+        shape, bits = max(set(acts), key=acts.count)
+        x = torch.randn(shape, generator=gen, device=device).to(
+            k1_call_dtype(cfg, shape, rows[0]))
+        out["activation"] = time_fake_quant(x, bits, True, 10)
+        out["activation"]["launches"] = acts.count((shape, bits))
     out.update(pairs=len(pairs), max_abs_err=err)
     if err > 0.0:
         raise AssertionError(f"fake_quant disagrees with its plain version "
@@ -392,9 +450,11 @@ def check_fake_quant_path(cfg, cspec, rows: tuple, device) -> dict:
     return out
 
 
-def check_mlp3(state_dim, action_dim, hidden, batch, device) -> dict:
+def check_mlp3(state_dim, action_dim, hidden, batches, device) -> dict:
     """K2 forward (y, h1, h2) and autograd backward for the actor and the
-    critic at the DDPG batch; tolerance 1e-5 (f32, summation order)."""
+    critic at each DDPG batch in ``batches``; tolerance 1e-5 (f32,
+    summation order). The critic is timed at each batch; the row keeps
+    the first."""
     import torch
     from repro_torch.core.ddpg import _mlp_init
     from repro_torch.kernels import ops
@@ -402,39 +462,48 @@ def check_mlp3(state_dim, action_dim, hidden, batch, device) -> dict:
     from repro_torch.kernels.ref import mlp3_ref
     gen = torch.Generator(device=device).manual_seed(2)
     err, out = 0.0, {}
-    for name, d0, d3, final in (("actor", state_dim, action_dim, "sigmoid"),
-                                ("critic", state_dim + action_dim, 1,
-                                 "linear")):
-        params = _mlp_init(gen, (d0,) + tuple(hidden) + (d3,), device)
-        x = torch.randn((batch, d0), generator=gen, device=device)
-        flat = [l[k] for l in params for k in ("w", "b")]
-        sig = final == "sigmoid"
-        got = mlp3(x, *flat, sigmoid=sig)
-        want = mlp3_ref(x, *flat, sig)
-        for g, w in zip(got, want):
-            err = max(err, float((g - w).abs().max()))
-        leaves_k = [t.clone().requires_grad_(True) for t in [x] + flat]
-        leaves_r = [t.clone().requires_grad_(True) for t in [x] + flat]
-        pk = [{"w": leaves_k[1 + 2 * i], "b": leaves_k[2 + 2 * i]}
-              for i in range(3)]
-        yk = ops.fused_mlp3(pk, leaves_k[0], final=final)
-        yr = mlp3_ref(leaves_r[0], *leaves_r[1:], sig)[0]
-        gk = torch.autograd.grad((yk ** 2).sum(), leaves_k)
-        gr = torch.autograd.grad((yr ** 2).sum(), leaves_r)
-        for a, b in zip(gk, gr):
-            err = max(err, float((a - b).abs().max()))
-        log(f"  mlp3 {name} [{batch},{d0}]->{hidden}->{d3}: max |kernel - "
-            f"plain| so far {err:.3g}")
-        if name == "critic":
-            out["ms"], out["paced_ms"] = cuda_ms(
-                lambda: mlp3(x, *flat, sigmoid=sig))
-            out["plain_ms"], _ = cuda_ms(lambda: mlp3_ref(x, *flat, sig))
+    for batch in batches:
+        for name, d0, d3, final in (
+                ("actor", state_dim, action_dim, "sigmoid"),
+                ("critic", state_dim + action_dim, 1, "linear")):
+            params = _mlp_init(gen, (d0,) + tuple(hidden) + (d3,), device)
+            x = torch.randn((batch, d0), generator=gen, device=device)
+            flat = [l[k] for l in params for k in ("w", "b")]
+            sig = final == "sigmoid"
+            got = mlp3(x, *flat, sigmoid=sig)
+            want = mlp3_ref(x, *flat, sig)
+            for g, w in zip(got, want):
+                err = max(err, float((g - w).abs().max()))
+            leaves_k = [t.clone().requires_grad_(True) for t in [x] + flat]
+            leaves_r = [t.clone().requires_grad_(True) for t in [x] + flat]
+            pk = [{"w": leaves_k[1 + 2 * i], "b": leaves_k[2 + 2 * i]}
+                  for i in range(3)]
+            yk = ops.fused_mlp3(pk, leaves_k[0], final=final)
+            yr = mlp3_ref(leaves_r[0], *leaves_r[1:], sig)[0]
+            gk = torch.autograd.grad((yk ** 2).sum(), leaves_k)
+            gr = torch.autograd.grad((yr ** 2).sum(), leaves_r)
+            for a, b in zip(gk, gr):
+                err = max(err, float((a - b).abs().max()))
+            log(f"  mlp3 {name} [{batch},{d0}]->{hidden}->{d3}: max |kernel"
+                f" - plain| so far {err:.3g}")
+            if name != "critic":
+                continue
+            ms, paced = cuda_ms(lambda: mlp3(x, *flat, sigmoid=sig))
+            plain, _ = cuda_ms(lambda: mlp3_ref(x, *flat, sig))
             d1, d2 = hidden
             w_elems = sum(t.numel() for t in flat)
             n_bytes = 4.0 * (x.numel() + w_elems + batch * (d1 + d2 + d3))
             n_ops = 2.0 * batch * (d0 * d1 + d1 * d2 + d2 * d3)
-            out["bound_ms"], out["bound_by"] = bound_ms(n_bytes, n_ops)
-            out["shape"] = [batch, d0, d1, d2, d3]
+            bound, by = bound_ms(n_bytes, n_ops)
+            log(f"    critic at B {batch}: {ms * 1e3:.2f} us kernel "
+                f"({paced * 1e3:.2f} paced), {plain * 1e3:.2f} us plain, "
+                f"bound {bound * 1e3:.3f} us ({by}); {CARD}")
+            row = dict(ms=ms, paced_ms=paced, plain_ms=plain,
+                       bound_ms=bound, bound_by=by,
+                       shape=[batch, d0, d1, d2, d3])
+            if not out:
+                out.update(row)
+            out[f"critic_b{batch}"] = row
     out.update(max_abs_err=err, tolerance=1e-5, library_ms=None)
     if err > 1e-5:
         raise AssertionError(f"mlp3 disagrees with its plain version: "
@@ -1118,7 +1187,7 @@ def check_main_path(search, history, cfg, episodes: int) -> None:
     from repro_torch.core.compress import CompressibleLM
     from repro_torch.core.policy import Policy
     from repro_torch.kernels import fake_quant as kfq
-    from repro_torch.kernels.ref import fake_quant_ref
+    from repro_torch.kernels.ref import fake_quant_ref, fake_quant_ste_ref
     if len(history) != episodes:
         raise AssertionError(f"{len(history)} records, wanted {episodes}")
     for r in history:
@@ -1133,7 +1202,8 @@ def check_main_path(search, history, cfg, episodes: int) -> None:
     cspec = cm.build_cspec(best.policy)
     lp_kernel = cm.log_probs(small, cspec)
     launch = kfq.fake_quant_2d
-    kfq.fake_quant_2d = fake_quant_ref
+    kfq.fake_quant_2d = lambda x, bits, ste=False: (
+        fake_quant_ste_ref if ste else fake_quant_ref)(x, bits)
     try:
         lp_plain = cm.log_probs(small, cspec)
     finally:
@@ -1997,7 +2067,8 @@ def main() -> int:
     batch = 64
     results = {
         "fake_quant": check_fake_quant(LM_CFG, device),
-        "mlp3": check_mlp3(S, A, ddpg.hidden, batch, device),
+        "mlp3": check_mlp3(S, A, ddpg.hidden, (batch, ddpg.batch_size),
+                           device),
         "polyak": check_polyak(ddpg_leaf_shapes(S, A, ddpg.hidden),
                                ddpg.tau, device),
         **check_quant_matmul(LM_CFG, device),

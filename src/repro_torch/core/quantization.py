@@ -7,11 +7,13 @@ The paper's three layer modes map to effective bit widths:
     MIX  -> bits in [1, MAX_MIX_BITS]  (weights and activations independent)
 
 Bits are host ints here (the scalar engine builds its compression spec on
-the host), so ``bits >= 32`` skips the quantizer outright. Every other
-call runs through ``kernels.ops.fused_fake_quant``: kernel K1 for a CUDA
-tensor, its plain version for a CPU one. The math is f32 inside and the
-result is cast back to the input's dtype, at the same points as the JAX
-package's ``core/quantization.py``.
+the host), so ``bits >= 32`` skips the quantizer outright. A CPU tensor
+runs the plain chain through ``kernels.ops.fused_fake_quant`` (K1's plain
+version); any other tensor takes ``kernels.ops.fake_quant_ste``, K1 in
+its straight-through mode, one pass over x in its own dtype with the
+same arithmetic. The math is f32 inside and the result is cast back to
+the input's dtype, at the same points as the JAX package's
+``core/quantization.py``.
 """
 from __future__ import annotations
 
@@ -57,6 +59,8 @@ def fake_quant(x: torch.Tensor, bits: int) -> torch.Tensor:
     if bits >= 32:
         return x
     from ..kernels import ops
+    if x.device.type != "cpu":
+        return ops.fake_quant_ste(x, bits)
     xf = x.float()
     xq = ops.fused_fake_quant(xf, bits)
     # Straight-through estimator: forward quantized values, identity grad.

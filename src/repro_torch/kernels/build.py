@@ -31,8 +31,9 @@ SOURCES = ("fake_quant", "mlp3", "polyak", "quant_matmul",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "fake_quant": {"fake_quant_launch": [_P, _P, _I, _I, _I, _P]},
-    "mlp3": {"mlp3_launch": [_P] * 10 + [_I] * 6 + [_P]},
+    "fake_quant": {"fake_quant_launch": [_P, _P, _P, ctypes.c_longlong]
+                   + [_I] * 9 + [_P]},
+    "mlp3": {"mlp3_launch": [_P] * 10 + [_I] * 8 + [_P]},
     "polyak": {"polyak_launch":
                [ctypes.POINTER(ctypes.c_longlong)] * 4
                + [_I, ctypes.c_float, ctypes.c_float, _P]},

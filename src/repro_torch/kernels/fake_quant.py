@@ -1,28 +1,91 @@
-"""K1 wrapper: per-channel fake quantization of a 2-D f32 tensor
-(``csrc/fake_quant.cu``; replaces the JAX package's
-``kernels/fake_quant.py::fake_quant_kernel``)."""
+"""K1 wrapper: per-channel fake quantization of a 2-D f32, bf16 or f16
+tensor (``csrc/fake_quant.cu``; replaces the JAX package's
+``kernels/fake_quant.py::fake_quant_kernel``), plain or with the
+straight-through forward value fused in."""
 from __future__ import annotations
+
+import functools
+import math
+from typing import NamedTuple
 
 import torch
 
 from . import build
-from .ref import fake_quant_ref
+from .ref import fake_quant_ref, fake_quant_ste_ref
+
+SMS = 132                   # streaming multiprocessors of an H100 SXM
+THREADS = 256               # FQ_THREADS
+LANES = 8                   # FQ_LANES: threads of 16 bytes per row segment
+ROWS = THREADS // LANES     # rows a block walks per step
+TARGET_BLOCKS = 8 * SMS     # blocks to aim for: ~8 per SM, a short tail
+DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
-def fake_quant_2d(x: torch.Tensor, bits: int) -> torch.Tensor:
-    """x [R, C] f32: quantize-dequantize with per-channel (last axis)
-    range reduced over the rows. ``bits`` is a host int; >= 32 passes
-    through. A CPU tensor takes the plain version; a CUDA tensor launches
-    the kernel or raises."""
+class Plan(NamedTuple):
+    n_ctiles: int           # channel tiles of LANES x 16 bytes
+    n_slabs: int            # row slabs; one: a single fused launch
+    slab_rows: int          # rows per slab, a multiple of ROWS
+    fused: bool             # one launch (one slab) or two
+
+
+@functools.lru_cache(maxsize=512)
+def plan(R: int, C: int, itemsize: int) -> Plan:
+    """K1's grid for x [R, C] of ``itemsize`` bytes: (row slab x channel
+    tile) blocks, enough slabs to put ~8 blocks on every SM, but no more
+    than keep pass 2's fold (each block reads every slab's min and max
+    of its channels, 8 bytes per slab) within an eighth of a slab's own
+    bytes: n_slabs^2 <= R * itemsize / 64."""
+    n_ctiles = _cdiv(C, LANES * (16 // itemsize))
+    cap = max(1, math.isqrt(R * itemsize // 64))
+    want = max(1, min(_cdiv(TARGET_BLOCKS, n_ctiles), cap))
+    slab_rows = _cdiv(_cdiv(R, want), ROWS) * ROWS
+    n_slabs = _cdiv(R, slab_rows)
+    return Plan(n_ctiles, n_slabs, slab_rows, n_slabs == 1)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def vector_ok(x: torch.Tensor) -> bool:
+    """Whether K1 may read x with 16-byte loads: x on 16 bytes, its row
+    stride and width multiples of the 16-byte vector (else the kernels'
+    scalar path)."""
+    n = 16 // x.element_size()
+    return (x.data_ptr() % 16 == 0 and x.shape[1] % n == 0
+            and x.stride(0) % n == 0)
+
+
+def fake_quant_2d(x: torch.Tensor, bits: int,
+                  ste: bool = False) -> torch.Tensor:
+    """x [R, C] f32, bf16 or f16 (unit channel stride; a row-sliced view is
+    read in place): quantize-dequantize with per-channel (last axis)
+    range reduced over the rows, returned in x's dtype. ``ste``: return
+    the straight-through forward value ``xf + (xq - xf)`` instead (the
+    arithmetic of ``core.quantization.fake_quant``). ``bits`` is a host
+    int; >= 32 copies x. The grid is ``plan``'s. A CPU tensor takes the
+    plain version; a CUDA tensor launches the kernel or raises."""
     if x.device.type == "cpu":
-        return fake_quant_ref(x, bits)
-    build.check_operand(x, "x", 2)
-    out = torch.empty_like(x)
+        return fake_quant_ste_ref(x, bits) if ste else fake_quant_ref(x, bits)
+    if x.dtype not in DTYPES:
+        raise TypeError(f"x: expected float32, bfloat16 or float16, got "
+                        f"{x.dtype}")
+    build.check_operand(x, "x", 2, dtype=x.dtype, contiguous=False)
     R, C = x.shape
+    if x.stride(1) != 1 and C > 1 or x.stride(0) < C and R > 1:
+        raise ValueError(f"x: expected unit channel stride and rows apart "
+                         f"by >= C, got strides {x.stride()}")
+    out = torch.empty((R, C), dtype=x.dtype, device=x.device)
     if x.numel() == 0:
         return out
+    p = plan(R, C, x.element_size())
+    part = torch.empty(0 if p.fused or bits >= 32 else 2 * p.n_slabs * C,
+                       dtype=torch.float32, device=x.device)
     err = build.lib("fake_quant").fake_quant_launch(
-        x.data_ptr(), out.data_ptr(), R, C, int(bits),
+        x.data_ptr(), out.data_ptr(), part.data_ptr() or None,
+        x.stride(0) if R > 1 else C, R, C, int(bits),
+        DTYPES[x.dtype], int(ste), p.n_slabs, p.slab_rows,
+        int(vector_ok(x)), int(p.fused),
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "fake_quant")
     build.LAUNCHES["fake_quant"] += 1

@@ -12,6 +12,18 @@ from . import build
 from .ref import mlp3_ref, polyak_ref
 
 MAX_LEAVES = 32     # the kernel's table of leaves (POLYAK_MAX_LEAVES)
+CLUSTER = 8         # K2's CTAs per thread-block cluster (MLP_CLUSTER)
+ROWS = 8            # K2's batch rows per cluster (MLP_BM)
+
+
+def mlp3_plan(D1: int, D2: int) -> tuple:
+    """K2's split of the columns: ``(n1, n2)``. A cluster of ``CLUSTER``
+    CTAs takes ``ROWS`` batch rows (8 and 16 clusters at the DDPG
+    batches 64 and 128); CTA ``rank`` takes columns ``[rank * n1, +n1)``
+    of h1 and ``[rank * n2, +n2)`` of h2, n1 and n2 the smallest
+    multiples of 4 that cover D1 and D2 in ``CLUSTER`` slices (the last
+    CTAs may get fewer or none)."""
+    return 4 * -(-D1 // (4 * CLUSTER)), 4 * -(-D2 // (4 * CLUSTER))
 
 
 def mlp3(x, w1, b1, w2, b2, w3, b3, *, sigmoid: bool = False):
@@ -35,13 +47,14 @@ def mlp3(x, w1, b1, w2, b2, w3, b3, *, sigmoid: bool = False):
     h2 = torch.empty((B, D2), device=x.device, dtype=x.dtype)
     if B == 0:
         return y, h1, h2
+    n1, n2 = mlp3_plan(D1, D2)
     err = build.lib("mlp3").mlp3_launch(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
         b2.data_ptr(), w3.data_ptr(), b3.data_ptr(), y.data_ptr(),
         h1.data_ptr(), h2.data_ptr(), B, D0, D1, D2, D3, int(sigmoid),
-        torch.cuda.current_stream(x.device).cuda_stream)
-    # A launch whose activation tiles overflow a block's shared memory
-    # (227 KB on Hopper) is refused by cudaFuncSetAttribute.
+        n1, n2, torch.cuda.current_stream(x.device).cuda_stream)
+    # A launch whose weight slices and activation tiles overflow a CTA's
+    # shared memory (227 KB on Hopper) is refused by cudaFuncSetAttribute.
     build.check(err, f"mlp3 with widths {(D0, D1, D2)} (shared memory "
                 f"is capped at 227 KB per block)")
     build.LAUNCHES["mlp3"] += 1

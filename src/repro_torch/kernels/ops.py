@@ -58,6 +58,33 @@ def fused_fake_quant(x: torch.Tensor, bits: int) -> torch.Tensor:
     return out.reshape(shape)
 
 
+class _FakeQuantSTE(torch.autograd.Function):
+    """K1 in its straight-through mode: the forward is one kernel pass
+    over x in its own dtype writing ``(xf + (xq - xf)).to(x.dtype)``, the
+    backward the identity (the STE of ``core.quantization.fake_quant``)."""
+
+    @staticmethod
+    def forward(ctx, x, bits):
+        shape = x.shape
+        x2 = x.reshape(-1, shape[-1])
+        if x2.stride(-1) != 1:
+            x2 = x2.contiguous()
+        return _fq.fake_quant_2d(x2, bits, ste=True).reshape(shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def fake_quant_ste(x: torch.Tensor, bits: int) -> torch.Tensor:
+    """Per-channel (last axis) fake quant of an f32, bf16 or f16 tensor of
+    any rank with the straight-through estimator, in x's dtype: forward
+    ``(xf + (xq - xf)).to(x.dtype)`` (K1's straight-through mode, reading
+    x in place where its rows have unit channel stride), gradient the
+    identity."""
+    return _FakeQuantSTE.apply(x, bits)
+
+
 class _MLP3(torch.autograd.Function):
     """K2 forward; the backward is plain tensor ops over the residuals the
     kernel emits (the JAX package's ``ops._mlp3_vjp_bwd``: relu' = h > 0,

@@ -13,15 +13,28 @@ import torch
 
 
 def fake_quant_ref(x: torch.Tensor, bits: int) -> torch.Tensor:
-    """K1's function: x [R, C] f32 -> quantize-dequantize with the range of
-    each channel (last axis) reduced over the rows; ``bits >= 32`` passes
-    x through. The arithmetic of ``core.quantization.quantize`` /
-    ``dequantize`` (the JAX package's ``fake_quant`` before its STE)."""
+    """K1's function: x [R, C] f32, bf16 or f16 -> quantize-dequantize with
+    the range of each channel (last axis) reduced over the rows, in f32, then
+    cast to x's dtype (the TPU kernel's ``out.astype(o_ref.dtype)``);
+    ``bits >= 32`` passes x through. The arithmetic of
+    ``core.quantization.quantize`` / ``dequantize`` (the JAX package's
+    ``fake_quant`` before its STE)."""
     from ..core.quantization import dequantize, quantize
     if bits >= 32:
         return x.clone()
     q, s, z = quantize(x, min(max(int(bits), 1), 31), dims=(0,))
-    return dequantize(q, s, z)
+    return dequantize(q, s, z).to(x.dtype)
+
+
+def fake_quant_ste_ref(x: torch.Tensor, bits: int) -> torch.Tensor:
+    """K1's straight-through mode: ``(xf + (xq - xf)).to(x.dtype)`` with
+    xf = x in f32 and xq = ``fake_quant_ref(xf)``, each step one correctly
+    rounded op: the forward value of ``core.quantization.fake_quant``'s
+    chain (and of the JAX package's STE)."""
+    if bits >= 32:
+        return x.clone()
+    xf = x.float()
+    return (xf + (fake_quant_ref(xf, bits) - xf)).to(x.dtype)
 
 
 def mlp3_ref(x, w1, b1, w2, b2, w3, b3, sigmoid: bool):

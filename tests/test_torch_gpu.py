@@ -8,8 +8,9 @@ machine that has only PyTorch. There, skip the repo's ``conftest.py``
 
     PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
 
-Tolerances: K1 (fake-quant) and K3 (Polyak) exact — the plain versions
-run the same correctly rounded f32 operations, one PyTorch kernel each;
+Tolerances: K1 (fake-quant, f32 and bf16, plain and straight-through)
+and K3 (Polyak) exact — the plain versions run the same correctly
+rounded f32 operations, one PyTorch kernel each;
 K2 (3-layer MLP) forward and backward ≤1e-5 at the DDPG init's scales
 (f32 sums in another order; no TF32); K4/K5 (quantized matmul) exact —
 integer products are exact on both sides and the epilogue is the same
@@ -39,6 +40,9 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import build, ops as tops  # noqa: E402
 from repro_torch.kernels.fake_quant import fake_quant_2d  # noqa: E402
+from repro_torch.kernels.fake_quant import plan as fake_quant_plan  # noqa: E402
+from repro_torch.kernels.fake_quant import (  # noqa: E402
+    vector_ok as fake_quant_vector_ok)
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels.mlp_fused import mlp3, polyak_leaves  # noqa: E402
@@ -46,7 +50,8 @@ from repro_torch.kernels.quant_matmul import quant_matmul  # noqa: E402
 from repro_torch.kernels.rglru_scan import rglru_scan  # noqa: E402
 from repro_torch.kernels.ssd_scan import route as ssd_route  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
-from repro_torch.kernels.ref import (fake_quant_ref, mlp3_ref,  # noqa: E402
+from repro_torch.kernels.ref import (fake_quant_ref,  # noqa: E402
+                                     fake_quant_ste_ref, mlp3_ref,
                                      polyak_ref)
 
 
@@ -90,10 +95,90 @@ def test_gpu_fake_quant_kernel_exact(cuda, shape, bits):
     assert torch.equal(got, fake_quant_ref(x, bits))
 
 
+def _planted_range(x, dtype):
+    """x with channel 5's minimum in its first row and its maximum in its
+    last (different slabs of K1's plan), both outside every other value:
+    a dropped or misplaced partial moves the whole channel."""
+    x = x.clone()
+    x[0, 5], x[-1, 5] = -9.0, 11.0
+    return x.to(dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(3072, 256), (3001, 896), (32768, 896),
+                                   (4096, 257), (8, 896), (2560, 4099)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("bits", [1, 4, 8, 31, 32])
+def test_gpu_fake_quant_dtypes_and_ste_exact(cuda, shape, dtype, bits):
+    """K1 in f32, bf16 and f16, plain and straight-through, bit for bit its
+    plain versions, at shapes of several slabs (a ragged last slab, C not
+    a multiple of the vector: the scalar path) and of one (the fused
+    launch); the straight-through mode equals the chain of
+    ``core.quantization.fake_quant``, ``(xf + (xq - xf)).to(dtype)``."""
+    dt = getattr(torch, dtype)
+    x = _planted_range(torch.from_numpy(_normal(bits, shape)).to(cuda), dt)
+    p = fake_quant_plan(*shape, x.element_size())
+    assert p.fused == (shape[0] <= 256)
+    before = build.LAUNCHES["fake_quant"]
+    got = fake_quant_2d(x, bits)
+    ste = fake_quant_2d(x, bits, ste=True)
+    assert build.LAUNCHES["fake_quant"] == before + 2
+    assert got.dtype == ste.dtype == dt
+    assert torch.equal(got, fake_quant_ref(x, bits))
+    xf = x.float()
+    chain = x.clone() if bits >= 32 else \
+        (xf + (fake_quant_ref(xf, bits) - xf)).to(dt)
+    assert torch.equal(ste, chain)
+    assert torch.equal(ste, fake_quant_ste_ref(x, bits))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("offset,width", [(8, 896), (3, 896), (0, 893)])
+def test_gpu_fake_quant_reads_row_views_in_place(cuda, dtype, offset, width):
+    """A view of rows with a longer row stride is read in place: 16-byte
+    loads where its start and stride allow them, the scalar path where
+    its start is off 16 bytes or its width is ragged; both exact."""
+    dt = getattr(torch, dtype)
+    wide = torch.from_numpy(_normal(3, (3001, 904))).to(cuda).to(dt)
+    x = wide[:, offset:offset + width]
+    assert fake_quant_vector_ok(x) == (offset == 8)
+    for ste in (False, True):
+        got = fake_quant_2d(x, 4, ste=ste)
+        want = (fake_quant_ste_ref if ste else fake_quant_ref)(
+            x.contiguous(), 4)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+def test_gpu_fake_quant_ste_op_one_launch_identity_grad(cuda, dtype):
+    """``core.quantization.fake_quant`` on a CUDA activation [2, 1536, 896]
+    takes K1's straight-through mode, one launch, bit for bit the CPU
+    chain's values on the card, with the identity gradient."""
+    from repro_torch.core.quantization import fake_quant
+    dt = getattr(torch, dtype)
+    x = torch.from_numpy(_normal(4, (2, 1536, 896))).to(cuda).to(dt)
+    x.requires_grad_(True)
+    before = build.LAUNCHES["fake_quant"]
+    out = fake_quant(x, 4)
+    assert build.LAUNCHES["fake_quant"] == before + 1
+    xf = x.detach().float()
+    want = (xf + (fake_quant_ref(xf.reshape(-1, 896), 4).reshape(xf.shape)
+                  - xf)).to(dt)
+    assert out.dtype == dt and torch.equal(out.detach(), want)
+    (g,) = torch.autograd.grad(out.float().sum(), x)
+    assert torch.equal(g, torch.ones_like(x))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,dims,final", [
     (64, (33, 400, 300, 3), "sigmoid"), (64, (36, 400, 300, 1), "linear"),
-    (37, (9, 40, 30, 3), "sigmoid")])
+    (37, (9, 40, 30, 3), "sigmoid"),
+    (1, (33, 400, 300, 3), "sigmoid"), (1, (36, 400, 300, 1), "linear"),
+    (37, (33, 400, 300, 3), "sigmoid"), (37, (36, 400, 300, 1), "linear"),
+    (128, (33, 400, 300, 3), "sigmoid"), (128, (36, 400, 300, 1), "linear"),
+    (200, (36, 400, 300, 1), "linear")])
 def test_gpu_mlp3_kernel(cuda, B, dims, final):
     params = _mlp_params(B, dims)
     tp = [{k: torch.from_numpy(v).to(cuda).requires_grad_(True)

@@ -39,6 +39,9 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro_torch.core import quantization as tq  # noqa: E402
 from repro_torch.kernels import build, ops as tops  # noqa: E402
 from repro_torch.kernels.fake_quant import fake_quant_2d  # noqa: E402
+from repro_torch.kernels import fake_quant as tfq  # noqa: E402
+from repro_torch.kernels import mlp_fused as tmf  # noqa: E402
+from repro_torch.kernels.mlp_fused import mlp3_plan  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.mlp_fused import mlp3, polyak_leaves  # noqa: E402
 from repro_torch.kernels.flash_attention import HEAD_DIMS  # noqa: E402
@@ -105,6 +108,88 @@ def test_fake_quant_constant_channel():
     want = np.asarray(j_fake_quant(jnp.asarray(x), 4))
     np.testing.assert_array_equal(
         tq.fake_quant(torch.from_numpy(x), 4).numpy(), want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("bits", [1, 4, 8, 31])
+def test_fake_quant_ste_op_matches_jax(dtype, bits):
+    """K1's straight-through op (``ops.fake_quant_ste``, the CUDA route of
+    ``core.quantization.fake_quant``) on the CPU equals the JAX package's
+    ``fake_quant`` bit for bit, in f32, bf16 and f16, with a constant channel
+    (the 1e-8 span guard) among the others; its gradient is the
+    identity, in x's dtype."""
+    x = _normal(40 + bits, (3, 40, 24), scale=2.0)
+    x[:, :, 7] = 0.375
+    jx = jnp.asarray(x).astype(dtype)
+    want = np.asarray(j_fake_quant(jx, bits).astype(jnp.float32))
+    tx = torch.from_numpy(x).to(getattr(torch, dtype)).requires_grad_(True)
+    out = tops.fake_quant_ste(tx, bits)
+    assert out.dtype == tx.dtype and out.shape == tx.shape
+    np.testing.assert_array_equal(out.detach().float().numpy(), want)
+    np.testing.assert_array_equal(
+        fake_quant_2d(tx.detach().reshape(-1, 24), bits, ste=True)
+        .float().numpy(), want.reshape(-1, 24))
+    (g,) = torch.autograd.grad((out.float() * 3.0).sum(), tx)
+    assert g.dtype == tx.dtype
+    np.testing.assert_array_equal(g.float().numpy(), np.full(x.shape, 3.0))
+
+
+def test_fake_quant_plain_keeps_the_dtype():
+    """K1's plain mode on bf16 is the f32 quantize-dequantize rounded to
+    bf16 once (the TPU kernel's ``out.astype(o_ref.dtype)``)."""
+    x = torch.from_numpy(_normal(9, (64, 40))).to(torch.bfloat16)
+    got = fake_quant_2d(x, 4)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, fake_quant_ref(x.float(), 4).to(torch.bfloat16))
+    assert torch.equal(fake_quant_2d(x, 32), x)
+
+
+@pytest.mark.parametrize("R,C,itemsize", [
+    (3072, 256, 4), (3072, 256, 2), (32768, 896, 2), (32768, 4864, 2),
+    (32768, 4864, 4), (32768, 3072, 2), (2560, 256000, 4), (8, 896, 2),
+    (3001, 257, 2), (7, 33, 4), (1, 5, 4), (100_003, 12, 2)])
+def test_fake_quant_plan_covers_the_tensor(R, C, itemsize):
+    """K1's grid: the slabs cover every row once (a ragged last slab
+    included), the channel tiles every channel (C not a multiple of the
+    vector included), the fold of pass 2 stays within an eighth of a
+    slab's bytes, one slab means one fused launch, and the prefills'
+    activations put at least two blocks on every SM."""
+    p = tfq.plan(R, C, itemsize)
+    tile = tfq.LANES * 16 // itemsize
+    assert p.slab_rows % tfq.ROWS == 0
+    assert (p.n_slabs - 1) * p.slab_rows < R <= p.n_slabs * p.slab_rows
+    assert (p.n_ctiles - 1) * tile < C <= p.n_ctiles * tile
+    assert p.n_slabs == 1 or 8 * p.n_slabs ** 2 <= R * itemsize / 8
+    assert p.fused == (p.n_slabs == 1)
+    if R >= 32768 and C >= 896:
+        assert p.n_ctiles * p.n_slabs >= 2 * tfq.SMS
+
+
+def test_fake_quant_vector_path_needs_aligned_rows():
+    """16-byte loads only where x starts on 16 bytes and its width and
+    row stride are multiples of the vector; other views take the
+    kernels' scalar path."""
+    wide = torch.zeros((16, 72), dtype=torch.bfloat16)
+    assert tfq.vector_ok(wide[:, :64])
+    assert tfq.vector_ok(wide[:, 8:72])
+    assert not tfq.vector_ok(wide[:, 3:67])
+    assert not tfq.vector_ok(wide[:, :60])
+    assert not tfq.vector_ok(torch.zeros((16, 70))[:, :64])
+
+
+@pytest.mark.parametrize("B,clusters", [
+    (1, 1), (32, 4), (37, 5), (64, 8), (128, 16), (200, 25)])
+@pytest.mark.parametrize("D1,D2", [(400, 300), (40, 30), (12, 7)])
+def test_mlp3_plan_splits_rows_and_columns(B, clusters, D1, D2):
+    """K2's cluster plan: row tiles of 8 covering B (a ragged last tile
+    at B 1 and 37), and column slices that are multiples of 4 and cover
+    D1 and D2 within the cluster's 8 CTAs."""
+    n1, n2 = mlp3_plan(D1, D2)
+    assert tmf.ROWS == 8 and -(-B // tmf.ROWS) == clusters
+    assert (clusters - 1) * tmf.ROWS < B <= clusters * tmf.ROWS
+    for d, n in ((D1, n1), (D2, n2)):
+        assert n % 4 == 0 and n > 0
+        assert d <= tmf.CLUSTER * n < d + 32
 
 
 # --------------------------------------------------------------------------
