@@ -100,14 +100,17 @@ Phases, each fatal on failure (non-zero exit, no result line):
    policy, after the earlier models are freed. First K1 exact at every
    (shape, bits) of the policy, K7 on layer 0's own (a, b) against the
    sequential plain version (each (token, 256-channel) row within
-   ``K7_ROW_TOL``, the worst row's place printed) and K6 on layer 2's
+   ``K7_ROW_TOL``, the worst row's place printed) and bit for bit
+   against the former three-launch kernel (``tools/k7_three_pass.cu``)
+   at the same chunk, and K6 on layer 2's
    q/k/v (window 2,048) against the chunked plain branch and the dense
    tail rows, each timed beside its bound; then, as in phase 7, a warm-up
    and one timed forward each, with exactly 18 K7, 8 K6 (all 8 on the
    tensor-core route) and ``k1_calls``' count of K1 launches per
-   forward; a profiled raw forward; the phase's peak device memory; at
-   the SMOKE widths (f32, 2 x 1,100 tokens) the device forward's argmaxes
-   equal the plain CPU path's.
+   forward; a profiled raw forward, with the device ms of layer 0's
+   RG-LRU block split into its gate passes, K7, the GEMMs and the rest;
+   the phase's peak device memory; at the SMOKE widths (f32, 2 x 1,100
+   tokens) the device forward's argmaxes equal the plain CPU path's.
 12. RecurrentGemma decode: ``decode_loop`` and ``sustained_throughput``,
    batch 8, 64 steps, the RG-LRU state and the ring KV cache (16 and 8
    bits), raw and under the policy; one profiled 8-step decode each. At
@@ -127,13 +130,19 @@ against the chunked one at 2e-4 and the sequential one within
 tensor cores, the JAX tests' small shapes on the CUDA cores) is printed
 per case, and each call must have counted a launch of its route. K7 (RG-LRU
 scan) too: at the JAX tests' shapes (a in [0.4, 0.99], with and without
-h0) at atol 2e-5, at the default chunk and at chunk 16 (the carry pass
-runs), a ragged S and C, and recurrentgemma-2b's width at S 4,096 with its
-init's slow decays, each (token, 256-channel) row within ``K7_ROW_TOL``;
-timed there beside its bound. And K6 at head dim 256 (MQA, 10 over 1
-heads) against the dense plain version: f32 at atol 2e-5, bf16 at S 128
-and 4,096, causal and window 2,048, at atol 0.04 and ``K6_ROW_TOL``; the
-S 4,096 window case timed beside SDPA with the window as a boolean mask.
+h0) at atol 2e-5, at the default chunk and at chunk 16 (the state is
+carried between chunks), a ragged S and C, a C off 16 bytes (the scalar
+copy), and recurrentgemma-2b's width at S 4,096 with its init's slow
+decays, each (token, 256-channel) row within ``K7_ROW_TOL``, and each bit
+for bit equal to the former three-launch kernel at the same chunk; timed
+at S 4,096 beside its bound. Then a case whose tiles outnumber what the
+card holds at once ((1, 65536, 256) at chunk 16: chunks wait on chunks of
+earlier waves) and two calls on one stream with no sync between them
+(other inputs: the second takes none of the first's state words). And K6
+at head dim 256 (MQA, 10 over 1 heads) against the dense plain version:
+f32 at atol 2e-5, bf16 at S 128 and 4,096, causal and window 2,048, at
+atol 0.04 and ``K6_ROW_TOL``; the S 4,096 window case timed beside SDPA
+with the window as a boolean mask.
 """
 from __future__ import annotations
 
@@ -1067,17 +1076,61 @@ RGLRU_CASES = (((2, 64, 96), (0.4, 0.99), False),
                ((3, 48, 256), (0.4, 0.99), False),
                ((2, 32, 64), (0.5, 0.95), True),
                ((2, 1000, 2600), (0.4, 0.99), False),
+               ((2, 200, 99), (0.4, 0.99), False),
                ((1, 4096, 2560), "path", False))
 RGLRU_TIMED_S = 4096
+# (B, S, C), chunk: tiles (4,096 chunks x 8 slabs) far past what the card
+# holds at once.
+RGLRU_WAVES = ((1, 65536, 256), 16)
+
+
+def k7_three_pass(a, b, h0=None, chunk: int = 128):
+    """The former three-launch K7 (``tools/k7_three_pass.cu``, built at
+    first use) on CUDA tensors: the chained kernel equals it bit for bit
+    at the same chunk."""
+    import importlib.util
+    mod = sys.modules.get("k7_ablation")
+    if mod is None:
+        spec = importlib.util.spec_from_file_location(
+            "k7_ablation", os.path.join(ROOT, "tools", "k7_ablation.py"))
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules["k7_ablation"] = mod
+        spec.loader.exec_module(mod)
+    return mod.three_pass(a, b, h0, chunk)
+
+
+def rglru_held(got, want, a, b, h0, chunk, what: str) -> dict:
+    """K7's output ``got`` held against the sequential plain version
+    ``want`` (atol, each row within ``K7_ROW_TOL``, bit-equal where S fits
+    one chunk) and, on the card, bit for bit against the three-pass
+    kernel at ``chunk``; logs one line, raises on a miss."""
+    import torch
+    e = rglru_errors(got, want)
+    exact = bool((got == want).all())
+    three = (torch.equal(got, k7_three_pass(a, b, h0, chunk))
+             if got.is_cuda else None)
+    log(f"  rglru_scan {what}, chunk {chunk}: max |kernel - plain| "
+        f"{e['abs']:.3g} (tol {K7_TOL}), max row rel {e['row']:.3g} (tol "
+        f"{K7_ROW_TOL:.3g}; min row norm {e['min_norm']:.3g}); bit-equal "
+        f"{exact}; bit-equal to the three-pass kernel "
+        f"{'-' if three is None else three}")
+    if not (e["abs"] <= K7_TOL and e["row"] <= K7_ROW_TOL
+            and (exact or a.shape[1] > chunk) and three is not False):
+        raise AssertionError(f"rglru_scan disagrees with its plain version "
+                             f"or the three-pass kernel ({what}, chunk "
+                             f"{chunk}): {e}, three-pass equal {three}")
+    return e
 
 
 def check_rglru_scan(device, cases=RGLRU_CASES) -> dict:
     """K7 against its sequential plain version ``rglru_scan_ref``, at the
-    default chunk and at chunk 16 (more chunks: the carry pass matters):
-    atol 2e-5 as the JAX tests hold it, each (token, 256-channel) row
-    within ``K7_ROW_TOL``, and bit-equal where S fits one chunk (the same
-    correctly rounded multiply and add per step). The S 4,096 case is
-    timed beside the plain version and the bound; returns that row."""
+    default chunk and at chunk 16 (more chunks: the state carried between
+    them matters): atol 2e-5 as the JAX tests hold it, each (token,
+    256-channel) row within ``K7_ROW_TOL``, bit-equal where S fits one
+    chunk (the same correctly rounded multiply and add per step), and on
+    the card bit for bit equal to the three-pass kernel at the same
+    chunk. The S 4,096 case is timed beside the plain version and the
+    bound; returns that row."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.rglru_scan import CHUNK, rglru_scan
     out = {}
@@ -1086,17 +1139,9 @@ def check_rglru_scan(device, cases=RGLRU_CASES) -> dict:
         want = ref.rglru_scan_ref(a, b, h0)
         for chunk in (CHUNK, 16):
             got = rglru_scan(a, b, h0, chunk=chunk)
-            e = rglru_errors(got, want)
-            exact = bool((got == want).all())
-            log(f"  rglru_scan {(B, S, C)} a in {a_range}"
-                f"{' with h0' if with_h0 else ''}, chunk {chunk}: max "
-                f"|kernel - plain| {e['abs']:.3g} (tol {K7_TOL}), max row "
-                f"rel {e['row']:.3g} (tol {K7_ROW_TOL:.3g}; min row norm "
-                f"{e['min_norm']:.3g}); bit-equal {exact}")
-            if not (e["abs"] <= K7_TOL and e["row"] <= K7_ROW_TOL
-                    and (exact or S > chunk)):
-                raise AssertionError(f"rglru_scan disagrees with its plain "
-                                     f"version at {(B, S, C)}: {e}")
+            rglru_held(got, want, a, b, h0, chunk,
+                       f"{(B, S, C)} a in {a_range}"
+                       f"{' with h0' if with_h0 else ''}")
         if S == RGLRU_TIMED_S and a.is_cuda:
             ms, paced = cuda_ms(lambda: ops.rglru_scan(a, b), 20, 3)
             plain, _ = cuda_ms(lambda: ref.rglru_scan_ref(a, b), 1, 1)
@@ -1114,6 +1159,66 @@ def check_rglru_scan(device, cases=RGLRU_CASES) -> dict:
                 f"{bound * 1e3:.1f} us ({by}); no library call computes "
                 f"this function")
     return out
+
+
+def check_rglru_waves(device, shape=RGLRU_WAVES[0],
+                      chunk=RGLRU_WAVES[1]) -> None:
+    """K7 where its tiles outnumber the blocks the card holds at once,
+    so chunks wait on chunks that a block of an earlier wave published:
+    held as ``rglru_held`` holds it, at the path's slow decays."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rglru_scan import plan, rglru_scan
+    B, S, C = shape
+    a, b, _ = lru_case(40, B, S, C, "path", device)
+    p = plan(B, S, C, chunk, a.element_size())
+    what = f"{(B, S, C)}, {p.tiles} tiles of {p.smem_bytes} bytes"
+    if a.is_cuda:
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        per_sm = min(32, 2048 // p.slab, 233472 // (p.smem_bytes + 1024))
+        what += f" (the card holds at most {sms * per_sm} at once)"
+        if p.tiles <= sms * per_sm:
+            raise AssertionError(f"the many-wave case fits one wave: {what}")
+    rglru_held(rglru_scan(a, b, chunk=chunk), ref.rglru_scan_ref(a, b), a,
+               b, None, chunk, what)
+
+
+def check_rglru_back_to_back(device, shape=(1, 4096, 2560)) -> None:
+    """Two K7 calls on one stream with no sync between them, on other
+    inputs (the path's decays, then a in [0.4, 0.99]): the second must
+    take none of the first's state words and find the ticket back at
+    zero. Each held as ``rglru_held`` holds it. On the card every kernel
+    the profiler records must be K7's, at most two (no memset or fill
+    beside them)."""
+    import contextlib
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rglru_scan import CHUNK, rglru_scan
+    B, S, C = shape
+    first = lru_case(41, B, S, C, "path", device)
+    second = lru_case(42, B, S, C, (0.4, 0.99), device)
+    cuda = first[0].is_cuda
+    if cuda:
+        rglru_scan(first[0], first[1])
+        torch.cuda.synchronize()
+    with (profile(activities=[ProfilerActivity.CUDA]) if cuda
+          else contextlib.nullcontext()) as prof:
+        h1 = rglru_scan(first[0], first[1])
+        h2 = rglru_scan(second[0], second[1])
+        if cuda:
+            torch.cuda.synchronize()
+    if cuda:
+        kernels = device_kernels(prof)
+        log(f"  rglru_scan, two calls back to back: kernels on the card "
+            f"(profiler) {kernels or 'not measured (none recorded)'}")
+        if len(kernels) > 2 or not all("lru_chained" in k
+                                        for k in kernels):
+            raise AssertionError(f"two K7 calls ran {kernels}, not two "
+                                 f"lru_chained kernels")
+    for n, (a, b, _), got in ((1, first, h1), (2, second, h2)):
+        rglru_held(got, ref.rglru_scan_ref(a, b), a, b, None, CHUNK,
+                   f"{(B, S, C)}, call {n} of 2 back to back")
 
 
 # ---------------------------------------------------------------------------
@@ -1513,22 +1618,30 @@ def check_rglru_prefill(a, b) -> dict:
     ``K7_ROW_TOL`` (the worst row's place printed). Timed beside the
     plain version (a few calls: it walks the tokens from the host) and
     the bound."""
+    import torch
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.rglru_scan import CHUNK, plan
     got = ops.rglru_scan(a, b)
     want = ref.rglru_scan_ref(a, b)
     e = rglru_errors(got, want)
+    three = torch.equal(got, k7_three_pass(a, b))
     del got, want
     B, S, C = a.shape
+    p = plan(B, S, C, CHUNK, a.element_size())
     log(f"  rglru_scan {(B, S, C)}, the first RG-LRU layer's (a, b) (a in "
         f"[{float(a.min()):.4f}, {float(a.max()):.4f}]) vs the sequential "
         f"plain version: max abs {e['abs']:.3g}, max row rel {e['row']:.3g}"
         f" (tol {K7_ROW_TOL:.3g}; at token {e['row_at'][1]}, chunk "
-        f"{e['row_at'][1] // 128}, channels {e['row_at'][2] * K7_BLOCK}.."
+        f"{e['row_at'][1] // CHUNK}, channels {e['row_at'][2] * K7_BLOCK}.."
         f"{(e['row_at'][2] + 1) * K7_BLOCK - 1}, row norm "
-        f"{e['row_norm']:.3g}; min row norm {e['min_norm']:.3g})")
-    if e["row"] > K7_ROW_TOL:
+        f"{e['row_norm']:.3g}; min row norm {e['min_norm']:.3g}); "
+        f"bit-equal to the three-pass kernel {three}; one launch of "
+        f"{p.tiles} tiles ({p.n_chunks} chunks of {CHUNK} x {p.n_slabs} "
+        f"slabs of {p.slab} channels, {p.smem_bytes} bytes each)")
+    if e["row"] > K7_ROW_TOL or not three:
         raise AssertionError(f"rglru_scan disagrees with its plain version "
-                             f"at the prefill shape: {e}")
+                             f"or the three-pass kernel at the prefill "
+                             f"shape: {e}, three-pass equal {three}")
     ms, paced = cuda_ms(lambda: ops.rglru_scan(a, b), 10, 2)
     plain, _ = cuda_ms(lambda: ref.rglru_scan_ref(a, b), 1, 1)
     n_bytes, n_ops = rglru_work(B, S, C)
@@ -1605,6 +1718,16 @@ def check_ssd_prefill(xh, dA, Bm, Cm, chunk: int) -> dict:
                 tc_bound_ms=tc_bound, max_abs_err=max(ey["abs"], ef["abs"]),
                 tolerance=K8_ROW_TOL, row_rel_err=max(ey["row"], ef["row"]),
                 route=path, passes_us=passes)
+
+
+def device_kernels(prof) -> list:
+    """The name of every kernel a ``torch.profiler`` run recorded on the
+    card, once per launch. The profiler may miss launches (a CUDA-only
+    run after a CPU and CUDA one has recorded none), so a count read here
+    bounds from below."""
+    return [e.key for e in prof.key_averages()
+            if "CUDA" in str(getattr(e, "device_type", None))
+            for _ in range(e.count)]
 
 
 def kernel_times_us(fn, calls: int) -> dict:
@@ -1890,6 +2013,73 @@ def log_prefill_profile(cfg, params, device) -> None:
         f"{prof['kernels']} kernels; top device time (us; {CARD}):")
     for t, key, n in prof["top"]:
         log(f"    {t:12.1f}  x{n:<5d} {key[:80]}")
+    if "rglru" in cfg.layer_kinds:
+        log_rglru_block(cfg, params, device)
+
+
+def rglru_block_split(cfg, params, tokens) -> dict:
+    """Device ms of the first RG-LRU layer's block (``blocks.apply_rglru``,
+    uncompressed) on its own input, and of its parts on the same tensors:
+    the gate passes (``blocks._rglru_gates`` on the conv output), K7 on
+    their (a, b), and the GEMMs (x w_x, x w_y, the output projection);
+    the rest (the conv, gelu, h y, casts) is the block less those. CUDA
+    events with the host queued ahead (``cuda_ms``); the gate passes'
+    kernel count from the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops
+    from repro_torch.models import blocks as MB
+    from repro_torch.models import layers as ML
+    _, p, x, _ = layer_input(cfg, params, tokens, "rglru")
+    with torch.no_grad():
+        xin = ML.apply_norm(cfg.norm, p["mix_norm"], x)
+        rp = p["rglru"]
+        w_x, w_y, w_out = (ML.getw(rp, n, xin.dtype).to(xin.dtype)
+                           for n in ("w_x", "w_y", "w_out"))
+        u, _ = ML.causal_conv1d(torch.einsum("bsd,dw->bsw", xin, w_x),
+                                rp["conv_w"], None)
+        a, b = MB._rglru_gates(rp, u)
+
+        def gemms():
+            torch.einsum("bsd,dw->bsw", xin, w_x)
+            torch.einsum("bsd,dw->bsw", xin, w_y)
+            torch.einsum("bsw,wd->bsd", u, w_out)
+
+        out = {"block": cuda_ms(lambda: MB.apply_rglru(rp, xin, cfg), 5, 1),
+               "gates": cuda_ms(lambda: MB._rglru_gates(rp, u), 5, 1),
+               "k7": cuda_ms(lambda: ops.rglru_scan(a, b), 5, 1),
+               "gemms": cuda_ms(gemms, 5, 1)}
+        out = {k: v[0] for k, v in out.items()}
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            MB._rglru_gates(rp, u)
+            torch.cuda.synchronize()
+        out["gate_kernels"] = len(device_kernels(prof))
+    out["rest"] = out["block"] - out["gates"] - out["k7"] - out["gemms"]
+    out["shape"] = list(u.shape)
+    return out
+
+
+def log_rglru_block(cfg, params, device) -> None:
+    """``rglru_block_split`` over ``PREFILL_SEQ`` seeded tokens, logged
+    with what fusing the gates into K7 could at most save: the gates and
+    K7 now against one pass that reads u (its dtype) and writes h (f32)
+    at the bytes bound."""
+    import torch
+    r = rglru_block_split(cfg, params, prefill_tokens(cfg, 1, PREFILL_SEQ,
+                                                      0, device))
+    B, S, C = r["shape"]
+    fused, _ = bound_ms(
+        B * S * C * (getattr(torch, cfg.compute_dtype).itemsize + 4), 0.0)
+    log(f"  RG-LRU block (layer 0, {tuple(r['shape'])}; device ms, CUDA "
+        f"events; {CARD}): block {r['block']:.3f} = gate passes "
+        f"{r['gates']:.3f} ({r['gate_kernels']} kernels) + K7 "
+        f"{r['k7']:.3f} + GEMMs {r['gemms']:.3f} + rest {r['rest']:.3f}; "
+        f"the gates fused into K7 would read u and write h once: bound "
+        f"{fused:.3f} ms against {r['gates'] + r['k7']:.3f} now, at most "
+        f"{r['gates'] + r['k7'] - fused:.3f} ms a layer, "
+        f"{(r['gates'] + r['k7'] - fused) * cfg.layer_kinds.count('rglru'):.1f}"
+        f" ms a forward")
 
 
 def check_decode_consistency(cfg, device, steps: int = 16,
@@ -2076,6 +2266,8 @@ def main() -> int:
     k6_4096 = check_flash_attention(device)
     k8_4096 = check_ssd_scan(device)
     k7_4096 = check_rglru_scan(device)
+    check_rglru_waves(device)
+    check_rglru_back_to_back(device)
     for name, r in results.items():
         lib_ms = r["library_ms"]
         log(f"  {name} {r['shape']}: {r['ms'] * 1e3:.2f} us kernel "

@@ -51,7 +51,8 @@ _SIGNATURES = {
                  "ssd_scan_tc_launch":
                  [_P] * 4 + [ctypes.POINTER(ctypes.c_longlong)] + [_P] * 6
                  + [_I] * 6 + [_P]},
-    "rglru_scan": {"rglru_scan_launch": [_P] * 7 + [_I] * 5 + [_P]},
+    "rglru_scan": {"rglru_scan_launch": [_P] * 6 + [_I] * 5
+                   + [ctypes.c_uint, _I, _P]},
 }
 
 # Kernel launches per wrapper, counted where each wrapper launches its

@@ -27,12 +27,17 @@ carried over 16 chunks), and there each (token, head) row within 2^-10
 relative of the sequential one (``chip_smoke.py``'s ``K8_ROW_TOL``); K7
 (RG-LRU scan) exact against the sequential plain version where S fits one
 chunk (the same correctly rounded multiply and add per step), and where
-the carry pass runs at the JAX tests' atol 2e-5 (the carried state is
-rounded in another order), at the path's slow decay (a in [0.9487,
-0.9995]) each (token, 256-channel block) row within 2^-12 relative
-(``chip_smoke.py``'s ``K7_ROW_TOL``), in bf16 within one bf16 rounding
-(2^-8 relative) of the f32 plain version.
+the state is carried between chunks at the JAX tests' atol 2e-5 (the
+carried state is rounded in another order), at the path's slow decay (a
+in [0.9487, 0.9995]) each (token, 256-channel block) row within 2^-12
+relative (``chip_smoke.py``'s ``K7_ROW_TOL``), in bf16 within one bf16
+rounding (2^-8 relative) of the f32 plain version; and everywhere bit for
+bit equal to the former three-launch kernel at the same chunk
+(``tools/k7_three_pass.cu``: the same steps in the same order).
 """
+import pathlib
+import sys
+
 import numpy as np
 import pytest
 
@@ -728,9 +733,18 @@ def test_gpu_ssd_scan_refuses_bad_operands(cuda):
 
 # --- K7: RG-LRU scan ----------------------------------------------------------
 # The JAX tests' shapes (a in [0.4, 0.99]), at the default chunk of 128
-# (one chunk: no carry) and at chunk 16 (the carry pass runs), and a ragged
-# S and C.
-LRU_SHAPES = [(2, 64, 96), (1, 128, 32), (3, 48, 256), (2, 1000, 2600)]
+# (one chunk: no carry) and at chunk 16 (the state is carried between
+# chunks), a ragged S and C, and a C off 16 bytes (the scalar copy).
+LRU_SHAPES = [(2, 64, 96), (1, 128, 32), (3, 48, 256), (2, 1000, 2600),
+              (2, 200, 99)]
+
+
+def _three_pass(a, b, h0=None, chunk=128):
+    """The former three-launch K7, built from ``tools/k7_three_pass.cu``
+    (``chip_smoke.k7_three_pass``)."""
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    return chip_smoke.k7_three_pass(a, b, h0, chunk)
 
 
 def _lru_inputs(seed, B, S, C, lo, hi, cuda, dtype=torch.float32):
@@ -752,6 +766,7 @@ def test_gpu_rglru_scan(cuda, B, S, C, chunk):
     if S <= chunk:
         assert torch.equal(got, want)
     torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
+    assert torch.equal(got, _three_pass(a, b, chunk=chunk))
 
 
 @pytest.mark.gpu
@@ -763,6 +778,7 @@ def test_gpu_rglru_scan_initial_state(cuda, chunk):
     want = ref.rglru_scan_ref(a, b, h0)
     torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
     assert float((got - ref.rglru_scan_ref(a, b)).abs().max()) > 1e-3
+    assert torch.equal(got, _three_pass(a, b, h0, chunk))
 
 
 def _block_row_rel(got, want, block=256):
@@ -790,6 +806,59 @@ def test_gpu_rglru_scan_slow_decay_carries_the_state(cuda):
     want = ref.rglru_scan_ref(a, b)
     assert _block_row_rel(got, want) <= 2.0 ** -12
     torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
+    assert torch.equal(got, _three_pass(a, b))
+
+
+def _path_decays(seed, S, C):
+    rng = np.random.default_rng(seed)
+    a = np.tile(np.sqrt(np.linspace(0.9, 0.999, C, dtype=np.float32)),
+                (1, S, 1))
+    b = (np.sqrt(1 - a * a) * 0.5
+         * rng.standard_normal((1, S, C))).astype(np.float32)
+    return a, b
+
+
+@pytest.mark.gpu
+def test_gpu_rglru_scan_many_waves(cuda):
+    """(1, 65536, 256) at chunk 16: 32,768 tiles, far more than the card
+    holds at once, so chunks wait on chunks that blocks of earlier waves
+    published; at the path's decays."""
+    a, b = (torch.from_numpy(t).to(cuda) for t in _path_decays(7, 65536,
+                                                                256))
+    got = rglru_scan(a, b, chunk=16)
+    want = ref.rglru_scan_ref(a, b)
+    assert _block_row_rel(got, want) <= 2.0 ** -12
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
+    assert torch.equal(got, _three_pass(a, b, chunk=16))
+
+
+@pytest.mark.gpu
+def test_gpu_rglru_scan_back_to_back_is_one_kernel_each(cuda):
+    """Two calls on one stream with no sync between them, on other
+    inputs: the second takes none of the first's state words (a new
+    epoch) and finds the ticket back at zero; each call is one kernel
+    (no memset beside it)."""
+    from torch.profiler import ProfilerActivity, profile
+    a1, b1 = (torch.from_numpy(t).to(cuda) for t in _path_decays(8, 4096,
+                                                                  2560))
+    a2, b2 = _lru_inputs(9, 1, 4096, 2560, 0.4, 0.99, cuda)
+    rglru_scan(a1, b1)
+    torch.cuda.synchronize()
+    before = build.LAUNCHES["rglru_scan"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        h1 = rglru_scan(a1, b1)
+        h2 = rglru_scan(a2, b2)
+        torch.cuda.synchronize()
+    assert build.LAUNCHES["rglru_scan"] == before + 2
+    kernels = [e.key for e in prof.key_averages()
+               if "CUDA" in str(getattr(e, "device_type", None))
+               for _ in range(e.count)]
+    assert len(kernels) <= 2 and all("lru_chained" in k
+                                     for k in kernels), kernels
+    for a, b, h in ((a1, b1, h1), (a2, b2, h2)):
+        want = ref.rglru_scan_ref(a, b)
+        assert _block_row_rel(h, want) <= 2.0 ** -12
+        assert torch.equal(h, _three_pass(a, b))
 
 
 @pytest.mark.gpu
@@ -801,6 +870,7 @@ def test_gpu_rglru_scan_bf16(cuda, chunk):
     want = ref.rglru_scan_ref(a.float(), b.float())
     err = (got.float() - want).abs()
     assert bool((err <= 2.0 ** -8 * want.abs() + 2e-5).all())
+    assert torch.equal(got, _three_pass(a, b, chunk=chunk))
 
 
 @pytest.mark.gpu
@@ -842,4 +912,6 @@ def test_gpu_rglru_scan_refuses_bad_operands(cuda):
                                      dtype=torch.bfloat16))
     with pytest.raises(ValueError, match="chunk"):
         rglru_scan(a, b, chunk=0)
+    with pytest.raises(ValueError, match="chunk 4096 needs"):
+        rglru_scan(a, b, chunk=4096)
     assert build.LAUNCHES["rglru_scan"] == before

@@ -46,6 +46,7 @@ from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.mlp_fused import mlp3, polyak_leaves  # noqa: E402
 from repro_torch.kernels.flash_attention import HEAD_DIMS  # noqa: E402
 from repro_torch.kernels.quant_matmul import quant_matmul  # noqa: E402
+from repro_torch.kernels import rglru_scan as trg  # noqa: E402
 from repro_torch.kernels.rglru_scan import rglru_scan  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels.ssd_scan import (check_tma_terms,  # noqa: E402
@@ -163,6 +164,78 @@ def test_fake_quant_plan_covers_the_tensor(R, C, itemsize):
     assert p.fused == (p.n_slabs == 1)
     if R >= 32768 and C >= 896:
         assert p.n_ctiles * p.n_slabs >= 2 * tfq.SMS
+
+
+@pytest.mark.parametrize("B,S,C,chunk,itemsize", [
+    (1, 32768, 2560, 128, 4), (1, 4096, 2560, 128, 4),
+    (1, 65536, 256, 16, 4), (2, 1000, 2600, 16, 4), (3, 48, 99, 128, 2),
+    (2, 300, 200, 32, 2), (1, 1, 1, 1, 4), (1, 4096, 2560, 256, 4),
+    (1, 4096, 2560, 256, 2)])
+def test_rglru_scan_plan_covers_the_scan(B, S, C, chunk, itemsize):
+    """K7's one launch: the chunks cover every token once (a short last
+    chunk included), the slabs every channel (a ragged last slab
+    included), one block per (chunk, batch row, slab), a tile's a and b
+    within a block's shared memory, one state word per (chunk but the
+    last, batch row, channel); at the recurrentgemma-2b prefill 5,120
+    tiles of 128 KB and 652,800 words (5.2 MB, against the three-pass
+    kernel's 3 x B x NC x C floats)."""
+    p = trg.plan(B, S, C, chunk, itemsize)
+    assert p.slab % 32 == 0 and 32 <= p.slab <= trg.SLAB
+    assert p.slab == trg.SLAB or 2 * chunk * (p.slab + 32) * itemsize \
+        > trg.SMEM_BYTES
+    assert (p.n_chunks - 1) * chunk < S <= p.n_chunks * chunk
+    assert (p.n_slabs - 1) * p.slab < C <= p.n_slabs * p.slab
+    assert p.tiles == p.n_chunks * B * p.n_slabs <= trg.MAX_TILES
+    assert p.smem_bytes == 2 * chunk * p.slab * itemsize <= trg.SMEM_BYTES
+    assert p.state_words == (p.n_chunks - 1) * B * C
+    if (B, S, C) == (1, 32768, 2560):
+        assert (p.tiles, p.smem_bytes, p.state_words) == (5120, 131072,
+                                                          652800)
+        assert 8 * p.state_words < 3 * 4 * B * p.n_chunks * C
+    src = (build.CSRC / "rglru_scan.cu").read_text()
+    assert "#define LRU_MAX_THREADS 256" in src and p.slab <= 256
+
+
+def test_rglru_scan_plan_refuses_what_does_not_fit():
+    """Slabs narrow (by 32 channels) to fit a longer chunk, down to 32;
+    past that, or past the grid, the plan raises."""
+    with pytest.raises(ValueError, match="chunk 0 < 1"):
+        trg.plan(1, 64, 32, 0, 4)
+    assert trg.plan(1, 4096, 2560, 226, 4).slab == 128
+    assert trg.plan(1, 4096, 2560, 227, 4).slab == 96
+    biggest = trg.SMEM_BYTES // (2 * 32 * 4)
+    assert trg.plan(1, 4096, 2560, biggest, 4).slab == 32
+    with pytest.raises(ValueError, match=f"chunk {biggest + 1} needs"):
+        trg.plan(1, 4096, 2560, biggest + 1, 4)
+    with pytest.raises(ValueError, match="tiles"):
+        trg.plan(64, 2 ** 20, 2 ** 16, 1, 4)
+
+
+def test_rglru_scan_workspace_takes_a_new_epoch_per_call():
+    """The state words and the ticket are zeroed once, when the
+    workspace is made or grown; every call then takes a new epoch, so no
+    call needs a memset. One workspace per (device, stream)."""
+    dev, key = torch.device("cpu"), (None, -1)
+    trg._WORK.pop(key, None)
+    try:
+        w1, e1 = trg._workspace(dev, -1, 10)
+        w2, e2 = trg._workspace(dev, -1, 4)
+        assert w2 is w1 and (e1, e2) == (1, 2) and w1.numel() == 11
+        assert not w1.any()
+        w1[3] = (2 << 32) | 5
+        w3, e3 = trg._workspace(dev, -1, 30)
+        assert w3 is not w1 and e3 == 1 and w3.numel() == 31
+        assert not w3.any()
+        w4, e4 = trg._workspace(dev, -1, 31)
+        assert w4.numel() == 62 and e4 == 1
+        trg._WORK[key][1] = 2 ** 32 - 1
+        w5, e5 = trg._workspace(dev, -1, 2)
+        assert e5 == 1 and w5 is not w4 and not w5.any()
+        w6, e6 = trg._workspace(dev, -2, 2)
+        assert w6 is not w5 and e6 == 1
+    finally:
+        trg._WORK.pop(key, None)
+        trg._WORK.pop((None, -2), None)
 
 
 def test_fake_quant_vector_path_needs_aligned_rows():

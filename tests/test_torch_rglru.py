@@ -518,6 +518,21 @@ def test_chip_smoke_checks_k7_and_k6_on_the_paths_inputs(monkeypatch):
     assert calls == chip_smoke.k1_calls(cfg, cspec, 3)
 
 
+def test_chip_smoke_k7_wave_and_back_to_back_checks_on_cpu():
+    """``chip_smoke.py``'s many-wave and back-to-back K7 checks at small
+    shapes on the CPU (the plain versions' rehearsal: nothing launches),
+    and the C off 16 bytes among its cases."""
+    chip_smoke = _chip_smoke()
+    build.reset_launches()
+    chip_smoke.check_rglru_waves("cpu", (1, 600, 64), 8)
+    chip_smoke.check_rglru_back_to_back("cpu", (1, 300, 64))
+    assert ((2, 200, 99), (0.4, 0.99), False) in chip_smoke.RGLRU_CASES
+    chip_smoke.check_rglru_scan("cpu", (((2, 200, 99), (0.4, 0.99),
+                                         False),))
+    assert chip_smoke.RGLRU_WAVES == ((1, 65536, 256), 16)
+    assert sum(build.LAUNCHES.values()) == 0
+
+
 def _two_pass(a, b, L, drop=None):
     """The two-pass chunked order of K7 on the CPU, f32: chunk-local
     walks from zero (end state and product of a), the carry pass, then
