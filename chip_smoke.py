@@ -12,8 +12,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ``src/repro_torch/kernels/csrc``, one nvcc
    per source, all at once, and prints nvcc's registers / shared memory
    per kernel. ``cuobjdump -sass`` of K6's and K8's libraries must show
-   tensor-core products (``HGMMA``) and TMA loads (``UTMALDG``): their
-   counts are printed, and 0 of either fails.
+   tensor-core products (``HGMMA``) and TMA loads (``UTMALDG``), and of
+   K4/K5's library integer ones (``IGMMA``) and TMA loads: their counts
+   are printed, and 0 of either fails.
 3. Kernels: each kernel against its plain PyTorch version on the card at
    the shapes its path gives it, with its tolerance, and timed with CUDA
    events (kernel, plain version, one library call where one computes
@@ -34,7 +35,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
    target networks in one launch, read in place (and leaves that start
    off 16 bytes), exact; its line times the whole update beside ``torch._foreach_lerp`` over the same
    leaves (its library call) and ``torch.lerp`` on one flat buffer of
-   the same size. K4/K5 also: the asymmetric
+   the same size. K4/K5 at the calibration's and the testbed's shapes
+   and at granite-3-8b's MLP (M 32 and 4,096), each on the tensor-core
+   route (``quant_matmul_tc`` counts it; the JAX tests' ragged shapes on
+   the CUDA-core route), timed beside the CUDA-core kernel at the same
+   shape (through its launch symbol); also the asymmetric
    zero-point case with its SUBTRACT-convention canary, a padded K with
    ``k_true``, and ``torch._int_mm`` on the same codes as a yardstick for
    the int8 product alone. K6 against the dense ``attention_ref`` at the
@@ -51,7 +56,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
 5. Calibration path: ``repro_torch.launch.calibrate.run`` at full width
    (unit, kernel and whole-model deploy-path timings, the fitted table,
    the int8/int4 demo rows), launch counts reset before and read after;
-   K4 and K5 must have launched and every time must be finite.
+   K4 and K5 must have launched, all on the tensor-core route, and every
+   time must be finite.
 6. Measured search: a pq ``CompressionSearch`` with
    ``oracle_mode="measured"`` on the fitted table; its top-K rows
    (predicted vs measured ratio) must be finite and its reference
@@ -587,11 +593,19 @@ def check_polyak(shapes, tau, device) -> dict:
     return out
 
 
+# granite-3-8b's MLP at full width (configs/granite_3_8b.py: d 4,096,
+# SwiGLU d_ff 12,800; up and gate folded into n 25,600 as
+# core/measure.py::_unit_dims charges them) at 32 tokens (decode-like:
+# bound by streaming the weights) and 4,096 (bound by the int8 products)
+GRANITE_MLP = ((32, 4096, 25600), (4096, 4096, 25600))
+
+
 def quant_matmul_shapes(cfg) -> tuple:
     """(M, K, N) of K4/K5's checks, as (timed, checked only): the
-    ``measure_kernel_rows`` shape and every unit (k, n) of the testbed at
-    the calibration's tokens; the JAX tests' ragged shapes and one odd
-    K."""
+    ``measure_kernel_rows`` shape, every unit (k, n) of the testbed at
+    the calibration's tokens and ``GRANITE_MLP``, all on the tensor-core
+    route; the JAX tests' ragged shapes and one odd K, on the CUDA-core
+    route."""
     from repro_torch.configs.testbed import VAL_SEQ
     from repro_torch.core.compress import lm_layer_specs
     from repro_torch.core.measure import _unit_dims
@@ -599,8 +613,24 @@ def quant_matmul_shapes(cfg) -> tuple:
     m = CALIB_SEQS * VAL_SEQ
     timed = [(256, 256, 256)] + [(m,) + _unit_dims(s)
                                  for s in lm_layer_specs(cfg)]
-    return (list(dict.fromkeys(timed)),
+    return (list(dict.fromkeys(timed + list(GRANITE_MLP))),
             [(33, 512, 257), (200, 300, 130), (64, 301, 96)])
+
+
+def quant_matmul_simt(args, packed: bool, K: int):
+    """K4/K5's CUDA-core kernel at any shape, through its launch symbol
+    (the parent of the tensor-core route, timed beside it)."""
+    import torch
+    from repro_torch.kernels import build
+    xq, wq = args[0], args[1]
+    M, N = xq.shape[0], wq.shape[1]
+    out = torch.empty((M, N), dtype=torch.float32, device=xq.device)
+    name = "quant_matmul_int4" if packed else "quant_matmul_int8"
+    err = getattr(build.lib("quant_matmul"), f"{name}_launch")(
+        *(t.data_ptr() for t in args), out.data_ptr(), M, N, K, K,
+        torch.cuda.current_stream(xq.device).cuda_stream)
+    build.check(err, f"{name} (CUDA-core route)")
+    return out
 
 
 def _rel(a, b) -> float:
@@ -611,14 +641,18 @@ def check_quant_matmul(cfg, device) -> dict:
     """K4 and K5 against their plain version on the card; tolerance: exact
     (int32 products are exact in both, and the epilogue is the same
     correctly rounded f32 steps in the same order). At every shape of
-    ``quant_matmul_shapes`` with k_true = K; then the asymmetric case
-    (x + 3, w − 1) with the SUBTRACT-convention canary, and a K padded
-    from 300 to 512 with k_true = 300. ``ops.quantized_matmul`` must stay
-    within the JAX tests' bounds of the f32 product (0.03 relative at
-    int8, 0.2 at int4)."""
+    ``quant_matmul_shapes`` with k_true = K, each call counted on the
+    route ``kernels.quant_matmul.route`` names (the timed shapes on the
+    tensor-core route, the ragged ones not); the timed shapes timed with
+    the plain version, ``torch._int_mm``, the CUDA-core kernel (the
+    parent) and the bound. Then the asymmetric case (x + 3, w − 1) with
+    the SUBTRACT-convention canary, and a K padded from 300 to 512 with
+    k_true = 300, both on the tensor-core route. ``ops.quantized_matmul``
+    must stay within the JAX tests' bounds of the f32 product (0.03
+    relative at int8, 0.2 at int4)."""
     import torch
-    from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.quant_matmul import quant_matmul
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels.quant_matmul import plan, quant_matmul
     gen = torch.Generator(device=device).manual_seed(4)
     timed, ragged = quant_matmul_shapes(cfg)
     out = {}
@@ -629,35 +663,64 @@ def check_quant_matmul(cfg, device) -> dict:
             x = torch.randn((M, K), generator=gen, device=device)
             w = torch.randn((K, N), generator=gen, device=device)
             args, _ = ops.quantize_operands(x, w, bits)
+            tc0 = build.LAUNCHES["quant_matmul_tc"]
             got = quant_matmul(*args, packed=packed, k_true=K)
+            tc = build.LAUNCHES["quant_matmul_tc"] - tc0
             want = ref.quant_matmul_ref(*args, packed=packed, k_true=K)
             err = max(err, float((got - want).abs().max()))
+            del got, want
+            if err > 0.0:
+                raise AssertionError(f"{name} ({M}, {K}, {N}) disagrees with "
+                                     f"its plain version: max abs err {err}")
             rel = _rel(ops.quantized_matmul(x, w, w_bits=bits), x @ w)
-            log(f"  {name} ({M}, {K}, {N}): max |kernel - plain| so far "
-                f"{err:.3g}; |quantized - f32| / |f32| = {rel:.4f}")
+            big = (M, K, N) in GRANITE_MLP
+            log(f"  {name} ({M}, {K}, {N}), route {'tc' if tc else 'simt'}"
+                f": max |kernel - plain| so far {err:.3g}; |quantized - f32|"
+                f" / |f32| = {rel:.4f}")
             if rel > (0.2 if packed else 0.03):
                 raise AssertionError(f"{name} ({M}, {K}, {N}): quantized "
                                      f"product off the f32 one by {rel}")
+            if tc != ((M, K, N) in timed):
+                raise AssertionError(f"{name} ({M}, {K}, {N}) took the "
+                                     f"{'tensor' if tc else 'CUDA'}-core "
+                                     f"route")
+            del x, w
             if (M, K, N) not in timed:
                 continue
+            iters = (5, 1) if big else (50, 5)
             ms, paced = cuda_ms(lambda: quant_matmul(*args, packed=packed,
-                                                     k_true=K))
+                                                     k_true=K), *iters)
+            parent, _ = cuda_ms(lambda: quant_matmul_simt(args, packed, K),
+                                *((2, 1) if big else iters))
             plain, _ = cuda_ms(lambda: ref.quant_matmul_ref(
-                *args, packed=packed, k_true=K))
+                *args, packed=packed, k_true=K), *iters)
             codes = ref.unpack_int4_ref(args[1]) if packed else args[1]
-            int_mm, _ = cuda_ms(lambda: torch._int_mm(args[0], codes))
+            int_mm, _ = cuda_ms(lambda: torch._int_mm(args[0], codes),
+                                *iters)
+            del codes
             n_bytes = (M * K + (K * N // 2 if packed else K * N)
                        + 4 * M * N + 8 * (M + N))
             bound, by = bound_ms(n_bytes, 2.0 * M * N * K, INT8_OPS)
+            p = plan(M, K, N, packed)
             row = dict(shape=[M, K, N], ms=ms, paced_ms=paced, plain_ms=plain,
-                       int_mm_ms=int_mm, bound_ms=bound, bound_by=by)
-            log(f"    {[M, K, N]}: {ms * 1e3:.2f} us kernel, {plain * 1e3:.2f}"
-                f" us plain, {int_mm * 1e3:.2f} us torch._int_mm (the int8 "
-                f"product alone), bound {bound * 1e3:.3f} us ({by})")
+                       int_mm_ms=int_mm, parent_ms=parent, bound_ms=bound,
+                       bound_by=by, split=p.split, stages=p.stages)
+            log(f"    {[M, K, N]}: {ms * 1e3:.2f} us kernel (tc, split "
+                f"{p.split}, {p.stages} stages), {parent * 1e3:.2f} us the "
+                f"CUDA-core kernel, {plain * 1e3:.2f} us plain, "
+                f"{int_mm * 1e3:.2f} us torch._int_mm (the int8 product "
+                f"alone), bound {bound * 1e3:.3f} us ({by}); {CARD}")
+            if not ms < parent:
+                raise AssertionError(f"{name} {[M, K, N]}: the tensor-core "
+                                     f"route ({ms * 1e3:.2f} us) is not "
+                                     f"faster than the CUDA-core kernel "
+                                     f"({parent * 1e3:.2f} us)")
             if (M, K, N) == (256, 256, 256):
                 res.update(row)
             else:
                 units.append(row)
+            del args
+            torch.cuda.empty_cache()
         res.update(units=units, library_ms=None)
 
         # asymmetric zero points: large correction terms, so a sign slip
@@ -665,7 +728,11 @@ def check_quant_matmul(cfg, device) -> dict:
         x = torch.randn((64, 128), generator=gen, device=device) + 3.0
         w = torch.randn((128, 96), generator=gen, device=device) - 1.0
         (xq, wq, sx, zx, sw, zw), _ = ops.quantize_operands(x, w, bits)
+        tc0 = build.LAUNCHES["quant_matmul_tc"]
         got = quant_matmul(xq, wq, sx, zx, sw, zw, packed=packed)
+        if build.LAUNCHES["quant_matmul_tc"] != tc0 + 1:
+            raise AssertionError(f"{name}: the asymmetric case did not take "
+                                 f"the tensor-core route")
         err = max(err, float((got - ref.quant_matmul_ref(
             xq, wq, sx, zx, sw, zw, packed=packed)).abs().max()))
         codes = ref.unpack_int4_ref(wq) if packed else wq
@@ -690,8 +757,12 @@ def check_quant_matmul(cfg, device) -> dict:
         wq_p = torch.zeros((512, 64), dtype=torch.int8, device=device)
         wq_p[:300] = codes
         wq_p = ref.pack_int4(wq_p) if packed else wq_p
+        tc0 = build.LAUNCHES["quant_matmul_tc"]
         got = quant_matmul(xq_p, wq_p, sx, zx, sw, zw, packed=packed,
                            k_true=300)
+        if build.LAUNCHES["quant_matmul_tc"] != tc0 + 1:
+            raise AssertionError(f"{name}: the k_true case did not take "
+                                 f"the tensor-core route")
         err = max(err, float((got - ref.quant_matmul_ref(
             xq_p, wq_p, sx, zx, sw, zw, packed=packed, k_true=300)
         ).abs().max()))
@@ -2242,9 +2313,10 @@ def main() -> int:
     for name, r in sorted(report.items()):
         for row in r["ptxas"]:
             log(f"  {name}: {row}")
-    for name in ("flash_attention", "ssd_scan"):
-        sass = sass_counts(name)
-        log(f"  {name} SASS (cuobjdump -sass): {sass['HGMMA']} HGMMA "
+    for name, mma in (("flash_attention", "HGMMA"), ("ssd_scan", "HGMMA"),
+                      ("quant_matmul", "IGMMA")):
+        sass = sass_counts(name, (mma, "UTMALDG"))
+        log(f"  {name} SASS (cuobjdump -sass): {sass[mma]} {mma} "
             f"(wgmma), {sass['UTMALDG']} UTMALDG (TMA loads)")
         if not all(sass.values()):
             raise AssertionError(f"{name}'s tensor-core route compiled to "
@@ -2331,6 +2403,10 @@ def main() -> int:
     if missing:
         raise AssertionError(f"kernels never launched on the calibration "
                              f"path: {missing}")
+    if calib_launches["quant_matmul_tc"] != sum(
+            calib_launches[k] for k in CALIBRATION_KERNELS):
+        raise AssertionError(f"K4/K5 left the tensor-core route on the "
+                             f"calibration path: {calib_launches}")
     launches.update({k: calib_launches[k] for k in CALIBRATION_KERNELS})
 
     m_eps, m_warm = 8, 4

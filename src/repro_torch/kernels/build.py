@@ -38,7 +38,8 @@ _SIGNATURES = {
                [ctypes.POINTER(ctypes.c_longlong)] * 4
                + [_I, ctypes.c_float, ctypes.c_float, _P]},
     "quant_matmul": {"quant_matmul_int8_launch": [_P] * 7 + [_I] * 4 + [_P],
-                     "quant_matmul_int4_launch": [_P] * 7 + [_I] * 4 + [_P]},
+                     "quant_matmul_int4_launch": [_P] * 7 + [_I] * 4 + [_P],
+                     "quant_matmul_tc_launch": [_P] * 7 + [_I] * 7 + [_P]},
     "flash_attention": {"flash_attention_launch":
                         [_P] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
                         + [_I] * 6 + [ctypes.c_float, _I, _I, _P],
@@ -58,12 +59,15 @@ _SIGNATURES = {
 # Kernel launches per wrapper, counted where each wrapper launches its
 # kernel (never for the plain version on a CPU tensor).
 # "flash_attention" counts every K6 launch, "flash_attention_tc" those of
-# its tensor-core route; "ssd_scan" and "ssd_scan_tc" likewise for K8.
+# its tensor-core route; "ssd_scan" and "ssd_scan_tc" likewise for K8;
+# "quant_matmul_int8" / "_int4" count every K4 / K5 launch and
+# "quant_matmul_tc" those of either on its tensor-core route.
 # "polyak" counts K3 launches, each over all the leaves it is given.
 LAUNCHES = {"fake_quant": 0, "mlp3": 0, "polyak": 0,
             "quant_matmul_int8": 0, "quant_matmul_int4": 0,
-            "flash_attention": 0, "flash_attention_tc": 0, "ssd_scan": 0,
-            "ssd_scan_tc": 0, "rglru_scan": 0}
+            "quant_matmul_tc": 0, "flash_attention": 0,
+            "flash_attention_tc": 0, "ssd_scan": 0, "ssd_scan_tc": 0,
+            "rglru_scan": 0}
 
 _libs: dict = {}
 build_report: dict = {}     # name -> {"seconds", "ptxas"} of the last build

@@ -52,6 +52,7 @@ from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels.mlp_fused import mlp3, polyak_leaves  # noqa: E402
 from repro_torch.kernels.quant_matmul import quant_matmul  # noqa: E402
+from repro_torch.kernels.quant_matmul import route as qm_route  # noqa: E402
 from repro_torch.kernels.rglru_scan import rglru_scan  # noqa: E402
 from repro_torch.kernels.ssd_scan import route as ssd_route  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
@@ -301,10 +302,14 @@ def test_gpu_ddpg_step_launches_polyak_once(cuda):
 
 
 # the calibration's kernel shape, the testbed's unit shapes at 192 tokens,
-# the JAX tests' ragged shapes and an odd K
+# the JAX tests' ragged shapes and an odd K, granite-3-8b's MLP at 32 and
+# 4,096 tokens, ragged M and N on aligned strides, and a K that is neither
+# a multiple of the 128-code K tile nor of the cluster's split (33 tiles
+# over 8 blocks)
 QM_SHAPES = [(256, 256, 256), (192, 256, 512), (192, 256, 2048),
              (192, 1024, 256), (33, 512, 257), (200, 300, 130),
-             (64, 301, 96)]
+             (64, 301, 96), (32, 4096, 25600), (4096, 4096, 25600),
+             (200, 512, 144), (64, 4112, 256)]
 
 
 def _codes(x, w, packed):
@@ -316,15 +321,57 @@ def _codes(x, w, packed):
 @pytest.mark.parametrize("M,K,N", QM_SHAPES)
 @pytest.mark.parametrize("packed", [False, True])
 def test_gpu_quant_matmul_kernel_exact(cuda, M, K, N, packed):
+    """Bit-equal to the plain version, one launch on the route
+    ``quant_matmul.route`` names: the tensor-core route where K and N are
+    multiples of 16, the CUDA-core route at the ragged shapes."""
     x = torch.from_numpy(_normal(M, (M, K))).to(cuda)
     w = torch.from_numpy(_normal(N, (K, N))).to(cuda)
     args = _codes(x, w, packed)
+    tc = qm_route(M, args[0].shape[1], N, packed, args[0], args[1]) == "tc"
+    assert tc == (K % 16 == 0 and N % 16 == 0)
     name = "quant_matmul_int4" if packed else "quant_matmul_int8"
-    before = build.LAUNCHES[name]
+    before = dict(build.LAUNCHES)
     got = quant_matmul(*args, packed=packed, k_true=K)
-    assert build.LAUNCHES[name] == before + 1
+    assert build.LAUNCHES[name] == before[name] + 1
+    assert build.LAUNCHES["quant_matmul_tc"] == \
+        before["quant_matmul_tc"] + int(tc)
     assert torch.equal(got, ref.quant_matmul_ref(*args, packed=packed,
                                                  k_true=K))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("packed", [False, True])
+def test_gpu_quant_matmul_misaligned_views_take_the_cuda_core_route(
+        cuda, packed):
+    """Contiguous codes on a base off 16 bytes: TMA cannot read them, so
+    the CUDA-core route runs (never a copy), bit-equal all the same."""
+    M, K, N = 64, 256, 128
+    args = list(_codes(torch.from_numpy(_normal(60, (M, K))).to(cuda),
+                       torch.from_numpy(_normal(61, (K, N))).to(cuda),
+                       packed))
+    for i in (0, 1):
+        buf = torch.empty(args[i].numel() + 1, dtype=torch.int8,
+                          device=cuda)
+        view = buf[1:].view(args[i].shape)
+        view.copy_(args[i])
+        args[i] = view
+    assert qm_route(M, K, N, packed, args[0], args[1]) == "simt"
+    before = build.LAUNCHES["quant_matmul_tc"]
+    got = quant_matmul(*args, packed=packed, k_true=K)
+    assert build.LAUNCHES["quant_matmul_tc"] == before
+    assert torch.equal(got, ref.quant_matmul_ref(*args, packed=packed,
+                                                 k_true=K))
+
+
+@pytest.mark.gpu
+def test_gpu_quant_matmul_refuses_k_past_the_int32_accumulator(cuda):
+    """|acc| <= K * 2^14 stays below 2^31 only up to K = 131,071."""
+    K = 131_088
+    xq = torch.zeros((1, K), dtype=torch.int8, device=cuda)
+    wq = torch.zeros((K, 16), dtype=torch.int8, device=cuda)
+    ones = [torch.ones(n, device=cuda) for n in (1, 1, 16, 16)]
+    with pytest.raises(ValueError, match="overflow"):
+        quant_matmul(xq, wq, *ones)
 
 
 @pytest.mark.gpu
@@ -336,7 +383,9 @@ def test_gpu_quant_matmul_asymmetric(cuda, packed):
     x = torch.from_numpy(_normal(20, (64, 128)) + 3.0).to(cuda)
     w = torch.from_numpy(_normal(21, (128, 96)) - 1.0).to(cuda)
     xq, wq, sx, zx, sw, zw = _codes(x, w, packed)
+    before = build.LAUNCHES["quant_matmul_tc"]
     got = quant_matmul(xq, wq, sx, zx, sw, zw, packed=packed)
+    assert build.LAUNCHES["quant_matmul_tc"] == before + 1
     assert torch.equal(got, ref.quant_matmul_ref(xq, wq, sx, zx, sw, zw,
                                                  packed=packed))
     codes = ref.unpack_int4_ref(wq) if packed else wq
@@ -363,8 +412,10 @@ def test_gpu_quant_matmul_k_true(cuda, packed):
     wq_p = torch.zeros((512, 64), dtype=torch.int8, device=cuda)
     wq_p[:300] = wq
     wq_p = ref.pack_int4(wq_p) if packed else wq_p
+    before = build.LAUNCHES["quant_matmul_tc"]
     got = quant_matmul(xq_p, wq_p, sx, zx, sw, zw, packed=packed,
                        k_true=300)
+    assert build.LAUNCHES["quant_matmul_tc"] == before + 1
     assert torch.equal(got, ref.quant_matmul_ref(
         xq_p, wq_p, sx, zx, sw, zw, packed=packed, k_true=300))
     torch.testing.assert_close(got, truth, rtol=1e-3, atol=0.1)

@@ -45,6 +45,7 @@ from repro_torch.kernels.mlp_fused import mlp3_plan  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.mlp_fused import mlp3, polyak_leaves  # noqa: E402
 from repro_torch.kernels.flash_attention import HEAD_DIMS  # noqa: E402
+from repro_torch.kernels import quant_matmul as tqm  # noqa: E402
 from repro_torch.kernels.quant_matmul import quant_matmul  # noqa: E402
 from repro_torch.kernels import rglru_scan as trg  # noqa: E402
 from repro_torch.kernels.rglru_scan import rglru_scan  # noqa: E402
@@ -451,7 +452,8 @@ def test_wrappers_route_cpu_to_plain_without_launching():
                        rglru_scan_ref(a, bc[:, :, :4].expand(2, 8, 4), h0))
     assert build.LAUNCHES == {"fake_quant": 0, "mlp3": 0, "polyak": 0,
                               "quant_matmul_int8": 0,
-                              "quant_matmul_int4": 0, "flash_attention": 0,
+                              "quant_matmul_int4": 0, "quant_matmul_tc": 0,
+                              "flash_attention": 0,
                               "flash_attention_tc": 0, "ssd_scan": 0,
                               "ssd_scan_tc": 0, "rglru_scan": 0}
 
@@ -497,6 +499,97 @@ def test_kernel_sources_carry_their_notes():
         assert 'extern "C" int' in src, name
     assert "--use_fast_math" not in build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+
+
+# --------------------------------------------------------------------------
+# K4/K5's routes and the tensor-core route's plan
+# --------------------------------------------------------------------------
+
+# (M, K, N, packed, route): the calibration's 256³, the testbed's units at
+# 192 tokens, granite-3-8b's MLP, ragged M and N on aligned strides, a K
+# past a whole number of K tiles; the JAX tests' ragged N and K, an odd K
+# padded for int4 (302 codes) and an empty K on the CUDA-core route.
+QM_ROUTES = [
+    (256, 256, 256, False, "tc"), (256, 256, 256, True, "tc"),
+    (192, 256, 512, False, "tc"), (192, 256, 2048, True, "tc"),
+    (192, 1024, 256, False, "tc"), (32, 4096, 25600, True, "tc"),
+    (4096, 4096, 25600, False, "tc"), (200, 512, 144, False, "tc"),
+    (64, 4112, 256, True, "tc"), (33, 512, 257, False, "simt"),
+    (200, 300, 130, True, "simt"), (64, 301, 96, False, "simt"),
+    (64, 302, 96, True, "simt"), (8, 0, 16, False, "simt")]
+
+
+@pytest.mark.parametrize("M,K,N,packed,want", QM_ROUTES)
+def test_quant_matmul_route_is_chosen_by_shape(M, K, N, packed, want):
+    assert tqm.route(M, K, N, packed) == want
+
+
+def test_quant_matmul_route_takes_misaligned_views_to_the_cuda_cores():
+    """Contiguous codes whose base is off 16 bytes cannot feed TMA: the
+    CUDA-core route takes them (nothing is copied)."""
+    xq = torch.zeros(1 + 64 * 256, dtype=torch.int8)
+    wq = torch.zeros(1 + 256 * 128, dtype=torch.int8)
+    aligned = (xq[:64 * 256].view(64, 256), wq[:256 * 128].view(256, 128))
+    shifted = (xq[1:].view(64, 256), wq[1:].view(256, 128))
+    assert aligned[0].data_ptr() % 16 == 0
+    assert aligned[1].data_ptr() % 16 == 0
+    assert tqm.route(64, 256, 128, False, *aligned) == "tc"
+    assert tqm.route(64, 256, 128, False, shifted[0], aligned[1]) == "simt"
+    assert tqm.route(64, 256, 128, False, aligned[0], shifted[1]) == "simt"
+
+
+# (M, K, N, packed) -> (split, stages, blocks): splits only where the
+# tiles leave the card idle and a block saves >= SPLIT_COST K tiles; the
+# deepest load ring that fits where a block walks many K tiles.
+QM_PLANS = [
+    ((256, 256, 256, False), (1, 2, 4)),
+    ((192, 256, 512, True), (1, 2, 8)),
+    ((192, 256, 2048, False), (1, 2, 32)),
+    ((192, 1024, 256, False), (8, 2, 32)),
+    ((32, 4096, 25600, False), (1, 5, 200)),
+    ((32, 4096, 25600, True), (1, 6, 200)),
+    ((4096, 4096, 25600, False), (1, 5, 6400)),
+    ((4096, 4096, 25600, True), (1, 6, 6400)),
+    ((200, 512, 144, False), (4, 2, 16)),
+    ((64, 4112, 256, True), (8, 5, 16))]
+
+
+@pytest.mark.parametrize("shape,want", QM_PLANS)
+def test_quant_matmul_plan_at_the_path_shapes(shape, want):
+    p = tqm.plan(*shape)
+    assert (p.split, p.stages, p.blocks) == want
+    M, K, N, _ = shape
+    assert (p.tiles_m, p.tiles_n, p.k_tiles) == (
+        -(-M // 128), -(-N // 128), -(-K // 128))
+
+
+@pytest.mark.parametrize("M,N", [(1, 16), (32, 4096), (200, 144),
+                                 (1024, 1024), (4096, 25600)])
+@pytest.mark.parametrize("K", [16, 256, 1040, 4096, 16384, 131_056])
+def test_quant_matmul_plan_keeps_its_terms(M, K, N):
+    """Whatever the shape: a split in SPLITS, at most the K tiles (no
+    block without one) and only within one wave; the load ring within
+    2 .. MAX_STAGES; one block per (tile, split)."""
+    for packed in (False, True):
+        p = tqm.plan(M, K, N, packed)
+        assert p.split in tqm.SPLITS and p.split <= p.k_tiles
+        assert p.split == 1 or p.blocks <= tqm.SMS
+        assert 2 <= p.stages <= tqm.MAX_STAGES[packed]
+        assert p.blocks == p.tiles_m * p.tiles_n * p.split
+
+
+def test_quant_matmul_plan_refuses_k_past_the_int32_accumulator():
+    assert tqm.plan(1, tqm.MAX_K, 16).k_tiles == 1024
+    with pytest.raises(ValueError, match="overflow"):
+        tqm.plan(1, tqm.MAX_K + 16, 16)
+
+
+def test_quant_matmul_plan_refuses_splits_it_cannot_run():
+    assert tqm.plan(64, 1024, 256, split=8).split == 8
+    with pytest.raises(ValueError, match="split"):
+        tqm.plan(64, 1024, 256, split=3)
+    with pytest.raises(ValueError, match="split"):
+        tqm.plan(64, 256, 256, split=4)      # 2 K tiles
 
 
 # --------------------------------------------------------------------------
