@@ -30,7 +30,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
    (here and at each serving model's ``k1_calls``); it is timed at
    [3072, 256] (straight-through in the compute dtype, the search's
    call) and, per serving model, at its largest shape and its most
-   launched activation. K2 runs the actor and the critic at B 64 and
+   launched activation. K1 over 8 policy slots (``fake_quant_slots``)
+   runs exact at every (shape, bits vector) of the batched validation
+   under 8 seeded policies (two of them the reference: slots at 32),
+   per-slot activations and weights shared by the slots, f32 and bf16,
+   plain and straight-through; timed at [8, 3072, 256] and [8, 3072,
+   1024] bf16 straight-through beside 8 launches of the one-tensor
+   K1. K2 runs the actor and the critic at B 64 and
    128 (the critic timed at both). K3 updates the 12 leaves of both DDPG
    target networks in one launch, read in place (and leaves that start
    off 16 bytes), exact; its line times the whole update beside ``torch._foreach_lerp`` over the same
@@ -52,17 +58,31 @@ Phases, each fatal on failure (non-zero exit, no result line):
    DDPG updates. The launch counts are reset just before and read just
    after; K1-K3 must have launched, K3 exactly once per DDPG step. The
    best policy's validation is checked against the plain CPU path on a
-   small batch.
-5. Calibration path: ``repro_torch.launch.calibrate.run`` at full width
+   small batch. ``[time]``: an episode's host-clock split and the
+   device's busy share.
+5. Batched path: the pq ``BatchedCompressionSearch`` on the same model,
+   validation batch, seeds and sensitivity table, K 8 episodes per
+   batch, 16 episodes (warmup 4, 16 updates per live episode). Launch
+   counts are reset just before the episodes and read just after: K1
+   over slots exactly once per fake-quant site of each batched
+   validation (``k1_calls`` of the batch's batched cspec), the
+   one-tensor K1 never, K2 and K3 per DDPG step as in phase 4. Records
+   finite, in episode order, on the sigma schedule; K1 over slots exact
+   at every (shape, bits vector) the batches gave it; on a small batch
+   the last batch's forward through the kernel equals the plain version
+   in place (f32), each slot's f32 accuracy is within 3% of its scalar
+   engine's and its bf16 argmaxes agree with its scalar forward's on
+   >= 97%. Episodes/s beside phase 4's and the same ``[time]`` split.
+6. Calibration path: ``repro_torch.launch.calibrate.run`` at full width
    (unit, kernel and whole-model deploy-path timings, the fitted table,
    the int8/int4 demo rows), launch counts reset before and read after;
    K4 and K5 must have launched, all on the tensor-core route, and every
    time must be finite.
-6. Measured search: a pq ``CompressionSearch`` with
+7. Measured search: a pq ``CompressionSearch`` with
    ``oracle_mode="measured"`` on the fitted table; its top-K rows
    (predicted vs measured ratio) must be finite and its reference
    latency the calibrated oracle's.
-7. Prefill: ``make_prefill_step`` on qwen2-0.5b at full width (24
+8. Prefill: ``make_prefill_step`` on qwen2-0.5b at full width (24
    layers, d 896, vocab 151,936; seeded random weights) over 1 x 32,768
    seeded tokens, uncompressed and under a seeded pq policy. First K6 on
    one layer's q/k/v at that shape against the chunked plain branch
@@ -74,13 +94,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
    kernels and the oracle's predicted compressed/reference ratio beside
    the measured one. The whole prefill at the SMOKE widths and 1,100
    tokens (f32) must agree with the plain CPU path.
-8. Decode: ``decode_loop`` and ``sustained_throughput`` on the same
+9. Decode: ``decode_loop`` and ``sustained_throughput`` on the same
    model, batch 8, 64 steps, max_len 256, KV cache 16 and 8 bits, raw
    and under the policy; tok/s per variant, then one profiled 8-step
    decode each (device busy share, kernels per step). At the SMOKE
    widths (f32) the greedy tokens must be the prefill forward's
    argmaxes.
-9. Mamba-2 prefill: ``make_prefill_step`` on mamba2-780m at full width
+10. Mamba-2 prefill: ``make_prefill_step`` on mamba2-780m at full width
    (48 SSD layers, d 1536, d_inner 3072, 48 heads of 64, state 128,
    vocab 50,280; seeded random weights) over 1 x 32,768 tokens, raw and
    under a seeded pq policy (SSD heads pruned at ``ssm_in``). First K8
@@ -88,17 +108,17 @@ Phases, each fatal on failure (non-zero exit, no result line):
    plain branch (each (token, head) row within ``K8_ROW_TOL``, the final
    state within 2e-4), timed beside it and its bounds (f32 on the CUDA
    cores, split TF32 on the tensor cores), its route and its four
-   kernels' times (profiler); then, as in phase 7, a warm-up and one
+   kernels' times (profiler); then, as in phase 8, a warm-up and one
    timed forward each, with exactly 48 K8 launches, all 48 on the
    tensor-core route, and ``k1_calls``' count of K1 launches per
    forward. At the SMOKE
    widths (f32, 2 x 1,100 tokens, chunk 32: a ragged last chunk) the
    device forward's argmaxes equal the plain CPU path's.
-10. Mamba-2 decode: ``decode_loop`` and ``sustained_throughput``, batch 8,
+11. Mamba-2 decode: ``decode_loop`` and ``sustained_throughput``, batch 8,
    64 steps, the conv and state cache (no KV cache, so no int8 variant),
    raw and under the policy; one profiled 8-step decode each. At the
    SMOKE widths (f32) the greedy tokens are the prefill's argmaxes.
-11. RecurrentGemma prefill: ``make_prefill_step`` on recurrentgemma-2b at
+12. RecurrentGemma prefill: ``make_prefill_step`` on recurrentgemma-2b at
    full width (26 layers in a (rglru, rglru, attn) pattern: 18 RG-LRU
    layers of width 2,560 and 8 local-attention layers, 10 / 1 heads of
    256, window 2,048; d 2,560, GeGLU d_ff 7,680, vocab 256,000; seeded
@@ -110,19 +130,19 @@ Phases, each fatal on failure (non-zero exit, no result line):
    against the former three-launch kernel (``tools/k7_three_pass.cu``)
    at the same chunk, and K6 on layer 2's
    q/k/v (window 2,048) against the chunked plain branch and the dense
-   tail rows, each timed beside its bound; then, as in phase 7, a warm-up
+   tail rows, each timed beside its bound; then, as in phase 8, a warm-up
    and one timed forward each, with exactly 18 K7, 8 K6 (all 8 on the
    tensor-core route) and ``k1_calls``' count of K1 launches per
    forward; a profiled raw forward, with the device ms of layer 0's
    RG-LRU block split into its gate passes, K7, the GEMMs and the rest;
    the phase's peak device memory; at the SMOKE widths (f32, 2 x 1,100
    tokens) the device forward's argmaxes equal the plain CPU path's.
-12. RecurrentGemma decode: ``decode_loop`` and ``sustained_throughput``,
+13. RecurrentGemma decode: ``decode_loop`` and ``sustained_throughput``,
    batch 8, 64 steps, the RG-LRU state and the ring KV cache (16 and 8
    bits), raw and under the policy; one profiled 8-step decode each. At
    the SMOKE widths (f32, window 16) 24 greedy steps (the ring wraps) are
    the prefill's argmaxes.
-13. Lines before the last: the kernels as JSON, then ``nvidia-smi``'s name
+14. Lines before the last: the kernels as JSON, then ``nvidia-smi``'s name
    and power limit. Last line: ``{"ok": true, "device": {...}}``.
 
 K8 (SSD scan) joins phase 3: against the sequential ``ssd_scan_ref`` and
@@ -173,6 +193,9 @@ BF16_FLOPS = 989e12            # bf16 tensor cores, dense
 KERNELS = {
     "fake_quant": {"source": "src/repro_torch/kernels/csrc/fake_quant.cu",
                    "replaces": "src/repro/kernels/fake_quant.py:22"},
+    "fake_quant_slots": {
+        "source": "src/repro_torch/kernels/csrc/fake_quant.cu",
+        "replaces": "src/repro/kernels/fake_quant.py:22"},
     "mlp3": {"source": "src/repro_torch/kernels/csrc/mlp3.cu",
              "replaces": "src/repro/kernels/mlp_fused.py:32"},
     "polyak": {"source": "src/repro_torch/kernels/csrc/polyak.cu",
@@ -374,7 +397,10 @@ def k1_calls(cfg, cspec, rows: int) -> list:
     and gate too; an SSM layer's ``in_proj`` and ``out_proj`` once each;
     an RG-LRU layer's input once for ``w_x`` and ``w_y``, then its
     output projection), then the head weight (the tied embedding's
-    transpose). ``bits >= 32`` launches nothing."""
+    transpose). ``bits >= 32`` launches nothing. For a batched cspec of
+    K policies (``rows`` per policy) each entry's bits are the site's
+    K-tuple and the entries are K1's launches over the K slots: a site
+    launches once if any slot quantizes there."""
     from repro_torch.models.blocks import ssm_dims
     if cspec is None:
         return []
@@ -384,7 +410,8 @@ def k1_calls(cfg, cspec, rows: int) -> list:
     calls = []
 
     def add(shape, bits):
-        if bits is not None and bits < 32:
+        if bits is not None and min(
+                bits if isinstance(bits, tuple) else (bits,)) < 32:
             calls.append((shape, bits))
 
     def linear(qs, d_in, d_outs):
@@ -462,6 +489,112 @@ def check_fake_quant_path(cfg, cspec, rows: tuple, device) -> dict:
     if err > 0.0:
         raise AssertionError(f"fake_quant disagrees with its plain version "
                              f"at the path's shapes: max abs err {err}")
+    return out
+
+
+def check_fake_quant_slot_calls(cfg, cspec, rows: int, device) -> dict:
+    """K1 over the K policy slots of a batched ``cspec`` at every (shape,
+    bits vector) of ``k1_calls(cfg, cspec, rows)``: activations [K, rows,
+    d_in] (each slot its own values), weights [d_in, d_out] shared by
+    every slot (slot stride 0); in f32 and the path's dtype, plain and
+    straight-through; tolerance exact, against ``fake_quant_slots_ref``
+    (the plain version slot by slot)."""
+    import torch
+    from repro_torch.kernels.fake_quant import fake_quant_slots
+    from repro_torch.kernels.ref import fake_quant_slots_ref
+    K = cspec["slots"]
+    gen = torch.Generator(device=device).manual_seed(3)
+    pairs = sorted(set(k1_calls(cfg, cspec, rows)))
+    err = 0.0
+    for shape, bits in pairs:
+        act = shape[0] == rows
+        base = torch.randn((K,) + shape if act else shape, generator=gen,
+                           device=device)
+        for dtype in {torch.float32, k1_call_dtype(cfg, shape, rows)}:
+            x = base.to(dtype) if act else base.to(dtype).expand(K, *shape)
+            for ste in (False, True):
+                got = fake_quant_slots(x, bits, ste=ste)
+                want = fake_quant_slots_ref(x, bits, ste)
+                if got.dtype != dtype or got.shape != want.shape:
+                    raise AssertionError(f"fake_quant_slots returned "
+                                         f"{got.dtype} {tuple(got.shape)}")
+                err = max(err, float((got.float() - want.float())
+                                     .abs().max()))
+    if err > 0.0:
+        raise AssertionError(f"K1 over policy slots disagrees with its "
+                             f"plain version: max abs err {err}")
+    return {"pairs": len(pairs), "max_abs_err": err}
+
+
+def time_fake_quant_slots(x, bits, iters: int = 20) -> dict:
+    """K1 over K policy slots, straight-through, on x [K, R, C] (device and
+    host-paced ms), beside K launches of the one-tensor K1 on the same
+    slots (what the batched path would launch without the slot axis), the
+    plain version and the bound: each element read once and written once,
+    against 12 f32 operations an element."""
+    from repro_torch.kernels.fake_quant import fake_quant_2d, fake_quant_slots
+    from repro_torch.kernels.ref import fake_quant_slots_ref
+    ms, paced = cuda_ms(lambda: fake_quant_slots(x, bits, ste=True),
+                        iters, 3)
+    looped, looped_paced = cuda_ms(lambda: [
+        fake_quant_2d(x[k], b, ste=True) for k, b in enumerate(bits)],
+        iters, 3)
+    plain, _ = cuda_ms(lambda: fake_quant_slots_ref(x, bits, True),
+                       max(2, iters // 4), 1)
+    n = x.numel()
+    bound, by = bound_ms(2.0 * x.element_size() * n, 12.0 * n)
+    log(f"    {list(x.shape)} {str(x.dtype)[6:]} bits {list(bits)} "
+        f"straight-through: {ms * 1e3:.2f} us kernel ({paced * 1e3:.2f} "
+        f"paced), {len(bits)} one-tensor K1 launches {looped * 1e3:.2f} us "
+        f"({looped_paced * 1e3:.2f} paced), {plain * 1e3:.2f} us plain, "
+        f"bound {bound * 1e3:.3f} us ({by}); {CARD}")
+    return dict(shape=list(x.shape), ms=ms, paced_ms=paced, plain_ms=plain,
+                bound_ms=bound, bound_by=by)
+
+
+SLOTS = 8                   # policies per batch on the batched path
+
+
+def seeded_slot_cspec(cm, slots: int = SLOTS):
+    """The batched cspec of ``slots`` seeded pq policies (seeds 0..K-1)
+    with slots 2 and 5 the reference policy, so every site has slots at
+    32 beside quantized ones."""
+    from repro_torch.core.policy import Policy, stack_policies
+    pols = [Policy.reference(cm.specs) if k in (2, 5)
+            else seeded_policy(cm, k) for k in range(slots)]
+    pb = stack_policies(cm.specs, pols)
+    return cm.cspec_builder()(pb.keep, pb.w_bits, pb.a_bits)
+
+
+def check_fake_quant_slots(cfg, device) -> dict:
+    """K1 over 8 policy slots at every (shape, bits vector) of the
+    batched validation under 8 seeded testbed policies (two of them the
+    reference: slots at 32 at every site), f32 and bf16, plain and
+    straight-through, shared weights and per-slot activations; exact.
+    Timed at [8, 3072, 256] and [8, 3072, 1024] bf16 straight-through
+    (the batched path's activations; the row times the first, the one it
+    launches most), each beside 8 launches of the one-tensor K1."""
+    import torch
+    from repro_torch.configs.testbed import VAL_BATCH, VAL_SEQ
+    from repro_torch.core.compress import CompressibleLM
+    from repro_torch.models import model as M
+    rows = VAL_BATCH * VAL_SEQ
+    cm = CompressibleLM(cfg, M.init(cfg, seed=0, device=device))
+    out = check_fake_quant_slot_calls(cfg, seeded_slot_cspec(cm), rows,
+                                      device)
+    log(f"  fake_quant_slots: {out['pairs']} (shape, bits vector) sites of "
+        f"8 seeded policies, f32 and bf16, plain and straight-through: max "
+        f"|kernel - plain| {out['max_abs_err']:.3g} (tol 0)")
+    gen = torch.Generator(device=device).manual_seed(4)
+    bits = (2, 3, 4, 5, 6, 8, 4, 6)
+    dtype = getattr(torch, cfg.compute_dtype)
+    time_fake_quant_slots(torch.randn(
+        (SLOTS, rows, cfg.d_ff), generator=gen, device=device).to(dtype),
+        bits)
+    out.update(time_fake_quant_slots(torch.randn(
+        (SLOTS, rows, cfg.d_model), generator=gen, device=device).to(dtype),
+        bits, 50))
+    out.update(tolerance=0.0, library_ms=None)
     return out
 
 
@@ -1293,30 +1426,22 @@ def check_rglru_back_to_back(device, shape=(1, 4096, 2560)) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Phase 4: the main path
+# Phases 4 and 5: the main path, scalar and batched
 # ---------------------------------------------------------------------------
 
-def run_main_path(cfg, device, *, episodes: int, warmup: int, updates: int,
-                  batch_size: int, val_batch: int, val_seq: int,
-                  seed: int = 0, verbose: bool = True):
-    """Sensitivity + ``episodes`` of the pq search on ``cfg`` with seeded
-    random weights. Returns (search, history, sensitivity seconds, episode
-    seconds); the host clock brackets work that ends in a device sync."""
+def search_inputs(cfg, device, *, episodes: int, warmup: int,
+                  updates: int, batch_size: int, val_batch: int,
+                  val_seq: int, seed: int = 0):
+    """The main path's model (seeded random weights), validation batch
+    (seeded bigram tokens) and search config, shared by the scalar and
+    the batched engine's phases."""
     import torch
-    from repro_torch.configs.testbed import SERVE_CTX
     from repro_torch.core.compress import CompressibleLM
     from repro_torch.core.ddpg import DDPGConfig
     from repro_torch.core.reward import RewardConfig
-    from repro_torch.core.search import CompressionSearch, SearchConfig
-    from repro_torch.core.sensitivity import run_sensitivity
+    from repro_torch.core.search import SearchConfig
     from repro_torch.data.pipeline import make_bigram_table, sample_bigram
-    from repro_torch.kernels.build import LAUNCHES
     from repro_torch.models import model as M
-
-    def sync():
-        if torch.device(device).type == "cuda":
-            torch.cuda.synchronize()
-
     cm = CompressibleLM(cfg, M.init(cfg, seed=seed, device=device))
     table = make_bigram_table(cfg.vocab_size, seed)
     val = {"tokens": torch.as_tensor(
@@ -1327,15 +1452,39 @@ def run_main_path(cfg, device, *, episodes: int, warmup: int, updates: int,
         reward=RewardConfig(target_ratio=0.5, beta=-3.0),
         ddpg=DDPGConfig(warmup_episodes=warmup, updates_per_episode=updates,
                         batch_size=batch_size, buffer_size=2000))
-    sync()
+    return cm, val, scfg
+
+
+def _sync(device) -> None:
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def run_main_path(cfg, device, *, episodes: int, warmup: int, updates: int,
+                  batch_size: int, val_batch: int, val_seq: int,
+                  seed: int = 0, verbose: bool = True):
+    """Sensitivity + ``episodes`` of the pq search on ``cfg`` with seeded
+    random weights. Returns (search, history, sensitivity seconds, episode
+    seconds); the host clock brackets work that ends in a device sync."""
+    from repro_torch.configs.testbed import SERVE_CTX
+    from repro_torch.core.search import CompressionSearch
+    from repro_torch.core.sensitivity import run_sensitivity
+    from repro_torch.kernels.build import LAUNCHES
+
+    cm, val, scfg = search_inputs(
+        cfg, device, episodes=episodes, warmup=warmup, updates=updates,
+        batch_size=batch_size, val_batch=val_batch, val_seq=val_seq,
+        seed=seed)
+    _sync(device)
     t0 = time.perf_counter()
     sens = run_sensitivity(cm, val)
-    sync()
+    _sync(device)
     t_sens = time.perf_counter() - t0
     if verbose:
         log(f"  launches after the sensitivity analysis: {dict(LAUNCHES)}")
     search = CompressionSearch(cm, val, scfg, SERVE_CTX, sens=sens)
-    sync()
+    _sync(device)
     t0 = time.perf_counter()
     history = []
     for e in range(episodes):
@@ -1346,9 +1495,165 @@ def run_main_path(cfg, device, *, episodes: int, warmup: int, updates: int,
             log(f"  ep {e:2d} reward={rec.reward:+.4f} acc={rec.accuracy:.4f} "
                 f"lat_ratio={rec.latency_ratio:.4f} sigma={rec.sigma:.3f} "
                 f"w/a bits: {bits}")
-    sync()
+    _sync(device)
     t_eps = time.perf_counter() - t0
     return search, history, t_sens, t_eps
+
+
+def run_batched_path(cfg, device, sens, *, episodes: int, warmup: int,
+                     updates: int, batch_size: int, slots: int,
+                     val_batch: int, val_seq: int, seed: int = 0,
+                     verbose: bool = True):
+    """``episodes`` of the pq ``BatchedCompressionSearch`` (``slots``
+    episodes per batch) on the main path's model, validation batch,
+    config and sensitivity table ``sens``. The launch counts are reset
+    just before the episodes. Returns (search, history, episode
+    seconds)."""
+    from repro_torch.configs.testbed import SERVE_CTX
+    from repro_torch.core.search import BatchedCompressionSearch
+    from repro_torch.kernels import build
+    cm, val, scfg = search_inputs(
+        cfg, device, episodes=episodes, warmup=warmup, updates=updates,
+        batch_size=batch_size, val_batch=val_batch, val_seq=val_seq,
+        seed=seed)
+    search = BatchedCompressionSearch(cm, val, scfg, SERVE_CTX, sens=sens,
+                                      batch_size=slots)
+    _sync(device)
+    build.reset_launches()
+    t0 = time.perf_counter()
+    history = search.run().history
+    _sync(device)
+    t_eps = time.perf_counter() - t0
+    if verbose:
+        for rec in history:
+            bits = " ".join(f"{c.w_bits}/{c.a_bits}" for c in rec.policy.cmps)
+            log(f"  ep {rec.episode:2d} reward={rec.reward:+.4f} "
+                f"acc={rec.accuracy:.4f} lat_ratio={rec.latency_ratio:.4f} "
+                f"sigma={rec.sigma:.3f} w/a bits: {bits}")
+    return search, history, t_eps
+
+
+def batch_cspecs(search, history) -> list:
+    """The batched cspec of each batch of ``history``'s policies, as the
+    engine validated them."""
+    from repro_torch.core.policy import stack_policies
+    k = search.batch_size
+    out = []
+    for i in range(0, len(history), k):
+        pb = stack_policies(search.specs,
+                            [r.policy for r in history[i:i + k]])
+        out.append(search.cmodel.cspec_builder()(pb.keep, pb.w_bits,
+                                                 pb.a_bits))
+    return out
+
+
+def check_batched_path(search, history, cfg, episodes: int,
+                       launches: dict, per_step: dict, device) -> dict:
+    """The batched phase's checks. Records: finite, in episode order, on
+    the sigma schedule. Launches over the episodes: K1 over policy slots
+    exactly once per fake-quant site of each batch's validation
+    (``k1_calls`` of its batched cspec) and the one-tensor K1 never; K2
+    and K3 per DDPG step as the scalar phase launched them (``per_step``).
+    Then K1 over slots exact at every (shape, bits vector) the batches
+    gave it, and on a small batch, for the last batch's policies: (1)
+    under f32 compute the batched forward through the kernel equals, bit
+    for bit, the same forward with the plain version in place; (2) each
+    slot's accuracy is within the repo's bf16 bound (3%) of the scalar
+    engine's ``accuracy(build_cspec(policy))`` under f32 compute, and its
+    argmaxes agree with the scalar forward's on >= 97% under the path's
+    bf16. The products over the slots are one bmm, which sums in another
+    order than the scalar path's 2-D product in f32, so the f32 logits'
+    difference and argmax agreement are printed, not held."""
+    import numpy as np
+    import torch
+    from repro_torch.core.compress import CompressibleLM
+    from repro_torch.core.policy import stack_policies
+    from repro_torch.kernels import fake_quant as kfq
+    from repro_torch.kernels.ref import fake_quant_slots_ref
+    from repro_torch.models import model as M
+    if [r.episode for r in history] != list(range(episodes)):
+        raise AssertionError("records out of episode order")
+    for r in history:
+        vals = (r.reward, r.accuracy, r.latency_s, r.latency_ratio)
+        if not all(math.isfinite(v) for v in vals) \
+                or not 0.0 <= r.accuracy <= 1.0:
+            raise AssertionError(f"bad record {r}")
+        if r.sigma != float(np.float32(search.agent.sigma_at(r.episode))):
+            raise AssertionError(f"episode {r.episode} off the sigma "
+                                 f"schedule: {r.sigma}")
+    cspecs = batch_cspecs(search, history)
+    rows = search.val_batch["tokens"].shape[0] * (
+        search.val_batch["tokens"].shape[1])
+    sites = sum(len(k1_calls(cfg, cs, rows)) for cs in cspecs)
+    cfg_ddpg = search.agent.cfg
+    steps = cfg_ddpg.updates_per_episode * sum(
+        r.episode >= cfg_ddpg.warmup_episodes for r in history)
+    want = {"fake_quant_slots": sites, "fake_quant": 0,
+            **{k: round(v * steps) for k, v in per_step.items()}}
+    log(f"  launches {launches}; wanted {want} ({len(cspecs)} batched "
+        f"validations, {sites} fake-quant sites in all)")
+    for k, v in want.items():
+        if launches[k] != v:
+            raise AssertionError(f"{k} launched {launches[k]} times on the "
+                                 f"batched path, wanted {v}")
+    err = 0.0
+    for cs in cspecs:
+        err = max(err, check_fake_quant_slot_calls(cfg, cs, rows,
+                                                   device)["max_abs_err"])
+    log(f"  K1 over slots at every (shape, bits vector) of the "
+        f"{len(cspecs)} batches, f32 and bf16, plain and straight-through:"
+        f" max |kernel - plain| {err:.3g} (tol 0)")
+
+    f32 = cfg.replace(compute_dtype="float32")
+    cm = CompressibleLM(f32, search.cmodel.params)
+    small = {"tokens": search.val_batch["tokens"][:8]}
+    pols = [r.policy for r in history[-search.batch_size:]]
+    pb = stack_policies(cm.specs, pols)
+    bcs = cm.cspec_builder()(pb.keep, pb.w_bits, pb.a_bits)
+    with torch.no_grad():
+        lg_kernel = M.forward(f32, cm.params, small["tokens"], bcs)
+        launch = kfq.fake_quant_slots
+        kfq.fake_quant_slots = lambda x, bits, ste=False: \
+            fake_quant_slots_ref(x, bits, ste)
+        try:
+            lg_plain = M.forward(f32, cm.params, small["tokens"], bcs)
+        finally:
+            kfq.fake_quant_slots = launch
+    if not torch.isfinite(lg_kernel).all() or tuple(lg_kernel.shape) != (
+            len(pols),) + tuple(small["tokens"].shape) + (cfg.vocab_size,):
+        raise AssertionError(f"bad batched logits {tuple(lg_kernel.shape)}")
+    diff = float((lg_kernel - lg_plain).abs().max())
+    log(f"  last batch's {len(pols)} policies, f32, small batch: max "
+        f"|logit through K1 over slots - through its plain version| = "
+        f"{diff:.3g}")
+    if diff != 0.0:
+        raise AssertionError("the batched kernel path and its plain "
+                             "version differ")
+    accs_b = cm.accuracy_batch(small, bcs).cpu().tolist()
+    worst, bf16 = 0.0, 1.0
+    cm16 = CompressibleLM(cfg, search.cmodel.params)
+    lg16 = M.forward(cfg, cm16.params, small["tokens"],
+                     cm16.cspec_builder()(pb.keep, pb.w_bits, pb.a_bits))
+    for k, p in enumerate(pols):
+        lg_s = cm.logits(small, cm.build_cspec(p))
+        diff = float((lg_s - lg_kernel[k]).abs().max())
+        a32 = float((lg_s.argmax(-1) == lg_kernel[k].argmax(-1)).float()
+                    .mean())
+        agree = float((cm16.logits(small, cm16.build_cspec(p)).argmax(-1)
+                       == lg16[k].argmax(-1)).float().mean())
+        acc_s = float(cm.accuracy(small, cm.build_cspec(p)))
+        worst, bf16 = max(worst, abs(accs_b[k] - acc_s)), min(bf16, agree)
+        log(f"    slot {k}: f32 accuracy batched {accs_b[k]:.4f}, scalar "
+            f"{acc_s:.4f}, max |logit diff| {diff:.3g}, argmax agreement "
+            f"{a32:.4f}; {cfg.compute_dtype} argmax agreement {agree:.4f}")
+    if worst > 0.03:
+        raise AssertionError(f"a batched policy's f32 accuracy is "
+                             f"{worst:.4f} from its scalar accuracy")
+    if bf16 < 0.97:
+        raise AssertionError(f"a batched policy's {cfg.compute_dtype} "
+                             f"argmaxes agree with its scalar forward on "
+                             f"only {bf16:.4f}")
+    return {"sites": sites, "max_abs_err": err, "argmax_agree": bf16}
 
 
 def check_main_path(search, history, cfg, episodes: int) -> None:
@@ -1408,52 +1713,57 @@ def check_main_path(search, history, cfg, episodes: int) -> None:
 
 
 def profile_episodes(search, first: int, n: int) -> dict:
-    """Where an episode's time goes, from ``n`` more episodes (not in the
-    launch counts): host-clock split of rollout / validation / update
-    (each ended by a device sync), then one ``torch.profiler`` pass for
-    the device's busy share and the kernels that take most device time.
-    """
+    """Where an episode's time goes, from ``n`` more chunks of the engine
+    (one episode each for the scalar engine, ``batch_size`` for the
+    batched one; not in the launch counts): host-clock split of rollout
+    (the actor: ``act`` / ``act_batch``) / validation (``accuracy`` /
+    ``accuracy_policy_batch``) / update (each ended by a device sync) /
+    other host (oracle, states, CMPs, ring writes), per episode; then one
+    ``torch.profiler`` pass over ``n`` more chunks for the device's busy
+    share and the kernels that take most device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core.policy import Policy
     split = {"rollout": 0.0, "validation": 0.0, "update": 0.0}
-    agent = search.agent
-    chunk = agent.update_chunk
-    act = agent.act
-    cm = search.cmodel
-    accuracy = cm.accuracy
+    agent, cm = search.agent, search.cmodel
+    wrapped = [(agent, "update_chunk", "update"), (agent, "act", "rollout"),
+               (agent, "act_batch", "rollout"),
+               (cm, "accuracy", "validation"),
+               (cm, "accuracy_policy_batch", "validation")]
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in wrapped]
+    k = search._chunk_size()
 
     def timed(key, fn):
-        def run(*a, **k):
+        def run(*a, **kw):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = fn(*a, **k)
+            out = fn(*a, **kw)
             torch.cuda.synchronize()
             split[key] += time.perf_counter() - t0
             return out
         return run
 
-    agent.update_chunk = timed("update", chunk)
-    agent.act = timed("rollout", act)
-    cm.accuracy = timed("validation", accuracy)
+    for (obj, name, key), (_, _, fn) in zip(wrapped, saved):
+        setattr(obj, name, timed(key, fn))
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for e in range(first, first + n):
-            search.run_episode(e)
+        for c in range(n):
+            search._run_chunk(first + c * k, k)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
-        agent.update_chunk, agent.act, cm.accuracy = chunk, act, accuracy
-    split = {k: v / n for k, v in split.items()}
-    split["other host"] = wall / n - sum(split.values())
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+    eps = n * k
+    split = {key: v / eps for key, v in split.items()}
+    split["other host"] = wall / eps - sum(split.values())
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for e in range(first + n, first + 2 * n):
-            search.run_episode(e)
+        for c in range(n, 2 * n):
+            search._run_chunk(first + c * k, k)
         torch.cuda.synchronize()
     wall_prof = time.perf_counter() - t0
     rows = [(getattr(ev, "self_device_time_total", 0.0), ev.key)
@@ -1461,13 +1771,33 @@ def profile_episodes(search, first: int, n: int) -> dict:
             if getattr(ev, "device_type", None) is not None
             and "CUDA" in str(ev.device_type)]
     busy_s = sum(t for t, _ in rows) * 1e-6
-    return {"episode_s": wall / n, "split_s": split,
-            "profiled_wall_s": wall_prof, "device_busy_s": busy_s,
+    return {"episode_s": wall / eps, "episodes": eps, "split_s": split,
+            "profiled_wall_s": wall_prof, "device_busy_s": busy_s / eps,
             "top": sorted(rows, reverse=True)[:8]}
 
 
+def log_profile(prof: dict) -> None:
+    """The ``[time]`` lines of ``profile_episodes``' result."""
+    log(f"[time] {prof['episode_s'] * 1e3:.1f} ms per episode (host clock, "
+        f"syncs at phase ends): " + ", ".join(
+            f"{k} {v * 1e3:.1f} ms" for k, v in prof["split_s"].items())
+        + f"; {CARD}")
+    if prof["device_busy_s"] > 0:
+        busy, n = prof["device_busy_s"], prof["episodes"]
+        log(f"  profiler: device busy {busy * 1e3:.1f} ms per episode, "
+            f"{busy / prof['episode_s']:.1%} of the unprofiled episode "
+            f"({1 - busy / prof['episode_s']:.1%} idle; the profiled "
+            f"wall, {prof['profiled_wall_s'] * 1e3:.0f} ms for {n}, is "
+            f"mostly tracing); top device time over {n} episodes (us):")
+        for t, key in prof["top"]:
+            log(f"    {t:10.1f}  {key[:90]}")
+    else:
+        log("  profiler: no device time recorded (device busy share not "
+            "measured)")
+
+
 # ---------------------------------------------------------------------------
-# Phases 5 and 6: the calibration path and the measured search
+# Phases 6 and 7: the calibration path and the measured search
 # ---------------------------------------------------------------------------
 
 def _positive(x) -> bool:
@@ -1565,7 +1895,7 @@ def run_measured_search(cfg, device, table_dict: dict, *, episodes: int,
 
 
 # ---------------------------------------------------------------------------
-# Phases 7 and 8: prefill and decode of qwen2-0.5b
+# Phases 8 and 9: prefill and decode of qwen2-0.5b
 # ---------------------------------------------------------------------------
 
 def seeded_policy(cm, seed: int):
@@ -2192,7 +2522,7 @@ def _to(tree, device):
 # ---------------------------------------------------------------------------
 
 def recurrentgemma_phases(device, results: dict, launches: dict) -> None:
-    """Phases 11 and 12 on the card: recurrentgemma-2b's prefill and
+    """Phases 12 and 13 on the card: recurrentgemma-2b's prefill and
     decode (the earlier models freed first). Adds the K6 (D 256) and K7
     rows to ``results`` and their launch counts to ``launches``."""
     import torch
@@ -2329,6 +2659,7 @@ def main() -> int:
     batch = 64
     results = {
         "fake_quant": check_fake_quant(LM_CFG, device),
+        "fake_quant_slots": check_fake_quant_slots(LM_CFG, device),
         "mlp3": check_mlp3(S, A, ddpg.hidden, (batch, ddpg.batch_size),
                            device),
         "polyak": check_polyak(ddpg_leaf_shapes(S, A, ddpg.hidden),
@@ -2375,21 +2706,32 @@ def main() -> int:
     check_main_path(search, history, LM_CFG, episodes)
 
     prof = profile_episodes(search, episodes, 2)
-    log(f"[time] {prof['episode_s'] * 1e3:.1f} ms per episode (host clock, "
-        f"syncs at phase ends): " + ", ".join(
-            f"{k} {v * 1e3:.1f} ms" for k, v in prof["split_s"].items()))
-    if prof["device_busy_s"] > 0:
-        busy = prof["device_busy_s"] / 2
-        log(f"  profiler: device busy {busy * 1e3:.1f} ms per episode, "
-            f"{busy / prof['episode_s']:.1%} of the unprofiled episode "
-            f"({1 - busy / prof['episode_s']:.1%} idle; the profiled "
-            f"wall, {prof['profiled_wall_s'] * 1e3:.0f} ms for 2, is "
-            f"mostly tracing); top device time over 2 episodes (us):")
-        for t, key in prof["top"]:
-            log(f"    {t:10.1f}  {key[:90]}")
-    else:
-        log("  profiler: no device time recorded (device busy share not "
-            "measured)")
+    log_profile(prof)
+    per_step = {k: launches[k] / steps for k in ("mlp3", "polyak")}
+
+    b_eps = 16
+    log(f"[batched path] pq BatchedCompressionSearch on {LM_CFG.name}, "
+        f"K {SLOTS} episodes per batch, {b_eps} episodes, warmup {warmup}, "
+        f"{updates} updates per live episode, DDPG batch {batch}; the "
+        f"scalar phase's seeds and sensitivity table")
+    bsearch, bhist, t_b = run_batched_path(
+        LM_CFG, device, search.sens, episodes=b_eps, warmup=warmup,
+        updates=updates, batch_size=batch, slots=SLOTS,
+        val_batch=VAL_BATCH, val_seq=VAL_SEQ)
+    b_launches = dict(build.LAUNCHES)
+    log(f"  {b_eps} episodes in {t_b:.3f} s = {b_eps / t_b:.3f} episodes/s "
+        f"(scalar phase: {episodes / t_eps:.3f}, {episodes} episodes with "
+        f"{warmup} warmup); {CARD}")
+    b_check = check_batched_path(bsearch, bhist, LM_CFG, b_eps, b_launches,
+                                 per_step, device)
+    launches["fake_quant_slots"] = b_launches["fake_quant_slots"]
+    b_prof = profile_episodes(bsearch, b_eps, 1)
+    log_profile(b_prof)
+    log(f"  steady state (every episode live): batched "
+        f"{1 / b_prof['episode_s']:.3f} episodes/s, scalar "
+        f"{1 / prof['episode_s']:.3f}: {prof['episode_s'] / b_prof['episode_s']:.3f}x; "
+        f"{CARD}")
+    del bsearch, b_check
 
     log(f"[calibration path] launch.calibrate.run on {LM_CFG.name} at full "
         f"width (deploy-path units, K4/K5 kernel rows, raw/int8/int4 "

@@ -4,6 +4,12 @@ search and the sensitivity analysis call.
 
 Bits in a cspec are host ints (the scalar engine builds one cspec per
 policy on the host); masks are float tensors on the model's device.
+
+A batched cspec holds K policies for one forward (the batched engine's
+validation): ``"slots": K``, bits as K-tuples of host ints, masks [K, n].
+``make_lm_cspec_builder`` builds it from (K, L) keep / w_bits / a_bits
+arrays; ``stack_cspecs`` from K scalar cspecs. Both give the same masks
+and bits as ``build_lm_cspec`` policy by policy.
 """
 from __future__ import annotations
 
@@ -11,13 +17,14 @@ import math
 from dataclasses import dataclass, field
 from typing import Any, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..configs.base import ArchConfig
 from ..models import blocks as B
 from ..models import model as M
 from . import pruning
-from .policy import Policy
+from .policy import Policy, PolicyBatch
 from .spec import LayerCMP, LayerSpec, effective_bits
 
 
@@ -250,6 +257,101 @@ def build_lm_cspec(cfg: ArchConfig, params, policy: Policy,
     return out
 
 
+def _lm_prune_scores(cfg: ArchConfig, params,
+                     specs: Sequence[LayerSpec]) -> dict:
+    """spec index -> ℓ1 scores of its prunable dim (the selection of
+    ``build_lm_cspec``, for every prunable unit)."""
+    return {idx: _unit_prune_scores(cfg, params["blocks"][s.layer_idx],
+                                    s.kind)
+            for idx, s in enumerate(specs) if s.prunable and s.prune_dim}
+
+
+def make_lm_cspec_builder(cfg: ArchConfig, params,
+                          specs: Sequence[LayerSpec]):
+    """Returns ``build(keep, w_bits, a_bits) -> batched cspec`` for (K, L)
+    arrays (a ``PolicyBatch``'s): per unit the K bits as a tuple, per
+    mask the K ``pruning.keep_mask_dynamic`` masks [K, dim] from the
+    ℓ1 scores computed here once. Policy by policy it gives
+    ``build_lm_cspec``'s bits and masks (the same scores and ties)."""
+    scores = _lm_prune_scores(cfg, params, specs)
+    device = params["embed"].device
+    pos: dict = {}
+    for idx, s in enumerate(specs):
+        pos[s.kind if s.kind in ("embed", "head")
+            else (s.layer_idx, s.kind)] = idx
+
+    def build(keep, w_bits, a_bits) -> dict:
+        keep, w_bits, a_bits = (np.asarray(a) for a in (keep, w_bits,
+                                                        a_bits))
+        K = keep.shape[0]
+
+        def bits(arr, i):
+            return tuple(int(b) for b in arr[:, i])
+
+        def qs(key):
+            i = pos.get(key)
+            if i is None:
+                return {"w_bits": (32,) * K, "a_bits": (32,) * K}
+            return {"w_bits": bits(w_bits, i), "a_bits": bits(a_bits, i)}
+
+        def mask(key, dim):
+            i = pos.get(key)
+            if i is None or i not in scores:
+                return torch.ones((K, dim), dtype=torch.float32,
+                                  device=device)
+            return pruning.keep_mask_dynamic(scores[i], keep[:, i])
+
+        layer_cspecs = []
+        for i, kind in enumerate(cfg.layer_kinds):
+            if kind == "ssm":
+                layer_cspecs.append({"ssm": {
+                    "in": qs((i, "ssm_in")), "out": qs((i, "ssm_out")),
+                    "head_mask": mask((i, "ssm_in"), B.ssm_dims(cfg)[1])}})
+                continue
+            if kind == "attn":
+                cs = {"attn": {"qkv": qs((i, "attn_qkv")),
+                               "o": qs((i, "attn_out")),
+                               "head_mask": mask((i, "attn_qkv"),
+                                                 cfg.num_heads)}}
+            elif kind == "rglru":
+                cs = {"rglru": {"in": qs((i, "rglru_in")),
+                                "out": qs((i, "rglru_out")),
+                                "width_mask": mask((i, "rglru_in"),
+                                                   cfg.lru_width)}}
+            else:
+                raise ValueError(f"layer {i}: no cspec for kind {kind!r}")
+            cs["mlp"] = {"up": qs((i, "mlp_up")), "down": qs((i, "mlp_down")),
+                         "ff_mask": mask((i, "mlp_up"), cfg.d_ff)}
+            layer_cspecs.append(cs)
+        out: dict[str, Any] = {"blocks": layer_cspecs, "slots": K}
+        if "embed" in pos:
+            out["embed_bits"] = bits(w_bits, pos["embed"])
+        if "head" in pos:
+            out["head_bits"] = bits(w_bits, pos["head"])
+        return out
+
+    return build
+
+
+def stack_cspecs(cspecs: Sequence[dict]) -> dict:
+    """K scalar cspecs as one batched cspec: bits as K-tuples, masks
+    stacked into [K, n]. Their structure does not depend on the policy
+    (masks always present, bits always set; see ``build_lm_cspec``), so
+    they stack leaf by leaf."""
+    def stack(*xs):
+        if isinstance(xs[0], dict):
+            return {k: stack(*(x[k] for x in xs)) for k in xs[0]}
+        if isinstance(xs[0], list):
+            return [stack(*leaves) for leaves in zip(*xs)]
+        if isinstance(xs[0], torch.Tensor):
+            return torch.stack(xs)
+        return tuple(int(x) for x in xs)
+
+    out = stack(*cspecs)
+    out["slots"] = len(cspecs)
+    return out
+
+
 # ===========================================================================
 # Model adapter (the interface of the search / sensitivity analysis)
 # ===========================================================================
@@ -277,6 +379,35 @@ class CompressibleLM:
     def build_cspec(self, policy: Policy) -> dict:
         return build_lm_cspec(self.cfg, self.params, policy, self.specs,
                               self._scores)
+
+    def cspec_builder(self):
+        """``make_lm_cspec_builder`` for the current params, made once per
+        params object."""
+        cached = getattr(self, "_builder_cache", None)
+        if cached is None or cached[0] is not self.params:
+            self._builder_cache = (self.params, make_lm_cspec_builder(
+                self.cfg, self.params, self.specs))
+        return self._builder_cache[1]
+
+    def build_cspec_batch(self, policies: Sequence[Policy]) -> dict:
+        return stack_cspecs([self.build_cspec(p) for p in policies])
+
+    @torch.no_grad()
+    def accuracy_batch(self, batch: dict, stacked_cspec) -> torch.Tensor:
+        """(K,) next-token top-1 accuracies of the K policies of a batched
+        cspec, from one forward over all of them (a tensor on the
+        device)."""
+        lg = M.forward(self.cfg, self.params, batch["tokens"],
+                       stacked_cspec)[:, :, :-1]
+        tgt = batch["tokens"][None, :, 1:]
+        return torch.mean((torch.argmax(lg, -1) == tgt).float(), (1, 2))
+
+    def accuracy_policy_batch(self, batch: dict,
+                              pbatch: PolicyBatch) -> torch.Tensor:
+        """(K,) accuracies straight from a ``PolicyBatch``'s arrays: the
+        batched cspec of ``cspec_builder`` and one forward."""
+        return self.accuracy_batch(batch, self.cspec_builder()(
+            pbatch.keep, pbatch.w_bits, pbatch.a_bits))
 
     @torch.no_grad()
     def logits(self, batch: dict, cspec=None) -> torch.Tensor:

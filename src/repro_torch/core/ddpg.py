@@ -303,6 +303,47 @@ class DDPGAgent:
             return a.astype(np.float32)
         return mu.astype(np.float32)
 
+    def act_batch(self, states: np.ndarray, sigmas: np.ndarray,
+                  random_mask: np.ndarray) -> np.ndarray:
+        """Batched ``act``: one actor forward over K stacked states.
+
+        ``sigmas`` and ``random_mask`` are per row (episodes in a batch
+        keep their own sigma-schedule position and warmup flag). The
+        draws come from the agent's generator in the JAX package's order:
+        one uniform block for all warmup rows, then up to 16 passes that
+        each draw normals for the rows still pending, then the clipped
+        fallback for the rest.
+        """
+        states = np.atleast_2d(np.asarray(states, np.float32))
+        K, A = states.shape[0], self.cfg.action_dim
+        sigmas = np.broadcast_to(np.asarray(sigmas, np.float32), (K,))
+        random_mask = np.broadcast_to(np.asarray(random_mask, bool), (K,))
+        out = np.empty((K, A), np.float32)
+        if random_mask.any():
+            out[random_mask] = self.np_rng.uniform(
+                0, 1, (int(random_mask.sum()), A)).astype(np.float32)
+        det = ~random_mask
+        if not det.any():
+            return out
+        s = self.norm.normalize(states[det])
+        mu = _actor_forward_np(self._host_actor(), s).astype(np.float32)
+        sig = sigmas[det][:, None]
+        a = mu.copy()
+        pending = sigmas[det] > 0
+        for _ in range(16):
+            if not pending.any():
+                break
+            rows = np.where(pending)[0]
+            cand = self.np_rng.normal(mu[rows], sig[rows])
+            ok = np.all((cand >= 0) & (cand <= 1), axis=1)
+            a[rows[ok]] = cand[ok]
+            pending[rows[ok]] = False
+        if pending.any():
+            rows = np.where(pending)[0]
+            a[rows] = np.clip(self.np_rng.normal(mu[rows], sig[rows]), 0, 1)
+        out[det] = a.astype(np.float32)
+        return out
+
     def sigma_at(self, episode: int) -> float:
         e = max(0, episode - self.cfg.warmup_episodes)
         return self.cfg.sigma0 * (self.cfg.sigma_decay ** e)

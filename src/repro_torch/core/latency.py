@@ -11,17 +11,21 @@ is reference data for the model, not a measurement of any chip the port
 runs on. ``calib=`` takes a ``core.measure.CalibrationTable`` measured on
 the card the port runs on: it rescales each unit term by its fitted
 (kind, container) factor, and the attention extras and the dispatch
-overhead by the lumped residual factors. The batched and traced oracle
-forms wait for the batched engines.
+overhead by the lumped residual factors.
+
+``policy_latency_batch`` (``BatchOracle``) evaluates K policies at once
+with numpy array ops over precomputed per-spec tables, the same roofline
+terms in float64: the batched engine probes it every layer step. The
+traced oracle form waits for the fused engine.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Union
 
 import numpy as np
 
-from .policy import Policy
+from .policy import Policy, PolicyBatch, stack_policies
 from .spec import LayerCMP, LayerSpec, effective_bits
 
 
@@ -78,9 +82,14 @@ def container_for_bits(w_bits: int) -> str:
     return "int8" if w_bits >= 5 else "int4"
 
 
+def pad_align(x, align):
+    """MXU-lane padding: ceil(max(x, 1) / align) * align, of a scalar or
+    a numpy array."""
+    return np.ceil(np.maximum(x, 1.0) / align) * align
+
+
 def _pad(x: float, align: int) -> float:
-    """MXU-lane padding: ceil(max(x, 1) / align) * align."""
-    return float(np.ceil(np.maximum(x, 1.0) / align) * align)
+    return float(pad_align(x, align))
 
 
 def _peak(w_bits: int, a_bits: int, hw: HardwareTarget) -> float:
@@ -297,3 +306,212 @@ def fifo_cached(cache: dict, max_entries: int, key, is_valid, factory):
     hit = factory()
     cache[key] = hit
     return hit
+
+
+# ===========================================================================
+# Vectorized analytic oracle — K policies as one stack of array ops
+# ===========================================================================
+
+_COLL_KINDS = ("attn_out", "mlp_down", "moe_down", "ssm_out", "rglru_out",
+               "head")
+
+
+@dataclass
+class BatchedPolicyLatency:
+    """Latency of K policies at once; mirrors ``PolicyLatency`` totals.
+
+    ``unit_time_s`` is (K, L) in spec order; ``extra_time_s`` is (K, E)
+    for the attention score/AV+KV-cache terms, with ``extra_spec_idx``
+    mapping each extra column back to its attn_qkv spec.
+    """
+    unit_time_s: np.ndarray
+    extra_time_s: np.ndarray
+    extra_spec_idx: np.ndarray
+    overhead_s: float
+
+    @property
+    def total_s(self) -> np.ndarray:
+        return (self.unit_time_s.sum(axis=1)
+                + self.extra_time_s.sum(axis=1) + self.overhead_s)
+
+    def decided_before(self, t: int) -> np.ndarray:
+        """Per-policy latency of units with spec index < t (the AMC
+        'reduced' bookkeeping feature, under the partial policy)."""
+        out = self.unit_time_s[:, :t].sum(axis=1)
+        if self.extra_time_s.shape[1]:
+            cols = self.extra_spec_idx < t
+            out = out + self.extra_time_s[:, cols].sum(axis=1)
+        return out
+
+
+class BatchOracle:
+    """Precomputed per-spec tables; calling it evaluates a PolicyBatch
+    with numpy array ops instead of the per-layer Python loop."""
+
+    def __init__(self, specs: Sequence[LayerSpec], hw: HardwareTarget,
+                 ctx: LatencyContext, window: int = 0, calib=None):
+        self.specs, self.hw, self.ctx, self.window = specs, hw, ctx, window
+        self.calib = calib
+        if calib is not None:
+            self.calib_f = np.asarray(calib.unit_factors(specs), np.float64)
+            self.extra_f = float(calib.extra_factor())
+            self.overhead_f = float(calib.overhead_factor())
+        else:
+            self.calib_f, self.extra_f, self.overhead_f = None, 1.0, 1.0
+        L = len(specs)
+        g = lambda f: np.asarray([f(s) for s in specs], np.float64)
+        self.is_conv = np.asarray([s.kind == "conv" for s in specs])
+        self.is_embed = np.asarray([s.kind == "embed" for s in specs])
+        self.is_qkv = np.asarray([s.kind == "attn_qkv" for s in specs])
+        self.is_moe = np.asarray([s.kind in ("moe_up", "moe_down")
+                                  for s in specs])
+        is_coll = np.asarray([s.kind in _COLL_KINDS for s in specs])
+        self.prunable = np.asarray([bool(s.prunable and s.prune_dim)
+                                    for s in specs])
+        self.in_dim = g(lambda s: s.in_dim)
+        self.out_dim = g(lambda s: s.out_dim)
+        self.prune_dim = g(lambda s: s.prune_dim)
+        self.weight_elems = g(lambda s: s.weight_elems)
+        self.px = g(lambda s: s.extra.get("px", 1))
+        self.hd = g(lambda s: s.extra.get("head_dim", 128))
+        self.kv = g(lambda s: s.extra.get("kv_heads", 0))
+        self.kv_cache = g(lambda s: s.extra.get("kv_heads", 1))
+        e_cnt = g(lambda s: s.extra.get("experts", 1) or 1)
+        self.n_mats = np.maximum(
+            1.0, self.weight_elems /
+            np.maximum(1.0, self.in_dim * self.out_dim * e_cnt))
+        self.top_k = g(lambda s: s.extra.get("top_k", 1) or 1)
+        if ctx.mode == "decode":
+            self.expert_frac = np.where(
+                self.is_moe,
+                np.minimum(1.0, (ctx.batch * self.top_k) / e_cnt), 1.0)
+        else:
+            self.expert_frac = np.ones(L)
+        # dep_group -> owning unit index (the mapping of
+        # _resolve_keep_fracs, but positional)
+        groups: dict[str, int] = {}
+        for i, s in enumerate(specs):
+            if not s.prunable or not s.prune_dim:
+                continue
+            if s.kind == "attn_qkv":
+                groups[f"L{s.layer_idx}.heads"] = i
+            elif s.kind == "mlp_up":
+                grp = "dense_ff" if s.extra.get("dense_residual") else "ff"
+                groups[f"L{s.layer_idx}.{grp}"] = i
+            elif s.kind == "moe_up":
+                groups[f"L{s.layer_idx}.moe_ff"] = i
+            elif s.kind == "ssm_in":
+                groups[f"L{s.layer_idx}.ssm_heads"] = i
+            elif s.kind == "rglru_in":
+                groups[f"L{s.layer_idx}.lru"] = i
+        self.owner = np.asarray(
+            [groups.get(s.dep_group, -1) if s.dep_group else -1
+             for s in specs])
+        T, tp = ctx.tokens, ctx.tp
+        self.coll_coef = np.where(
+            is_coll & (tp > 1),
+            2.0 * T * 2.0 * (tp - 1) / max(1, tp) / hw.ici_bw, 0.0)
+        # attention score/AV + KV-cache extras (one column per attn_qkv)
+        self.extra_idx = np.nonzero(self.is_qkv)[0] if ctx.seq_ctx > 0 \
+            else np.zeros((0,), np.int64)
+        self.n_ops = L + len(self.extra_idx)
+
+    def _pad(self, x: np.ndarray) -> np.ndarray:
+        return pad_align(x, self.hw.mxu_align)
+
+    def __call__(self, batch: PolicyBatch) -> BatchedPolicyLatency:
+        hw, ctx = self.hw, self.ctx
+        T, chips = ctx.tokens, max(1, ctx.chips)
+        keep, wb, ab = batch.keep, batch.w_bits, batch.a_bits
+
+        keep_frac = np.where(self.prune_dim > 0,
+                             keep / np.maximum(self.prune_dim, 1.0), 1.0)
+        in_frac = np.where(self.owner >= 0,
+                           keep_frac[:, np.maximum(self.owner, 0)], 1.0)
+        wbpe = np.where(wb >= 9, 2.0, np.where(wb >= 5, 1.0, 0.5))
+        abpe = np.where(ab <= 8, 1.0, 2.0)
+        peak = np.where((wb <= 8) & (ab <= 8), hw.peak_int8, hw.peak_bf16)
+
+        k_dim = np.where(
+            self.is_conv,
+            (self.weight_elems / np.maximum(1.0, self.out_dim)) * in_frac,
+            self.in_dim * in_frac)
+        n_dim = np.where(
+            self.is_qkv,
+            keep_frac * (self.out_dim - 2 * self.kv * self.hd)
+            + 2 * self.kv * self.hd,
+            np.where(self.prunable, self.out_dim * keep_frac, self.out_dim))
+        k_pad, n_pad = self._pad(k_dim), self._pad(n_dim)
+
+        m_rows = np.where(self.is_conv, T * self.px, T)
+        flops = 2.0 * m_rows * k_pad * n_pad * np.where(
+            self.is_conv, 1.0,
+            self.n_mats * np.where(self.is_moe, self.top_k, 1.0))
+        w_bytes = (self.weight_elems * keep_frac * in_frac
+                   * self.expert_frac * wbpe)
+        a_bytes = m_rows * k_dim * abpe + m_rows * n_dim * 2.0
+
+        compute = flops / (peak * chips)
+        memory = (w_bytes + a_bytes) / (hw.hbm_bw * chips)
+        compute = np.where(self.is_embed, 0.0, compute)
+        memory = np.where(self.is_embed,
+                          T * self.out_dim * wbpe / (hw.hbm_bw * chips),
+                          memory)
+        coll = self.coll_coef * n_dim
+        unit_time = np.maximum(compute, memory) + coll
+        if self.calib_f is not None:
+            bucket = np.where(wb >= 9, 0, np.where(wb >= 5, 1, 2))
+            unit_time = unit_time * self.calib_f[
+                np.arange(len(self.specs))[None, :], bucket.astype(np.int64)]
+
+        if len(self.extra_idx):
+            q = self.extra_idx
+            S = ctx.seq_ctx if self.window <= 0 \
+                else min(ctx.seq_ctx, self.window)
+            keep_heads = np.where(self.prune_dim[q] > 0, keep[:, q], 0.0)
+            eflops = 4.0 * T * S * self.hd[q] * keep_heads
+            if ctx.mode in ("train", "prefill"):
+                eflops = eflops * 0.5
+            cache = T * S * 2 * self.kv_cache[q] * self.hd[q] \
+                * (ctx.cache_bits / 8.0)
+            extra = np.maximum(eflops / (hw.peak_bf16 * chips),
+                               cache / (hw.hbm_bw * chips))
+        else:
+            extra = np.zeros((len(batch), 0))
+        return BatchedPolicyLatency(
+            unit_time_s=unit_time, extra_time_s=extra * self.extra_f,
+            extra_spec_idx=self.extra_idx,
+            overhead_s=self.n_ops * hw.op_overhead * self.overhead_f)
+
+
+_oracle_cache: dict = {}
+_ORACLE_CACHE_MAX = 64
+
+
+def get_batch_oracle(specs: Sequence[LayerSpec], hw: HardwareTarget,
+                     ctx: LatencyContext, window: int = 0,
+                     calib=None) -> BatchOracle:
+    """The ``BatchOracle`` of (specs, hw, ctx, window, calib), built once:
+    ctx and hw are frozen dataclasses, so value-keying is safe; specs
+    and calib tables are identity-keyed with the ``fifo_cached``
+    identity guard."""
+    return fifo_cached(
+        _oracle_cache, _ORACLE_CACHE_MAX,
+        (id(specs), hw, ctx, window, id(calib) if calib is not None else None),
+        lambda o: o.specs is specs and o.calib is calib,
+        lambda: BatchOracle(specs, hw, ctx, window, calib))
+
+
+def policy_latency_batch(
+        specs: Sequence[LayerSpec],
+        policies: Union[PolicyBatch, Sequence[Policy]],
+        hw: HardwareTarget = V5E, ctx: Optional[LatencyContext] = None,
+        window: int = 0, calib=None) -> BatchedPolicyLatency:
+    """Vectorized ``policy_latency`` over a stack of K policies: the same
+    roofline terms in float64, so ``out.total_s[k]`` equals
+    ``policy_latency(specs, policies[k], ...).total_s`` up to summation
+    order."""
+    ctx = ctx or LatencyContext(tokens=1, seq_ctx=1, mode="decode")
+    if not isinstance(policies, PolicyBatch):
+        policies = stack_policies(specs, policies)
+    return get_batch_oracle(specs, hw, ctx, window, calib)(policies)

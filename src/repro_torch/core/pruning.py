@@ -41,6 +41,21 @@ def keep_mask(scores: torch.Tensor, keep: int) -> torch.Tensor:
     return torch.where(excess, torch.zeros_like(mask), mask)
 
 
+def keep_mask_dynamic(scores: torch.Tensor, keep) -> torch.Tensor:
+    """``keep_mask`` for a vector of K kept counts: scores [n] and keep
+    [K] (host ints) -> float masks [K, n]. The same selection as
+    ``keep_mask`` for each count: threshold at the keep-th largest score,
+    then drop later-indexed ties past the count."""
+    n = scores.shape[0]
+    keep = torch.as_tensor(np.clip(np.asarray(keep, np.int64), 0, n),
+                           device=scores.device)
+    thresh = torch.sort(scores).values[torch.clamp(n - keep, 0, n - 1)]
+    mask = (scores[None, :] >= thresh[:, None]).float()
+    mask = torch.where(torch.cumsum(mask, 1) > keep[:, None],
+                       torch.zeros_like(mask), mask)
+    return torch.where(keep[:, None] > 0, mask, torch.zeros_like(mask))
+
+
 def head_scores(wq: torch.Tensor, num_heads: int) -> torch.Tensor:
     """ℓ1 score per attention head from wq [d, H*hd]."""
     d, hhd = wq.shape

@@ -14,6 +14,14 @@ its straight-through mode, one pass over x in its own dtype with the
 same arithmetic. The math is f32 inside and the result is cast back to
 the input's dtype, at the same points as the JAX package's
 ``core/quantization.py``.
+
+The batched validation carries K policies at once: its bits are K-tuples
+of host ints, one per policy slot. ``fake_quant_act_slots`` and
+``fake_quant_weight_slots`` are the per-policy forms (what ``vmap`` makes
+of ``fake_quant`` in the JAX package): each slot gets its own range and
+its own bits, ``bits >= 32`` passes the slot through, and a site at which
+every slot is >= 32 launches nothing. They run under ``no_grad`` (no
+straight-through gradient).
 """
 from __future__ import annotations
 
@@ -75,3 +83,25 @@ def fake_quant_weight(w: torch.Tensor, bits: int) -> torch.Tensor:
 def fake_quant_act(x: torch.Tensor, bits: int) -> torch.Tensor:
     """Activations: per-channel over the feature (last) axis."""
     return fake_quant(x, bits)
+
+
+def fake_quant_act_slots(x: torch.Tensor, bits) -> torch.Tensor:
+    """Activations of K policies, x [K, rows, C]: slot k quantized at
+    ``bits[k]`` with one range per channel over that slot's rows only;
+    the straight-through forward value, in x's dtype."""
+    if min(bits) >= 32:
+        return x
+    from ..kernels import ops
+    return ops.fake_quant_slots(x, bits)
+
+
+def fake_quant_weight_slots(w: torch.Tensor, bits) -> torch.Tensor:
+    """A weight w [R, C] shared by K policies, quantized at each slot's
+    bits (per output channel, as ``fake_quant_weight``): [K, R, C]; a
+    view of w itself (slot stride 0) where every slot passes it
+    through."""
+    shared = w.expand(len(bits), *w.shape)
+    if min(bits) >= 32:
+        return shared
+    from ..kernels import ops
+    return ops.fake_quant_slots(shared, bits)

@@ -5,10 +5,15 @@ Primary: the *absolute reward* (Bender et al. 2020) used by the paper
 
 Also provided: the hard-exponential reward (MnasNet) the paper tried and
 rejected.
+
+``compute_reward`` is the scalar host path; ``compute_reward_batch`` is
+the same math over (K,) arrays, for the batched engine's record tail.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+
+import numpy as np
 
 
 @dataclass(frozen=True)
@@ -39,4 +44,15 @@ def compute_reward(cfg: RewardConfig, acc: float, latency: float,
     if cfg.kind == "hard_exponential":
         return hard_exponential_reward(acc, latency, ref_latency,
                                        cfg.target_ratio, cfg.hard_beta)
+    raise ValueError(cfg.kind)
+
+
+def compute_reward_batch(cfg: RewardConfig, acc, latency, ref_latency):
+    """``compute_reward`` over (K,) numpy arrays (the batched engine keeps
+    its record tail on the host)."""
+    ratio = latency / (cfg.target_ratio * ref_latency)
+    if cfg.kind == "absolute":
+        return acc + cfg.beta * np.abs(ratio - 1.0)
+    if cfg.kind == "hard_exponential":
+        return acc * np.where(ratio > 1.0, ratio ** cfg.hard_beta, 1.0)
     raise ValueError(cfg.kind)

@@ -14,8 +14,19 @@ episode's DDPG updates (kernels K2 and K3). The latency oracle is the
 analytic roofline, or in ``oracle_mode="calibrated"`` / ``"measured"`` the
 roofline rescaled by a ``core.measure.CalibrationTable`` taken on the
 card; "measured" also times the deployed forward of the top-K finalists
-(``SearchResult.measured``). The batched, fused, epoch, population and
-fleet engines wait for later slices.
+(``SearchResult.measured``).
+
+``BatchedCompressionSearch`` runs K episodes per rollout with the same
+per-episode semantics (sigma schedule, warmup, shared episode reward,
+legality): per layer step one vectorized oracle call
+(``policy_latency_batch``), ``build_state_batch`` and one host actor
+forward (``DDPGAgent.act_batch``), then one validation of the K policies
+(``CompressibleLM.accuracy_policy_batch``: one forward, K1 launched once
+per fake-quant site for all K), one bulk ring write, and the live
+episodes' updates as one chunk. Both engines advance through the chunk
+hooks (``_chunk_size`` / ``_run_chunk``) and queue their updates
+(``_queue_updates``). The fused, epoch, population and fleet engines
+wait for later slices.
 """
 from __future__ import annotations
 
@@ -26,12 +37,14 @@ from typing import List, Optional
 import numpy as np
 
 from .ddpg import DDPGAgent, DDPGConfig
-from .latency import V5E, HardwareTarget, LatencyContext, policy_latency
-from .policy import Policy, map_actions, n_actions
+from .latency import (V5E, HardwareTarget, LatencyContext, policy_latency,
+                      policy_latency_batch)
+from .policy import Policy, map_actions, n_actions, stack_policies
 from .replay import DeviceReplay
-from .reward import RewardConfig, compute_reward
+from .reward import RewardConfig, compute_reward, compute_reward_batch
 from .sensitivity import SensitivityResult, run_sensitivity
-from .state import build_state, state_dim
+from .spec import effective_bits
+from .state import build_state, build_state_batch, state_dim
 
 
 @dataclass(frozen=True)
@@ -142,6 +155,21 @@ class CompressionSearch:
             val_batch, cmodel.build_cspec(self.ref_policy)))
         self.steps = [i for i, s in enumerate(self.specs)
                       if _actionable(s, search_cfg.methods)]
+        self._pending_updates = 0
+
+    def _flush_updates(self):
+        """Run the queued update budget as one chunk, once the ring holds
+        a DDPG batch."""
+        n = self._pending_updates
+        self._pending_updates = 0
+        if n > 0 and len(self.replay) >= self.agent.cfg.batch_size:
+            self.agent.update_chunk(self.replay, n)
+
+    def _queue_updates(self, n: int):
+        """Queue n updates and run them (a population of searches, a later
+        slice, defers the flush to batch the members' chunks)."""
+        self._pending_updates += n
+        self._flush_updates()
 
     def run_episode(self, episode: int) -> EpisodeRecord:
         cfg = self.cfg
@@ -187,8 +215,7 @@ class CompressionSearch:
         self.replay.push_batch(st_arr, np.stack(actions),
                                np.full(T, reward, np.float32), nxt, done)
         if not warmup:
-            self.agent.update_chunk(self.replay,
-                                    self.agent.cfg.updates_per_episode)
+            self._queue_updates(self.agent.cfg.updates_per_episode)
 
         ratio = lat.total_s / (cfg.reward.target_ratio *
                                self.ref_lat.total_s)
@@ -199,21 +226,34 @@ class CompressionSearch:
             bops=policy.bops(self.specs) if cfg.track_bops else 0.0,
             sigma=sigma, policy=policy)
 
+    # chunking hooks: the scalar engine advances one episode at a time;
+    # BatchedCompressionSearch overrides them to roll K per call
+    def _chunk_size(self) -> int:
+        return 1
+
+    def _run_chunk(self, first_episode: int,
+                   k: int) -> List[EpisodeRecord]:
+        return [self.run_episode(first_episode)]
+
     def run(self, episodes: Optional[int] = None,
             verbose: bool = False) -> SearchResult:
         n = episodes or self.cfg.episodes
         history: List[EpisodeRecord] = []
         best = None
-        for e in range(n):
-            rec = self.run_episode(e)
-            history.append(rec)
-            if best is None or rec.reward > best.reward:
-                best = rec
-            if verbose and (rec.episode % 10 == 0 or rec.episode == n - 1):
-                print(f"  ep {rec.episode:4d} reward={rec.reward:+.4f} "
-                      f"acc={rec.accuracy:.3f} "
-                      f"lat_ratio={rec.latency_ratio:.3f} "
-                      f"sigma={rec.sigma:.3f}")
+        e = 0
+        while e < n:
+            k = min(self._chunk_size(), n - e)
+            for rec in self._run_chunk(e, k):
+                history.append(rec)
+                if best is None or rec.reward > best.reward:
+                    best = rec
+                if verbose and (rec.episode % 10 == 0
+                                or rec.episode == n - 1):
+                    print(f"  ep {rec.episode:4d} reward={rec.reward:+.4f} "
+                          f"acc={rec.accuracy:.3f} "
+                          f"lat_ratio={rec.latency_ratio:.3f} "
+                          f"sigma={rec.sigma:.3f}")
+            e += k
         result = SearchResult(history=history, best=best,
                               ref_latency_s=self.ref_lat.total_s,
                               ref_accuracy=self.ref_acc)
@@ -243,3 +283,117 @@ class CompressionSearch:
                 "measured_ratio": t / ref_s if ref_s > 0 else float("inf"),
             })
         return rows
+
+
+class BatchedCompressionSearch(CompressionSearch):
+    """K episodes per rollout (``batch_size``); see the module docstring.
+
+    Per-episode semantics (sigma schedule, warmup, shared episode
+    reward, legality constraints) match ``CompressionSearch``; the
+    batch's critic/actor updates run after the whole batch (the same
+    total count), and the state normalizer advances once per batch, as
+    in the JAX package's batched engine.
+    """
+
+    def __init__(self, cmodel, val_batch, search_cfg: SearchConfig,
+                 ctx: LatencyContext, hw: HardwareTarget = V5E,
+                 sens: Optional[SensitivityResult] = None,
+                 calib_batch=None, calib=None, batch_size: int = 8):
+        super().__init__(cmodel, val_batch, search_cfg, ctx, hw=hw,
+                         sens=sens, calib_batch=calib_batch, calib=calib)
+        self.batch_size = max(1, batch_size)
+
+    def _batch_schedule(self, first_episode: int, k: int):
+        """(warmup mask, sigma) per episode row: the one place the batch's
+        exploration schedule is derived."""
+        eps = range(first_episode, first_episode + k)
+        warmup = np.asarray(
+            [e < self.agent.cfg.warmup_episodes for e in eps])
+        sigmas = np.asarray([self.agent.sigma_at(e) for e in eps],
+                            np.float32)
+        return warmup, sigmas
+
+    def run_episode_batch(self, first_episode: int,
+                          k: int) -> List[EpisodeRecord]:
+        cfg = self.cfg
+        eps = list(range(first_episode, first_episode + k))
+        warmup, sigmas = self._batch_schedule(first_episode, k)
+        partials = [copy.deepcopy(self.ref_policy) for _ in eps]
+        # (K, L) policy arrays, updated in place as units are decided
+        pb = stack_policies(self.specs, partials)
+        prev_a = np.zeros((k, self.agent.cfg.action_dim), np.float32)
+        step_states, step_actions = [], []
+        for t in self.steps:
+            cur = policy_latency_batch(self.specs, pb, self.hw, self.ctx,
+                                       cfg.window, calib=self.calib)
+            S = build_state_batch(self.specs, t, cur, self.sens, prev_a,
+                                  self.ref_lat)
+            A = self.agent.act_batch(S, sigmas, warmup)
+            for j in range(k):
+                cmp = map_actions(self.specs[t], A[j], cfg.methods)
+                prev = partials[j].cmps[t]
+                if cfg.methods == "q":
+                    cmp.keep = prev.keep
+                elif cfg.methods == "p":
+                    cmp.mode, cmp.w_bits, cmp.a_bits = (
+                        prev.mode, prev.w_bits, prev.a_bits)
+                partials[j].cmps[t] = cmp
+                pb.keep[j, t] = cmp.keep
+                pb.w_bits[j, t], pb.a_bits[j, t] = effective_bits(cmp)
+            step_states.append(S)
+            step_actions.append(A)
+            prev_a = A
+
+        # one validation of the K policies and one oracle call
+        accs = self.cmodel.accuracy_policy_batch(self.val_batch,
+                                                 pb).cpu().numpy()
+        lats = policy_latency_batch(self.specs, pb, self.hw, self.ctx,
+                                    cfg.window, calib=self.calib).total_s
+        rewards = compute_reward_batch(cfg.reward, accs, lats,
+                                       self.ref_lat.total_s)
+        return self._push_and_record(
+            eps, warmup, sigmas, partials, np.stack(step_states),
+            np.stack(step_actions), accs, lats, rewards)
+
+    def _push_and_record(self, eps, warmup, sigmas, pols, states,
+                         actions, accs, lats,
+                         rewards) -> List[EpisodeRecord]:
+        """The batch tail, the shared-episode-reward transition scheme:
+        observe the (T, K, ·) states in T-major order, push the
+        per-episode chains as one ring write in K-major order (reward
+        repeated along each chain, done on the last step), queue the live
+        episodes' update budget, and build the records."""
+        cfg = self.cfg
+        T, k = len(self.steps), len(eps)
+        self.agent.observe_states(states.reshape(T * k, -1))
+        nxt = np.concatenate([states[1:], states[-1:]])
+        done = np.zeros((T, k), np.float32)
+        done[-1] = 1.0
+
+        def order(x):
+            return x.swapaxes(0, 1).reshape(T * k, *x.shape[2:])
+
+        self.replay.push_batch(
+            order(states), order(actions),
+            np.repeat(rewards, T).astype(np.float32),
+            order(nxt), order(done))
+        n_live = int((~warmup).sum())
+        self._queue_updates(self.agent.cfg.updates_per_episode * n_live)
+
+        acc_l, lat_l, rew_l, sig_l = (
+            np.asarray(x, np.float64).tolist()
+            for x in (accs, lats, rewards, sigmas))
+        denom = cfg.reward.target_ratio * self.ref_lat.total_s
+        return [EpisodeRecord(
+            episode=e, reward=rew_l[j], accuracy=acc_l[j],
+            latency_s=lat_l[j], latency_ratio=lat_l[j] / denom,
+            macs_frac=pols[j].macs_fraction(self.specs),
+            bops=pols[j].bops(self.specs) if cfg.track_bops else 0.0,
+            sigma=sig_l[j], policy=pols[j]) for j, e in enumerate(eps)]
+
+    def _chunk_size(self) -> int:
+        return self.batch_size
+
+    def _run_chunk(self, first_episode: int,
+                   k: int) -> List[EpisodeRecord]:
+        return self.run_episode_batch(first_episode, k)

@@ -5,8 +5,9 @@ dimensions, FLOPs/weight shares, sensitivity probes, previous action, and
 latency-budget bookkeeping under the partial policy (AMC's reduced/rest
 features, computed against the hardware latency oracle instead of FLOPs).
 
-The scalar builder only; the batched and traced builders wait for the
-batched engines. Host numpy, so the features match the reference exactly.
+Two builders share the feature definitions: ``build_state`` (scalar) and
+``build_state_batch`` (K episodes); the traced builder waits for the fused
+engine. Host numpy, so the features match the reference exactly.
 """
 from __future__ import annotations
 
@@ -47,6 +48,28 @@ def build_state(specs: Sequence[LayerSpec], t: int, partial: Policy,
     return np.concatenate([static,
                            np.asarray(prev_action, np.float32).ravel(),
                            tail])
+
+
+def build_state_batch(specs: Sequence[LayerSpec], t: int, cur_lat,
+                      sens: SensitivityResult, prev_actions: np.ndarray,
+                      ref_lat: PolicyLatency) -> np.ndarray:
+    """Batched ``build_state``: one (K, state_dim) array for K episodes.
+
+    ``cur_lat`` is a ``BatchedPolicyLatency`` for the K partial policies
+    (the caller evaluates the vectorized oracle each step). All features
+    except ``prev_action`` and the decided-latency share are identical
+    across the batch and cached per (specs, sens, ref_lat, t).
+    """
+    static, this_share, rest_share, ref_total = _static_features(
+        specs, t, sens, ref_lat)
+    prev_actions = np.atleast_2d(np.asarray(prev_actions, np.float32))
+    K = prev_actions.shape[0]
+    decided = (cur_lat.decided_before(t) / ref_total).astype(np.float32)
+    tail = np.column_stack([
+        np.full(K, this_share, np.float32), decided,
+        np.full(K, rest_share, np.float32)])
+    return np.concatenate([np.tile(static, (K, 1)), prev_actions, tail],
+                          axis=1)
 
 
 _static_cache: dict = {}

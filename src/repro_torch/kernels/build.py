@@ -32,7 +32,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "fake_quant": {"fake_quant_launch": [_P, _P, _P, ctypes.c_longlong]
-                   + [_I] * 9 + [_P]},
+                   + [_I] * 9 + [_P],
+                   "fake_quant_slots_launch":
+                   [_P, _P, _P, ctypes.c_longlong, ctypes.c_longlong]
+                   + [_I] * 3 + [ctypes.POINTER(ctypes.c_int)] + [_I] * 6
+                   + [_P]},
     "mlp3": {"mlp3_launch": [_P] * 10 + [_I] * 8 + [_P]},
     "polyak": {"polyak_launch":
                [ctypes.POINTER(ctypes.c_longlong)] * 4
@@ -63,7 +67,9 @@ _SIGNATURES = {
 # "quant_matmul_int8" / "_int4" count every K4 / K5 launch and
 # "quant_matmul_tc" those of either on its tensor-core route.
 # "polyak" counts K3 launches, each over all the leaves it is given.
-LAUNCHES = {"fake_quant": 0, "mlp3": 0, "polyak": 0,
+# "fake_quant_slots" counts K1's launches over K policy slots, apart from
+# "fake_quant" (one tensor).
+LAUNCHES = {"fake_quant": 0, "fake_quant_slots": 0, "mlp3": 0, "polyak": 0,
             "quant_matmul_int8": 0, "quant_matmul_int4": 0,
             "quant_matmul_tc": 0, "flash_attention": 0,
             "flash_attention_tc": 0, "ssd_scan": 0, "ssd_scan_tc": 0,

@@ -48,6 +48,23 @@
 // rows.  16-byte vector loads need C and ld multiples of the vector and
 // x on 16 bytes; any other view takes the scalar path of the same kernels
 // (kernels/fake_quant.py decides per call).
+//
+// Policy slots (the batched validation, K policies at once; what vmap
+// makes of the TPU kernel, which reads each policy's traced bits): x is
+// [K, R, C] with a slot stride sld, and each slot is an independent
+// instance of the function above: its own range over its own R rows, its
+// own bits (clipped to [1, 31]; >= 32 copies the slot), written to slot k
+// of a contiguous [K, R, C] output.  The K bits travel by value in the
+// kernels' parameters (SlotBits, at most FQ_MAX_SLOTS), so the launch
+// needs no device copy.  The grid gains a slot axis (blockIdx.y), so K
+// slots fill the card where one slab grid of a single slot did not.  A
+// slot stride of 0 means one tensor, a weight, shared by every slot: its
+// range is the same for all of them, so pass 1 runs once (the smallest
+// bits stand for all: only whether any slot quantizes matters there) and
+// pass 2 applies it K times at each slot's bits.  A single [R, C] tensor
+// is the case K = 1; a launch of one slot (or pass 1 of a shared range)
+// takes one int (OneBits), so its kernels are the one-tensor kernels,
+// with no table to carry and no slot to find.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -59,6 +76,21 @@
 #define FQ_ROWS (FQ_THREADS / FQ_LANES)     // rows per block step: 32
 #define FQ_WARPS (FQ_THREADS / 32)
 #define FQ_AHEAD 4                          // block steps loaded ahead
+#define FQ_MAX_SLOTS 64                     // policy slots per launch
+
+// The bits of each slot, passed by value in the kernel's parameters: one
+// int where the launch has one slot (or one range to reduce), else a
+// table of FQ_MAX_SLOTS.
+struct OneBits {
+    static constexpr bool ONE = true;       // one slot: blockIdx.y is 0
+    int b;
+    __device__ __forceinline__ int operator[](int) const { return b; }
+};
+struct SlotBits {
+    static constexpr bool ONE = false;
+    int b[FQ_MAX_SLOTS];
+    __device__ __forceinline__ int operator[](int k) const { return b[k]; }
+};
 
 template <typename T> struct Vec;           // elements of T in 16 bytes
 template <> struct Vec<float> { static constexpr int N = 4; };
@@ -262,18 +294,26 @@ __device__ __forceinline__ void slab_apply(const T* __restrict__ x,
     }
 }
 
-template <typename T, bool VEC>
+// Pass 1: per (slab, channel tile) min and max of slot blockIdx.y, into
+// part[slot][2][n_slabs][C].  A slot whose bits are >= 32 needs none.
+template <typename T, bool VEC, typename Bits>
 __global__ void __launch_bounds__(FQ_THREADS)
 fq_minmax(const T* __restrict__ x, float* __restrict__ part, long long ld,
-          int R, int C, int n_ctiles, int slab_rows) {
+          long long sld, int R, int C, int n_ctiles, int slab_rows,
+          const Bits bits) {
     constexpr int N = Vec<T>::N, TILE = FQ_LANES * N;
     __shared__ float s_mn[FQ_WARPS][FQ_LANES * 8], s_mx[FQ_WARPS][FQ_LANES * 8];
     __shared__ float lo[TILE], hi[TILE];
+    const int slot = Bits::ONE ? 0 : blockIdx.y;
+    if (bits[slot] >= 32) return;
+    x += slot * sld;
+    const int n_slabs = gridDim.x / n_ctiles;
+    part += (size_t)slot * 2 * n_slabs * C;
     const Place p = place<T>(blockIdx.x, n_ctiles, R, C, slab_rows);
     float mn[N], mx[N];
     slab_minmax<T, VEC>(x, ld, p, mn, mx);
     block_minmax<T>(mn, mx, s_mn, s_mx, lo, hi);
-    const int slab = blockIdx.x / n_ctiles, n_slabs = gridDim.x / n_ctiles;
+    const int slab = blockIdx.x / n_ctiles;
     const int c = (blockIdx.x % n_ctiles) * TILE + threadIdx.x;
     if (threadIdx.x < TILE && c < C) {
         part[(size_t)slab * C + c] = lo[threadIdx.x];
@@ -281,18 +321,27 @@ fq_minmax(const T* __restrict__ x, float* __restrict__ part, long long ld,
     }
 }
 
-template <typename T, bool VEC>
+// Pass 2: fold the slot's partials (slot 0's where the range is shared)
+// and quantize its slab at its own bits (>= 32: copy).
+template <typename T, bool VEC, typename Bits>
 __global__ void __launch_bounds__(FQ_THREADS)
 fq_apply(const T* __restrict__ x, T* __restrict__ out,
-         const float* __restrict__ part, long long ld, int R, int C,
-         int n_ctiles, int slab_rows, int bits, int ste) {
+         const float* __restrict__ part, long long ld, long long sld, int R,
+         int C, int n_ctiles, int slab_rows, const Bits bits,
+         int shared_range, int ste) {
     constexpr int N = Vec<T>::N, TILE = FQ_LANES * N;
     __shared__ float s_s[TILE], s_z[TILE];
-    const int block = gridDim.x - 1 - blockIdx.x;   // pass 1's last first
+    // pass 1's last blocks first, slots too
+    const int slot = Bits::ONE ? 0 : gridDim.y - 1 - blockIdx.y;
+    const int block = gridDim.x - 1 - blockIdx.x;
+    const int b = bits[slot];
+    x += slot * sld;
+    out += (size_t)slot * R * C;
     const Place p = place<T>(block, n_ctiles, R, C, slab_rows);
-    if (bits < 32) {
+    if (b < 32) {
         const int n_slabs = gridDim.x / n_ctiles;
         const int c0 = (block % n_ctiles) * TILE;
+        part += (size_t)(shared_range ? 0 : slot) * 2 * n_slabs * C;
         // Fold every slab's partials of the tile's channels: min by the
         // first TILE threads, max by the next TILE (TILE <= 128).
         const int which = threadIdx.x / TILE, cc = threadIdx.x % TILE;
@@ -307,80 +356,132 @@ fq_apply(const T* __restrict__ x, T* __restrict__ out,
             (which ? s_z : s_s)[cc] = v;
         }
         __syncthreads();
-        channel_scales<T>(s_s, s_z, bits);
+        channel_scales<T>(s_s, s_z, b);
     }
-    slab_apply<T, VEC>(x, out, ld, C, p, s_s, s_z, bits, ste);
+    slab_apply<T, VEC>(x, out, ld, C, p, s_s, s_z, b, ste);
 }
 
-template <typename T, bool VEC>
+// One slab per slot: reduce and quantize in one launch (>= 32: copy).
+template <typename T, bool VEC, typename Bits>
 __global__ void __launch_bounds__(FQ_THREADS)
-fq_fused(const T* __restrict__ x, T* __restrict__ out, long long ld, int R,
-         int C, int n_ctiles, int slab_rows, int bits, int ste) {
+fq_fused(const T* __restrict__ x, T* __restrict__ out, long long ld,
+         long long sld, int R, int C, int n_ctiles, int slab_rows,
+         const Bits bits, int ste) {
     constexpr int N = Vec<T>::N, TILE = FQ_LANES * N;
     __shared__ float s_mn[FQ_WARPS][FQ_LANES * 8], s_mx[FQ_WARPS][FQ_LANES * 8];
     __shared__ float lo[TILE], hi[TILE];
+    const int slot = Bits::ONE ? 0 : blockIdx.y, b = bits[slot];
+    x += slot * sld;
+    out += (size_t)slot * R * C;
     const Place p = place<T>(blockIdx.x, n_ctiles, R, C, slab_rows);
-    float mn[N], mx[N];
-    slab_minmax<T, VEC>(x, ld, p, mn, mx);
-    block_minmax<T>(mn, mx, s_mn, s_mx, lo, hi);
-    __syncthreads();
-    channel_scales<T>(lo, hi, bits);
-    slab_apply<T, VEC>(x, out, ld, C, p, lo, hi, bits, ste);
+    if (Bits::ONE || b < 32) {   // one slot is fused only below 32
+        float mn[N], mx[N];
+        slab_minmax<T, VEC>(x, ld, p, mn, mx);
+        block_minmax<T>(mn, mx, s_mn, s_mx, lo, hi);
+        __syncthreads();
+        channel_scales<T>(lo, hi, b);
+    }
+    slab_apply<T, VEC>(x, out, ld, C, p, lo, hi, b, ste);
+}
+
+template <typename T, bool VEC, typename Bits>
+static void launch_bits(const T* x, T* out, float* part, long long ld,
+                        long long sld, int K, int R, int C, const Bits& tab,
+                        int least, int ste, int n_slabs, int slab_rows,
+                        int fused, cudaStream_t stream) {
+    const int tile = FQ_LANES * Vec<T>::N;
+    const int n_ctiles = (C + tile - 1) / tile;
+    const dim3 grid(n_ctiles * n_slabs, K);
+    const int shared_range = sld == 0;
+    if (least >= 32) {
+        fq_apply<T, VEC, Bits><<<grid, FQ_THREADS, 0, stream>>>(
+            x, out, nullptr, ld, sld, R, C, n_ctiles, slab_rows, tab, 1, ste);
+    } else if (fused) {
+        fq_fused<T, VEC, Bits><<<grid, FQ_THREADS, 0, stream>>>(
+            x, out, ld, sld, R, C, n_ctiles, slab_rows, tab, ste);
+    } else {
+        // a shared range is reduced once, under the smallest bits
+        if (shared_range)
+            fq_minmax<T, VEC, OneBits><<<grid.x, FQ_THREADS, 0, stream>>>(
+                x, part, ld, sld, R, C, n_ctiles, slab_rows, OneBits{least});
+        else
+            fq_minmax<T, VEC, Bits><<<grid, FQ_THREADS, 0, stream>>>(
+                x, part, ld, sld, R, C, n_ctiles, slab_rows, tab);
+        fq_apply<T, VEC, Bits><<<grid, FQ_THREADS, 0, stream>>>(
+            x, out, part, ld, sld, R, C, n_ctiles, slab_rows, tab,
+            shared_range, ste);
+    }
 }
 
 template <typename T, bool VEC>
-static int launch(const void* x, void* out, float* part, long long ld, int R,
-                  int C, int bits, int ste, int n_slabs, int slab_rows,
-                  int fused, cudaStream_t stream) {
-    const int tile = FQ_LANES * Vec<T>::N;
-    const int n_ctiles = (C + tile - 1) / tile;
-    const dim3 grid(n_ctiles * n_slabs);
+static int launch(const void* x, void* out, float* part, long long ld,
+                  long long sld, int K, int R, int C, const int* bits,
+                  int ste, int n_slabs, int slab_rows, int fused,
+                  cudaStream_t stream) {
+    if (K < 1 || K > FQ_MAX_SLOTS) return (int)cudaErrorInvalidValue;
+    int least = 32;
+    for (int k = 0; k < K; ++k) least = bits[k] < least ? bits[k] : least;
+    if (least < 32 && fused && n_slabs != 1)
+        return (int)cudaErrorInvalidValue;
     const T* xt = static_cast<const T*>(x);
     T* ot = static_cast<T*>(out);
-    if (bits >= 32) {
-        fq_apply<T, VEC><<<grid, FQ_THREADS, 0, stream>>>(
-            xt, ot, nullptr, ld, R, C, n_ctiles, slab_rows, bits, ste);
-    } else if (fused) {
-        if (n_slabs != 1) return (int)cudaErrorInvalidValue;
-        fq_fused<T, VEC><<<grid, FQ_THREADS, 0, stream>>>(
-            xt, ot, ld, R, C, n_ctiles, slab_rows, bits, ste);
+    if (K == 1) {
+        launch_bits<T, VEC>(xt, ot, part, ld, sld, K, R, C, OneBits{bits[0]},
+                            least, ste, n_slabs, slab_rows, fused, stream);
     } else {
-        fq_minmax<T, VEC><<<grid, FQ_THREADS, 0, stream>>>(
-            xt, part, ld, R, C, n_ctiles, slab_rows);
-        fq_apply<T, VEC><<<grid, FQ_THREADS, 0, stream>>>(
-            xt, ot, part, ld, R, C, n_ctiles, slab_rows, bits, ste);
+        SlotBits tab;
+        for (int k = 0; k < K; ++k) tab.b[k] = bits[k];
+        launch_bits<T, VEC>(xt, ot, part, ld, sld, K, R, C, tab, least, ste,
+                            n_slabs, slab_rows, fused, stream);
     }
     return (int)cudaGetLastError();
 }
 
-// x [R, C] (row stride ld elements) f32 (dtype 0), bf16 (1) or f16 (2);
-// out [R, C] contiguous, same dtype; part: 2 * n_slabs * C floats of
-// scratch (unused with one slab or bits >= 32).  vec: x on 16 bytes, C and
-// ld multiples of the 16-byte vector.  fused: one launch (n_slabs == 1).
+// x [K, R, C] (slot stride sld, row stride ld elements; sld 0: one tensor
+// shared by every slot) f32 (dtype 0), bf16 (1) or f16 (2); out [K, R, C]
+// contiguous, same dtype; bits: K host ints (K <= FQ_MAX_SLOTS); part:
+// (sld ? K : 1) * 2 * n_slabs * C floats of scratch (unused with one slab
+// or every bits >= 32).  vec: x on 16 bytes, C, ld and sld multiples of
+// the 16-byte vector.  fused: one launch (n_slabs == 1).
 template <typename T>
 static int launch_as(const void* x, void* out, float* part, long long ld,
-                     int R, int C, int bits, int ste, int n_slabs,
-                     int slab_rows, int vec, int fused, cudaStream_t s) {
-    return vec ? launch<T, true>(x, out, part, ld, R, C, bits, ste, n_slabs,
-                                 slab_rows, fused, s)
-               : launch<T, false>(x, out, part, ld, R, C, bits, ste, n_slabs,
-                                  slab_rows, fused, s);
+                     long long sld, int K, int R, int C, const int* bits,
+                     int ste, int n_slabs, int slab_rows, int vec, int fused,
+                     cudaStream_t s) {
+    return vec ? launch<T, true>(x, out, part, ld, sld, K, R, C, bits, ste,
+                                 n_slabs, slab_rows, fused, s)
+               : launch<T, false>(x, out, part, ld, sld, K, R, C, bits, ste,
+                                  n_slabs, slab_rows, fused, s);
 }
 
+extern "C" int fake_quant_slots_launch(const void* x, void* out, float* part,
+                                       long long ld, long long sld, int K,
+                                       int R, int C, const int* bits,
+                                       int dtype, int ste, int n_slabs,
+                                       int slab_rows, int vec, int fused,
+                                       void* stream) {
+    cudaStream_t s = (cudaStream_t)stream;
+    switch (dtype) {
+        case 0: return launch_as<float>(x, out, part, ld, sld, K, R, C, bits,
+                                        ste, n_slabs, slab_rows, vec, fused,
+                                        s);
+        case 1: return launch_as<__nv_bfloat16>(x, out, part, ld, sld, K, R,
+                                                C, bits, ste, n_slabs,
+                                                slab_rows, vec, fused, s);
+        case 2: return launch_as<__half>(x, out, part, ld, sld, K, R, C, bits,
+                                         ste, n_slabs, slab_rows, vec, fused,
+                                         s);
+        default: return (int)cudaErrorInvalidValue;
+    }
+}
+
+// One [R, C] tensor: the case K = 1.
 extern "C" int fake_quant_launch(const void* x, void* out, float* part,
                                  long long ld, int R, int C, int bits,
                                  int dtype, int ste, int n_slabs,
                                  int slab_rows, int vec, int fused,
                                  void* stream) {
-    cudaStream_t s = (cudaStream_t)stream;
-    switch (dtype) {
-        case 0: return launch_as<float>(x, out, part, ld, R, C, bits, ste,
-                                        n_slabs, slab_rows, vec, fused, s);
-        case 1: return launch_as<__nv_bfloat16>(x, out, part, ld, R, C, bits,
-                                                ste, n_slabs, slab_rows, vec,
-                                                fused, s);
-        case 2: return launch_as<__half>(x, out, part, ld, R, C, bits, ste,
-                                         n_slabs, slab_rows, vec, fused, s);
-        default: return (int)cudaErrorInvalidValue;
-    }
+    return fake_quant_slots_launch(x, out, part, ld, 0, 1, R, C, &bits,
+                                   dtype, ste, n_slabs, slab_rows, vec,
+                                   fused, stream);
 }

@@ -1,9 +1,12 @@
 """K1 wrapper: per-channel fake quantization of a 2-D f32, bf16 or f16
 tensor (``csrc/fake_quant.cu``; replaces the JAX package's
 ``kernels/fake_quant.py::fake_quant_kernel``), plain or with the
-straight-through forward value fused in."""
+straight-through forward value fused in; and of K policy slots at once
+(``fake_quant_slots``: [K, R, C], each slot at its own bits with its own
+range, what ``vmap`` makes of the TPU kernel in the batched validation)."""
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 from typing import NamedTuple
@@ -11,7 +14,7 @@ from typing import NamedTuple
 import torch
 
 from . import build
-from .ref import fake_quant_ref, fake_quant_ste_ref
+from .ref import fake_quant_ref, fake_quant_slots_ref, fake_quant_ste_ref
 
 SMS = 132                   # streaming multiprocessors of an H100 SXM
 THREADS = 256               # FQ_THREADS
@@ -19,6 +22,7 @@ LANES = 8                   # FQ_LANES: threads of 16 bytes per row segment
 ROWS = THREADS // LANES     # rows a block walks per step
 TARGET_BLOCKS = 8 * SMS     # blocks to aim for: ~8 per SM, a short tail
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+MAX_SLOTS = 64              # FQ_MAX_SLOTS: policy slots per launch
 
 
 class Plan(NamedTuple):
@@ -29,15 +33,16 @@ class Plan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=512)
-def plan(R: int, C: int, itemsize: int) -> Plan:
-    """K1's grid for x [R, C] of ``itemsize`` bytes: (row slab x channel
-    tile) blocks, enough slabs to put ~8 blocks on every SM, but no more
+def plan(R: int, C: int, itemsize: int, slots: int = 1) -> Plan:
+    """K1's grid for x [R, C] of ``itemsize`` bytes (each of ``slots``
+    policy slots): (row slab x channel tile) blocks per slot, enough
+    slabs to put ~8 blocks on every SM over all the slots, but no more
     than keep pass 2's fold (each block reads every slab's min and max
     of its channels, 8 bytes per slab) within an eighth of a slab's own
     bytes: n_slabs^2 <= R * itemsize / 64."""
     n_ctiles = _cdiv(C, LANES * (16 // itemsize))
     cap = max(1, math.isqrt(R * itemsize // 64))
-    want = max(1, min(_cdiv(TARGET_BLOCKS, n_ctiles), cap))
+    want = max(1, min(_cdiv(TARGET_BLOCKS, n_ctiles * slots), cap))
     slab_rows = _cdiv(_cdiv(R, want), ROWS) * ROWS
     n_slabs = _cdiv(R, slab_rows)
     return Plan(n_ctiles, n_slabs, slab_rows, n_slabs == 1)
@@ -48,12 +53,12 @@ def _cdiv(a: int, b: int) -> int:
 
 
 def vector_ok(x: torch.Tensor) -> bool:
-    """Whether K1 may read x with 16-byte loads: x on 16 bytes, its row
-    stride and width multiples of the 16-byte vector (else the kernels'
-    scalar path)."""
+    """Whether K1 may read x with 16-byte loads: x on 16 bytes, its width
+    and every stride but the channel's (rows, slots) multiples of the
+    16-byte vector (else the kernels' scalar path)."""
     n = 16 // x.element_size()
-    return (x.data_ptr() % 16 == 0 and x.shape[1] % n == 0
-            and x.stride(0) % n == 0)
+    return (x.data_ptr() % 16 == 0 and x.shape[-1] % n == 0
+            and all(x.stride(i) % n == 0 for i in range(x.dim() - 1)))
 
 
 def fake_quant_2d(x: torch.Tensor, bits: int,
@@ -89,4 +94,53 @@ def fake_quant_2d(x: torch.Tensor, bits: int,
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "fake_quant")
     build.LAUNCHES["fake_quant"] += 1
+    return out
+
+
+def fake_quant_slots(x: torch.Tensor, bits, ste: bool = False
+                     ) -> torch.Tensor:
+    """x [K, R, C] f32, bf16 or f16: K policy slots, each quantized as
+    ``fake_quant_2d`` would quantize it alone, at its own ``bits[k]`` (K
+    host ints, at most ``MAX_SLOTS``; >= 32 copies the slot) with its own
+    per-channel range over its R rows, into a new contiguous [K, R, C]
+    of x's dtype. A slot stride of 0 (``w.expand(K, R, C)``) is one
+    tensor, a weight, shared by every slot: its range is reduced once.
+    Rows need unit channel stride (a row-sliced view is read in place).
+    One launch of the grid ``plan(R, C, itemsize, K)`` per call,
+    whatever the bits. A CPU tensor takes the plain version; a CUDA
+    tensor launches the kernel or raises."""
+    bits = tuple(int(b) for b in bits)
+    K = len(bits)
+    if x.dim() != 3 or x.shape[0] != K:
+        raise ValueError(f"x: expected [K, R, C] with K = {K} slots, got "
+                         f"{tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return fake_quant_slots_ref(x, bits, ste)
+    if K > MAX_SLOTS:
+        raise ValueError(f"{K} slots: K1 takes at most {MAX_SLOTS} a launch")
+    if x.dtype not in DTYPES:
+        raise TypeError(f"x: expected float32, bfloat16 or float16, got "
+                        f"{x.dtype}")
+    build.check_operand(x, "x", 3, dtype=x.dtype, contiguous=False)
+    _, R, C = x.shape
+    if x.stride(2) != 1 and C > 1 or x.stride(1) < C and R > 1:
+        raise ValueError(f"x: expected unit channel stride and rows apart "
+                         f"by >= C, got strides {x.stride()}")
+    out = torch.empty((K, R, C), dtype=x.dtype, device=x.device)
+    if x.numel() == 0:
+        return out
+    sld = x.stride(0) if K > 1 else 0
+    p = plan(R, C, x.element_size(), K)
+    part = torch.empty(
+        0 if p.fused or min(bits) >= 32
+        else (K if sld else 1) * 2 * p.n_slabs * C,
+        dtype=torch.float32, device=x.device)
+    err = build.lib("fake_quant").fake_quant_slots_launch(
+        x.data_ptr(), out.data_ptr(), part.data_ptr() or None,
+        x.stride(1) if R > 1 else C, sld, K, R, C, (ctypes.c_int * K)(*bits),
+        DTYPES[x.dtype], int(ste), p.n_slabs, p.slab_rows,
+        int(vector_ok(x)), int(p.fused),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, "fake_quant_slots")
+    build.LAUNCHES["fake_quant_slots"] += 1
     return out

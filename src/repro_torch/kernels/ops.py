@@ -85,6 +85,21 @@ def fake_quant_ste(x: torch.Tensor, bits: int) -> torch.Tensor:
     return _FakeQuantSTE.apply(x, bits)
 
 
+def fake_quant_slots(x: torch.Tensor, bits) -> torch.Tensor:
+    """K1 over K policy slots in its straight-through mode, x [K, R, C]
+    (f32, bf16 or f16; ``w.expand(K, R, C)`` for one tensor shared by
+    every slot): slot k's ``(xf + (xq - xf)).to(x.dtype)`` at ``bits[k]``
+    with its own range, one launch for the K slots. A view whose rows
+    K1 cannot read in place (channel stride not 1, such as the tied
+    head's ``embed.T``) is copied once, however many slots share it. No
+    gradient: the batched validation runs under ``no_grad``."""
+    _, R, C = x.shape
+    if x.stride(2) != 1 and C > 1 or x.stride(1) < C and R > 1:
+        x = x[0].contiguous().expand_as(x) if x.stride(0) == 0 \
+            else x.contiguous()
+    return _fq.fake_quant_slots(x, bits, ste=True)
+
+
 class _MLP3(torch.autograd.Function):
     """K2 forward; the backward is plain tensor ops over the residuals the
     kernel emits (the JAX package's ``ops._mlp3_vjp_bwd``: relu' = h > 0,

@@ -37,6 +37,17 @@ def fake_quant_ste_ref(x: torch.Tensor, bits: int) -> torch.Tensor:
     return (xf + (fake_quant_ref(xf, bits) - xf)).to(x.dtype)
 
 
+def fake_quant_slots_ref(x: torch.Tensor, bits, ste: bool = False
+                         ) -> torch.Tensor:
+    """K1 over K policy slots: x [K, R, C] -> [K, R, C] in x's dtype, slot
+    k quantized at ``bits[k]`` with its own per-channel range over its own
+    R rows (``fake_quant_ref``, or ``fake_quant_ste_ref`` with ``ste``,
+    slot by slot); a slot stride of 0 (one tensor shared by every slot)
+    gives every slot the same range."""
+    fn = fake_quant_ste_ref if ste else fake_quant_ref
+    return torch.stack([fn(x[k], int(b)) for k, b in enumerate(bits)])
+
+
 def mlp3_ref(x, w1, b1, w2, b2, w3, b3, sigmoid: bool):
     """K2's function: the 3-layer trunk, returning (y, h1, h2)."""
     h1 = torch.relu(x @ w1 + b1)

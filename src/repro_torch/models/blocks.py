@@ -5,7 +5,10 @@ against its conv and state cache).
 
 Compression hooks: ``cspec`` — a dict of quant specs
 (``{"w_bits","a_bits"}``, host ints) and float 0/1 pruning masks; ``None``
-means uncompressed. The MoE block waits for its slice.
+means uncompressed. A batched cspec (K policies: bits as K-tuples, masks
+[K, n], the policies' rows folded into the batch axis) takes the same
+paths: ``layers.project`` and ``layers.apply_mask`` take either form.
+The MoE block waits for its slice.
 """
 from __future__ import annotations
 
@@ -13,7 +16,6 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
-from ..core.quantization import fake_quant_act, fake_quant_weight
 from ..kernels import ops, ref
 from . import layers as L
 
@@ -149,9 +151,7 @@ def apply_mlp(p, x, cfg: ArchConfig, cspec=None):
     up = L.linear(p["w_up"], x, qs_up)
     gate = L.linear(p["w_gate"], x, qs_up) if "w_gate" in p else up
     h = L.mlp_act(cfg.mlp, gate, up)
-    if ff_mask is not None:
-        h = h * ff_mask.to(h.dtype)
-    return L.linear(p["w_down"], h, qs_down)
+    return L.linear(p["w_down"], L.apply_mask(h, ff_mask), qs_down)
 
 
 # ===========================================================================
@@ -217,9 +217,8 @@ def ssd_inputs(p, x, cfg: ArchConfig, cspec, conv_state):
     dt_bias), dA = dt · -exp(A_log), xh_dt = xh · dt."""
     s = cfg.ssm
     d_inner, nheads, conv_dim = ssm_dims(cfg)
-    qs_in = _get(cspec, "in")
-    xin, w_in = L.apply_quant(x, L.getw(p, "in_proj", x.dtype), qs_in)
-    proj = torch.einsum("bsd,dk->bsk", xin, w_in.to(x.dtype))
+    (proj,) = L.project(x, _get(cspec, "in"),
+                        L.getw(p, "in_proj", x.dtype))
     z, xbc, dt = torch.split(proj, [d_inner, conv_dim, nheads], -1)
     y_conv, new_conv = L.causal_conv1d(xbc * torch.sigmoid(xbc),
                                        p["conv_w"], conv_state)
@@ -251,16 +250,13 @@ def _ssm_inner(p, x, cfg: ArchConfig, cspec, conv_state, ssm_state, *,
         y, new_state = ssd_chunked(xh_dt, dA, Bm, Cm, cfg.ssm.chunk_size,
                                    ssm_state)
     y = y + p["D"][None, None, :, None] * xh.float()
-    head_mask = _get(cspec, "head_mask")
-    if head_mask is not None:
-        y = y * head_mask[None, None, :, None]
+    y = L.apply_mask(y, _get(cspec, "head_mask"), trailing=1)
     y = y.reshape(*x.shape[:2], d_inner).to(x.dtype)
     # gated RMSNorm (mamba2)
     y = L.apply_norm("rmsnorm", {"scale": p["norm_scale"]},
                      y * (z * torch.sigmoid(z)))
-    yq, w_out = L.apply_quant(y, L.getw(p, "out_proj", y.dtype),
-                              _get(cspec, "out"))
-    out = torch.einsum("bsd,dk->bsk", yq, w_out.to(y.dtype))
+    (out,) = L.project(y, _get(cspec, "out"),
+                       L.getw(p, "out_proj", y.dtype))
     return out, new_conv, new_state
 
 
@@ -346,17 +342,9 @@ def rglru_inputs(p, x, cfg: ArchConfig, cspec, conv_state=None):
     window after these tokens. In order: the fake-quantized input (once)
     and ``w_x``, ``w_y``, the two projections, the causal conv over x w_x
     from ``conv_state``, the gates."""
-    qs_in = _get(cspec, "in")
-    w_x = L.getw(p, "w_x", x.dtype)
-    w_y = L.getw(p, "w_y", x.dtype)
-    xin = x
-    if qs_in is not None:
-        xin = fake_quant_act(xin, qs_in["a_bits"])
-        w_x = fake_quant_weight(w_x, qs_in["w_bits"])
-        w_y = fake_quant_weight(w_y, qs_in["w_bits"])
-    y = F.gelu(torch.einsum("bsd,dw->bsw", xin, w_y.to(x.dtype)),
-               approximate="tanh")
-    u = torch.einsum("bsd,dw->bsw", xin, w_x.to(x.dtype))
+    u, y = L.project(x, _get(cspec, "in"), L.getw(p, "w_x", x.dtype),
+                     L.getw(p, "w_y", x.dtype))
+    y = F.gelu(y, approximate="tanh")
     u, new_conv = L.causal_conv1d(u, p["conv_w"], conv_state)
     return _rglru_gates(p, u), (y, new_conv)
 
@@ -364,13 +352,9 @@ def rglru_inputs(p, x, cfg: ArchConfig, cspec, conv_state=None):
 def _rglru_out(p, h, y, cspec):
     """The back half: g = h y (width-masked), then the fake-quantized
     output projection."""
-    g = h * y
-    wmask = _get(cspec, "width_mask")
-    if wmask is not None:
-        g = g * wmask.to(g.dtype)
-    gq, w_out = L.apply_quant(g, L.getw(p, "w_out", g.dtype),
-                              _get(cspec, "out"))
-    return torch.einsum("bsw,wd->bsd", gq, w_out.to(g.dtype))
+    g = L.apply_mask(h * y, _get(cspec, "width_mask"))
+    (out,) = L.project(g, _get(cspec, "out"), L.getw(p, "w_out", g.dtype))
+    return out
 
 
 def apply_rglru(p, x, cfg: ArchConfig, cspec=None):

@@ -5,6 +5,13 @@ Every matmul-bearing primitive takes an optional quant spec ``qs`` —
 masks, so a Galen compression policy can flow through the whole model.
 With ``qs=None``/``mask=None`` the hooks vanish.
 
+A batched quant spec carries K policies at once (the batched
+validation): its bits are K-tuples and its masks [K, n]. The K policies'
+rows are folded into the batch axis (slot k is the k-th block of rows),
+so every other op runs unchanged; only the quantizers, the products that
+follow them (``project``) and the masks (``apply_mask``) see the policy
+axis, and each takes either form of spec or mask.
+
 Weight layout convention: ``[in, out]`` (biases ``[out]``), as in the JAX
 package, so fake-quant ranges are per output channel on the last axis.
 The large products stay ``torch.einsum``/``matmul``, as the JAX package
@@ -18,7 +25,8 @@ from typing import Optional
 import torch
 
 from ..core.deploy import unpack_int4_weight
-from ..core.quantization import fake_quant_act, fake_quant_weight
+from ..core.quantization import (fake_quant_act, fake_quant_act_slots,
+                                 fake_quant_weight, fake_quant_weight_slots)
 from ..kernels import ops
 
 
@@ -42,12 +50,55 @@ def linear_init(gen: torch.Generator, d_in: int, d_out: int, dtype, device,
     return {"w": w}
 
 
-def apply_quant(x: torch.Tensor, w: torch.Tensor, qs: Optional[dict]):
-    """Apply activation/weight fake quantization per the spec."""
-    if qs is not None:
-        x = fake_quant_act(x, qs["a_bits"])
-        w = fake_quant_weight(w, qs["w_bits"])
-    return x, w
+def project(x: torch.Tensor, qs: Optional[dict], *ws: torch.Tensor
+            ) -> list:
+    """x [..., d_in] times each weight of ``ws`` ([d_in, d_out] each),
+    under the quant spec ``qs``: none, a scalar spec, or a batched one
+    (bits as K-tuples, the K policies' rows folded into the batch axis:
+    slot k's rows quantized at ``a_bits[k]`` over their own range, each
+    weight at ``w_bits[k]``, then one product over the slots,
+    ``product_slots``). x is quantized once for all of ``ws``. Returns
+    one product per weight, in their order."""
+    if qs is None:
+        return [torch.einsum("...i,io->...o", x, w.to(x.dtype)) for w in ws]
+    if not isinstance(qs["w_bits"], tuple):
+        xq = fake_quant_act(x, qs["a_bits"])
+        return [torch.einsum("...i,io->...o", xq, fake_quant_weight(
+            w, qs["w_bits"]).to(x.dtype)) for w in ws]
+    K = len(qs["a_bits"])
+    xs = fake_quant_act_slots(x.reshape(K, -1, x.shape[-1]), qs["a_bits"])
+    return [product_slots(xs, fake_quant_weight_slots(w, qs["w_bits"]),
+                          x.dtype).reshape(*x.shape[:-1], w.shape[-1])
+            for w in ws]
+
+
+def product_slots(xs: torch.Tensor, ws: torch.Tensor,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """xs [K, rows, d_in] by the K slots' weights ws [K, d_in, d_out]
+    (cast to ``dtype``): one bmm, or one product of all K·rows rows where
+    the slots share one weight (slot stride 0). In bf16 each slot equals
+    the scalar forward of its policy on the card; in f32 the bmm sums in
+    another order than the scalar path's 2-D product, and a last-bit
+    difference moves whole fake-quant steps downstream
+    (``tools/batched_products.py``)."""
+    if ws.stride(0) == 0:
+        return torch.matmul(xs, ws[0].to(dtype))
+    return torch.bmm(xs, ws.to(dtype))
+
+
+def apply_mask(x: torch.Tensor, mask: Optional[torch.Tensor],
+               trailing: int = 0) -> torch.Tensor:
+    """x times a pruning mask on axis -(1 + trailing): [n], or [K, n] for
+    K policies whose rows are folded into the batch axis (slot k's mask
+    on the k-th block of rows). ``None`` leaves x as it is."""
+    if mask is None:
+        return x
+    m = mask.reshape(mask.shape + (1,) * trailing).to(x.dtype)
+    if mask.dim() == 1:
+        return x * m
+    tail = x.shape[x.dim() - 1 - trailing:]
+    return (x.reshape((mask.shape[0], -1) + tuple(tail)) * m[:, None]
+            ).reshape(x.shape)
 
 
 def materialize_weight(p, dtype: torch.dtype):
@@ -77,9 +128,7 @@ def getw(container: dict, name: str, dtype: torch.dtype):
 
 def linear(p: dict, x: torch.Tensor, qs: Optional[dict] = None,
            out_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    w = materialize_weight(p, x.dtype)
-    x, w = apply_quant(x, w, qs)
-    y = torch.einsum("...i,io->...o", x, w.to(x.dtype))
+    (y,) = project(x, qs, materialize_weight(p, x.dtype))
     if "b" in p:
         y = y + p["b"].to(y.dtype)
     if out_mask is not None:
@@ -166,7 +215,8 @@ def attention(q, k, v, *, causal: bool, window: int = 0,
     For S <= max(q_chunk, 512) one dense block; otherwise the chunked
     online softmax: K6 (``ops.flash_attention``, on transposed views, no
     copy) for a CUDA tensor, ``attention_chunked`` for a CPU one.
-    ``head_mask`` applies after either, as in the JAX package."""
+    ``head_mask`` ([H], or [K, H] for K policies' rows folded into B)
+    applies after either, as in the JAX package."""
     B, S, H, D = q.shape
     KV = k.shape[2]
     G = H // KV
@@ -188,9 +238,7 @@ def attention(q, k, v, *, causal: bool, window: int = 0,
         o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                 v.transpose(1, 2), causal=causal,
                                 window=window).transpose(1, 2).to(v.dtype)
-    if head_mask is not None:
-        o = o * head_mask[None, None, :, None].to(o.dtype)
-    return o
+    return apply_mask(o, head_mask, trailing=1)
 
 
 def attention_chunked(q, k, v, *, causal: bool, window: int = 0,
@@ -273,9 +321,7 @@ def decode_attention(q, k_cache, v_cache, cache_len: int, *,
     p = torch.softmax(s, -1)
     o = torch.einsum("bkgl,blkd->bkgd", p.to(v_cache.dtype), v_cache)
     o = o.reshape(B, 1, H, D)
-    if head_mask is not None:
-        o = o * head_mask[None, None, :, None].to(o.dtype)
-    return o
+    return apply_mask(o, head_mask, trailing=1)
 
 
 # ---------------------------------------------------------------------------

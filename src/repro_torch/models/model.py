@@ -6,6 +6,12 @@ RG-LRU cache). Each layer dispatches on its kind (``cfg.layer_kinds[i]``).
 The JAX package stacks homogeneous layers on a leading axis and scans over
 them; here ``params["blocks"]``, ``cspec["blocks"]`` and the cache are
 lists with one entry per layer, and each pass is a Python loop.
+
+A batched cspec (``cspec["slots"]`` = K policies; what the JAX package
+gets from ``vmap`` over stacked cspecs) runs the K policies in one
+forward: the policies' rows are folded into the batch axis, each slot
+gathers its tokens from its own quantized embedding table, and
+``forward`` returns [K, B, S, V].
 """
 from __future__ import annotations
 
@@ -130,6 +136,14 @@ def _embed_inputs(cfg: ArchConfig, params, tokens, cspec) -> torch.Tensor:
     compute = L.dtype_of(cfg.compute_dtype)
     table = L.getw(params, "embed", compute)
     ebits = None if cspec is None else cspec.get("embed_bits")
+    K = None if cspec is None else cspec.get("slots")
+    if K:
+        # [K, V, d] tables (a view of the one table where no slot
+        # quantizes it); slot k's rows are the k-th block of the batch
+        tables = table.expand(K, *table.shape) if ebits is None \
+            else L.fake_quant_weight_slots(table, ebits)
+        return tables[:, tokens].reshape(-1, *tokens.shape[1:],
+                                         table.shape[-1]).to(compute)
     if ebits is not None:
         table = L.fake_quant_weight(table, ebits)
     return table[tokens].to(compute)
@@ -139,6 +153,15 @@ def _unembed(cfg: ArchConfig, params, x, cspec) -> torch.Tensor:
     w = L.getw(params, "embed", x.dtype).T if cfg.tie_embeddings \
         else L.getw(params, "unembed", x.dtype)
     hbits = None if cspec is None else cspec.get("head_bits")
+    K = None if cspec is None else cspec.get("slots")
+    if K:
+        # the tied transpose is copied once (ops.fake_quant_slots), not
+        # once per slot
+        ws = w.expand(K, *w.shape) if hbits is None \
+            else L.fake_quant_weight_slots(w, hbits)
+        xs = x.reshape(K, -1, x.shape[-1])
+        return L.product_slots(xs, ws, x.dtype).float().reshape(
+            K, -1, *x.shape[1:-1], w.shape[-1])
     if hbits is not None:
         w = L.fake_quant_weight(w, hbits)
     return torch.einsum("bsd,dv->bsv", x, w.to(x.dtype)).float()
@@ -146,7 +169,8 @@ def _unembed(cfg: ArchConfig, params, x, cspec) -> torch.Tensor:
 
 def forward(cfg: ArchConfig, params, tokens, cspec=None,
             positions=None) -> torch.Tensor:
-    """tokens [B, S] int64 -> logits [B, S, vocab] (f32)."""
+    """tokens [B, S] int64 -> logits [B, S, vocab] (f32); [K, B, S, vocab]
+    for a batched cspec of K policies."""
     _check_supported(cfg)
     x = _embed_inputs(cfg, params, tokens, cspec)
     if positions is None:

@@ -8,8 +8,9 @@ machine that has only PyTorch. There, skip the repo's ``conftest.py``
 
     PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
 
-Tolerances: K1 (fake-quant, f32 and bf16, plain and straight-through)
-and K3 (Polyak) exact — the plain versions run the same correctly
+Tolerances: K1 (fake-quant, f32 and bf16, plain and straight-through;
+one tensor or K policy slots, each slot against the plain version of
+its own slice) and K3 (Polyak) exact — the plain versions run the same correctly
 rounded f32 operations, one PyTorch kernel each;
 K2 (3-layer MLP) forward and backward ≤1e-5 at the DDPG init's scales
 (f32 sums in another order; no TF32); K4/K5 (quantized matmul) exact —
@@ -45,6 +46,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import build, ops as tops  # noqa: E402
 from repro_torch.kernels.fake_quant import fake_quant_2d  # noqa: E402
+from repro_torch.kernels.fake_quant import fake_quant_slots  # noqa: E402
 from repro_torch.kernels.fake_quant import plan as fake_quant_plan  # noqa: E402
 from repro_torch.kernels.fake_quant import (  # noqa: E402
     vector_ok as fake_quant_vector_ok)
@@ -57,6 +59,7 @@ from repro_torch.kernels.rglru_scan import rglru_scan  # noqa: E402
 from repro_torch.kernels.ssd_scan import route as ssd_route  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
 from repro_torch.kernels.ref import (fake_quant_ref,  # noqa: E402
+                                     fake_quant_slots_ref,
                                      fake_quant_ste_ref, mlp3_ref,
                                      polyak_ref)
 
@@ -154,6 +157,67 @@ def test_gpu_fake_quant_reads_row_views_in_place(cuda, dtype, offset, width):
         want = (fake_quant_ste_ref if ste else fake_quant_ref)(
             x.contiguous(), 4)
         assert torch.equal(got, want)
+
+
+SLOT_BITS = (1, 4, 32, 8, 31, 2, 6, 3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K,R,C", [(8, 3072, 256), (8, 3072, 1024),
+                                   (8, 256, 1024), (3, 7, 33), (8, 8, 896),
+                                   (64, 96, 64), (2, 3001, 257)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("shared", [False, True])
+def test_gpu_fake_quant_slots_exact(cuda, K, R, C, dtype, shared):
+    """K1 over K policy slots, plain and straight-through, one launch each,
+    bit for bit the plain version slot by slot: each slot its own bits
+    (some 32: copied) and its own range (a planted outlier in a different
+    channel per slot), several slabs or one, ragged widths; and a weight
+    shared by every slot (slot stride 0)."""
+    dt = getattr(torch, dtype)
+    bits = tuple(SLOT_BITS[k % len(SLOT_BITS)] for k in range(K))
+    if shared:
+        x = _planted_range(torch.from_numpy(_normal(K, (R, C))).to(cuda),
+                           dt).expand(K, R, C)
+    else:
+        x = torch.from_numpy(_normal(K, (K, R, C))).to(cuda)
+        for k in range(K):
+            x[k, k % R, k % C] = 9.0 + k
+        x = x.to(dt)
+    for ste in (False, True):
+        before = build.LAUNCHES["fake_quant_slots"]
+        got = fake_quant_slots(x, bits, ste=ste)
+        assert build.LAUNCHES["fake_quant_slots"] == before + 1
+        assert got.dtype == dt and got.shape == (K, R, C)
+        assert torch.equal(got, fake_quant_slots_ref(x, bits, ste))
+        fn = fake_quant_ste_ref if ste else fake_quant_ref
+        for k in (0, K - 1):
+            assert torch.equal(got[k], fn(x[k], bits[k]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gpu_fake_quant_slots_reads_views_in_place(cuda, dtype):
+    """Slots of a row-sliced view (16-byte loads where its start and
+    strides allow, the scalar path where its start is off 16 bytes), and
+    the tied head's ``embed.T`` expanded over the slots through
+    ``ops.fake_quant_slots`` (copied once): all exact. Every slot at 32
+    copies; more than 64 slots are refused."""
+    dt = getattr(torch, dtype)
+    wide = torch.from_numpy(_normal(5, (4, 300, 136))).to(cuda).to(dt)
+    bits = (4, 32, 2, 8)
+    for offset in (8, 3):
+        x = wide[:, :, offset:offset + 128]
+        assert fake_quant_vector_ok(x) == (offset == 8)
+        assert torch.equal(fake_quant_slots(x, bits, ste=True),
+                           fake_quant_slots_ref(x.contiguous(), bits, True))
+    emb = torch.from_numpy(_normal(6, (256, 256))).to(cuda).to(dt)
+    head = emb.T.expand(4, 256, 256)
+    assert torch.equal(tops.fake_quant_slots(head, bits),
+                       fake_quant_slots_ref(head, bits, True))
+    assert torch.equal(fake_quant_slots(wide, (32,) * 4), wide)
+    with pytest.raises(ValueError, match="at most 64"):
+        fake_quant_slots(emb.expand(65, 256, 256), (4,) * 65)
 
 
 @pytest.mark.gpu

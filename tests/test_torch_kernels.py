@@ -38,7 +38,8 @@ from repro.kernels import ops as jops  # noqa: E402
 
 from repro_torch.core import quantization as tq  # noqa: E402
 from repro_torch.kernels import build, ops as tops  # noqa: E402
-from repro_torch.kernels.fake_quant import fake_quant_2d  # noqa: E402
+from repro_torch.kernels.fake_quant import (fake_quant_2d,  # noqa: E402
+                                            fake_quant_slots)
 from repro_torch.kernels import fake_quant as tfq  # noqa: E402
 from repro_torch.kernels import mlp_fused as tmf  # noqa: E402
 from repro_torch.kernels.mlp_fused import mlp3_plan  # noqa: E402
@@ -53,7 +54,8 @@ from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels.ssd_scan import (check_tma_terms,  # noqa: E402
                                           route as ssd_route, ssd_scan)
 from repro_torch.kernels.ref import (attention_ref,  # noqa: E402
-                                     fake_quant_ref, mlp3_ref,
+                                     fake_quant_ref, fake_quant_slots_ref,
+                                     mlp3_ref,
                                      polyak_ref, quant_matmul_ref,
                                      rglru_scan_ref, ssd_chunked_ref)
 
@@ -423,6 +425,9 @@ def test_wrappers_route_cpu_to_plain_without_launching():
     build.reset_launches()
     x = torch.from_numpy(_normal(0, (8, 4)))
     assert torch.equal(fake_quant_2d(x, 4), fake_quant_ref(x, 4))
+    xs = x.expand(3, 8, 4)
+    assert torch.equal(fake_quant_slots(xs, (4, 32, 2)),
+                       fake_quant_slots_ref(xs, (4, 32, 2)))
     t, p = torch.ones(10), torch.zeros(10)
     assert torch.equal(polyak_leaves([t], [p], 0.5)[0],
                        polyak_ref(t, p, 0.5))
@@ -450,7 +455,8 @@ def test_wrappers_route_cpu_to_plain_without_launching():
     h0 = torch.from_numpy(_normal(6, (2, 4)))
     assert torch.equal(rglru_scan(a, bc[:, :, :4].expand(2, 8, 4), h0),
                        rglru_scan_ref(a, bc[:, :, :4].expand(2, 8, 4), h0))
-    assert build.LAUNCHES == {"fake_quant": 0, "mlp3": 0, "polyak": 0,
+    assert build.LAUNCHES == {"fake_quant": 0, "fake_quant_slots": 0,
+                              "mlp3": 0, "polyak": 0,
                               "quant_matmul_int8": 0,
                               "quant_matmul_int4": 0, "quant_matmul_tc": 0,
                               "flash_attention": 0,
@@ -464,6 +470,8 @@ def test_wrappers_refuse_other_devices():
     x = torch.empty((8, 4), device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         fake_quant_2d(x, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        fake_quant_slots(x.expand(2, 8, 4), (4, 8))
     with pytest.raises(ValueError, match="CUDA"):
         polyak_leaves([torch.empty(4, device="meta")],
                       [torch.empty(4, device="meta")], 0.1)

@@ -4,7 +4,7 @@ goes in the compressed prefills, and its design choices taken back one at
 a time; and K2 (the DDPG MLP) at the DDPG batches.
 
     python3 tools/k1_ablation.py [--src DIR]
-        [--sections entry,prefill,ablation,k2]
+        [--sections entry,prefill,ablation,k2,decode]
 
 ``--src`` imports the port from another tree (default: this checkout's
 ``src``), so that one call can time a parent commit unpacked beside this
@@ -33,6 +33,12 @@ ablation  This tree only: K1 at the path's shapes with its grid forced
           launch (one slab, the block reduces and quantizes its whole
           column tile); two launches over one slab; half, twice and four
           times the slabs.
+decode    The one-slab K1 launches of a decode step (8 rows: one launch
+          reduces and quantizes each column tile, ``plan(...).fused``)
+          of the LM testbed, qwen2-0.5b and mamba2-780m under a seeded
+          pq policy: device time per call of ``core.quantization
+          .fake_quant`` at each distinct (shape, bits), 200 calls after
+          20 warm-ups; run it on two trees to compare them.
 k2        This tree only: K2, the critic at B 64 and 128: the
           committed kernel (8 rows per cluster), and ``csrc/mlp3.cu``
           changed by a text substitution (the script fails if one no
@@ -216,6 +222,36 @@ K2_VARIANTS = {f"{r} rows per cluster": [(K2_ROWS, f"#define MLP_BM {r}")]
                for r in (4, 16)} | K2_VARIANTS
 
 
+def decode(cs, torch):
+    from repro_torch.configs.testbed import LM_CFG
+    from repro_torch.core.compress import CompressibleLM
+    from repro_torch.core.quantization import fake_quant
+    from repro_torch.kernels.fake_quant import plan
+    from repro_torch.models import model as M
+    from repro_torch.models.registry import get_config
+    rows = 8
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for name, cfg in (("testbed", LM_CFG),
+                      ("qwen2-0.5b", get_config("qwen2-0.5b")),
+                      ("mamba2-780m", get_config("mamba2-780m"))):
+        cm = CompressibleLM(cfg, M.init(cfg, seed=0, device="cuda"))
+        calls = cs.k1_calls(cfg, cm.build_cspec(cs.seeded_policy(cm, 0)),
+                            rows)
+        del cm
+        gc.collect()
+        torch.cuda.empty_cache()
+        for shape, bits in sorted(set(calls)):
+            dtype = cs.k1_call_dtype(cfg, shape, rows)
+            x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            if not plan(*shape, x.element_size()).fused:
+                continue
+            ms, paced = cs.cuda_ms(lambda: fake_quant(x, bits), 200, 20)
+            cs.log(f"[decode] {name} {list(shape)} {str(dtype)[6:]} {bits} "
+                   f"bits x{calls.count((shape, bits))} a step: "
+                   f"{ms * 1e3:.2f} us per call ({paced * 1e3:.2f} paced); "
+                   f"{cs.CARD}")
+
+
 def k2_variants(build) -> dict:
     """``csrc/mlp3.cu`` with each variant's substitutions, compiled in
     parallel; name -> loaded library."""
@@ -281,7 +317,8 @@ def k2_ablation(cs, torch):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--src", default=str(ROOT / "src"))
-    ap.add_argument("--sections", default="entry,prefill,ablation,k2")
+    ap.add_argument("--sections",
+                    default="entry,prefill,ablation,k2,decode")
     args = ap.parse_args()
     sys.path.insert(0, args.src)
     import torch
@@ -312,6 +349,8 @@ def main() -> int:
         ablation(cs, torch)
     if "k2" in sections:
         k2_ablation(cs, torch)
+    if "decode" in sections:
+        decode(cs, torch)
     return 0
 
 
