@@ -73,16 +73,35 @@ Phases, each fatal on failure (non-zero exit, no result line):
    in place (f32), each slot's f32 accuracy is within 3% of its scalar
    engine's and its bf16 argmaxes agree with its scalar forward's on
    >= 97%. Episodes/s beside phase 4's and the same ``[time]`` split.
-6. Calibration path: ``repro_torch.launch.calibrate.run`` at full width
+6. ResNet path: the pq ``CompressionSearch`` (12 episodes, warmup 4, 16
+   updates per episode) and ``BatchedCompressionSearch`` (K 8, 16
+   episodes, the scalar phase's seeds and sensitivity table) on ResNet18
+   at CIFAR-10 widths (``RESNET18_CIFAR``: seeded f32 weights, 256
+   seeded blob images, the per-image oracle context ``IMG_CTX``). Launch
+   counts reset after the sensitivity analysis and read after the
+   episodes: the one-tensor K1 exactly once per fake-quant site of each
+   validation (``resnet_k1_calls``), K3 once per DDPG step, K2 launched;
+   on the batched engine K1 over slots once per site, the one-tensor K1
+   never. K1 exact at every (shape, bits) the episodes gave it (over
+   slots in the batched path's layouts); on 8 images the kernel path
+   equals the plain path bit for bit (cuDNN deterministic for that
+   check), the device's uncompressed forward agrees with the CPU path,
+   each batched slot's accuracy is within 3% of its scalar engine's.
+   Then ms per validation forward (raw and under a seeded policy, with K1
+   launches per forward), a profiled forward's copy kernels (exactly one
+   per conv weight turned OIHW plus one per input padded for XLA's
+   asymmetric SAME), K1's µs at each site shape beside its bound, and
+   the deployed raw forward at batch 1.
+7. Calibration path: ``repro_torch.launch.calibrate.run`` at full width
    (unit, kernel and whole-model deploy-path timings, the fitted table,
    the int8/int4 demo rows), launch counts reset before and read after;
    K4 and K5 must have launched, all on the tensor-core route, and every
    time must be finite.
-7. Measured search: a pq ``CompressionSearch`` with
+8. Measured search: a pq ``CompressionSearch`` with
    ``oracle_mode="measured"`` on the fitted table; its top-K rows
    (predicted vs measured ratio) must be finite and its reference
    latency the calibrated oracle's.
-8. Prefill: ``make_prefill_step`` on qwen2-0.5b at full width (24
+9. Prefill: ``make_prefill_step`` on qwen2-0.5b at full width (24
    layers, d 896, vocab 151,936; seeded random weights) over 1 x 32,768
    seeded tokens, uncompressed and under a seeded pq policy. First K6 on
    one layer's q/k/v at that shape against the chunked plain branch
@@ -94,13 +113,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
    kernels and the oracle's predicted compressed/reference ratio beside
    the measured one. The whole prefill at the SMOKE widths and 1,100
    tokens (f32) must agree with the plain CPU path.
-9. Decode: ``decode_loop`` and ``sustained_throughput`` on the same
+10. Decode: ``decode_loop`` and ``sustained_throughput`` on the same
    model, batch 8, 64 steps, max_len 256, KV cache 16 and 8 bits, raw
    and under the policy; tok/s per variant, then one profiled 8-step
    decode each (device busy share, kernels per step). At the SMOKE
    widths (f32) the greedy tokens must be the prefill forward's
    argmaxes.
-10. Mamba-2 prefill: ``make_prefill_step`` on mamba2-780m at full width
+11. Mamba-2 prefill: ``make_prefill_step`` on mamba2-780m at full width
    (48 SSD layers, d 1536, d_inner 3072, 48 heads of 64, state 128,
    vocab 50,280; seeded random weights) over 1 x 32,768 tokens, raw and
    under a seeded pq policy (SSD heads pruned at ``ssm_in``). First K8
@@ -108,17 +127,17 @@ Phases, each fatal on failure (non-zero exit, no result line):
    plain branch (each (token, head) row within ``K8_ROW_TOL``, the final
    state within 2e-4), timed beside it and its bounds (f32 on the CUDA
    cores, split TF32 on the tensor cores), its route and its four
-   kernels' times (profiler); then, as in phase 8, a warm-up and one
+   kernels' times (profiler); then, as in phase 9, a warm-up and one
    timed forward each, with exactly 48 K8 launches, all 48 on the
    tensor-core route, and ``k1_calls``' count of K1 launches per
    forward. At the SMOKE
    widths (f32, 2 x 1,100 tokens, chunk 32: a ragged last chunk) the
    device forward's argmaxes equal the plain CPU path's.
-11. Mamba-2 decode: ``decode_loop`` and ``sustained_throughput``, batch 8,
+12. Mamba-2 decode: ``decode_loop`` and ``sustained_throughput``, batch 8,
    64 steps, the conv and state cache (no KV cache, so no int8 variant),
    raw and under the policy; one profiled 8-step decode each. At the
    SMOKE widths (f32) the greedy tokens are the prefill's argmaxes.
-12. RecurrentGemma prefill: ``make_prefill_step`` on recurrentgemma-2b at
+13. RecurrentGemma prefill: ``make_prefill_step`` on recurrentgemma-2b at
    full width (26 layers in a (rglru, rglru, attn) pattern: 18 RG-LRU
    layers of width 2,560 and 8 local-attention layers, 10 / 1 heads of
    256, window 2,048; d 2,560, GeGLU d_ff 7,680, vocab 256,000; seeded
@@ -130,19 +149,19 @@ Phases, each fatal on failure (non-zero exit, no result line):
    against the former three-launch kernel (``tools/k7_three_pass.cu``)
    at the same chunk, and K6 on layer 2's
    q/k/v (window 2,048) against the chunked plain branch and the dense
-   tail rows, each timed beside its bound; then, as in phase 8, a warm-up
+   tail rows, each timed beside its bound; then, as in phase 9, a warm-up
    and one timed forward each, with exactly 18 K7, 8 K6 (all 8 on the
    tensor-core route) and ``k1_calls``' count of K1 launches per
    forward; a profiled raw forward, with the device ms of layer 0's
    RG-LRU block split into its gate passes, K7, the GEMMs and the rest;
    the phase's peak device memory; at the SMOKE widths (f32, 2 x 1,100
    tokens) the device forward's argmaxes equal the plain CPU path's.
-13. RecurrentGemma decode: ``decode_loop`` and ``sustained_throughput``,
+14. RecurrentGemma decode: ``decode_loop`` and ``sustained_throughput``,
    batch 8, 64 steps, the RG-LRU state and the ring KV cache (16 and 8
    bits), raw and under the policy; one profiled 8-step decode each. At
    the SMOKE widths (f32, window 16) 24 greedy steps (the ring wraps) are
    the prefill's argmaxes.
-14. Lines before the last: the kernels as JSON, then ``nvidia-smi``'s name
+15. Lines before the last: the kernels as JSON, then ``nvidia-smi``'s name
    and power limit. Last line: ``{"ok": true, "device": {...}}``.
 
 K8 (SSD scan) joins phase 3: against the sequential ``ssd_scan_ref`` and
@@ -172,6 +191,7 @@ with the window as a boolean mask.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -1461,62 +1481,72 @@ def _sync(device) -> None:
         torch.cuda.synchronize()
 
 
-def run_main_path(cfg, device, *, episodes: int, warmup: int, updates: int,
-                  batch_size: int, val_batch: int, val_seq: int,
-                  seed: int = 0, verbose: bool = True):
-    """Sensitivity + ``episodes`` of the pq search on ``cfg`` with seeded
-    random weights. Returns (search, history, sensitivity seconds, episode
-    seconds); the host clock brackets work that ends in a device sync."""
-    from repro_torch.configs.testbed import SERVE_CTX
+def log_record(rec) -> None:
+    bits = " ".join(f"{c.w_bits}/{c.a_bits}" for c in rec.policy.cmps)
+    log(f"  ep {rec.episode:2d} reward={rec.reward:+.4f} "
+        f"acc={rec.accuracy:.4f} lat_ratio={rec.latency_ratio:.4f} "
+        f"sigma={rec.sigma:.3f} w/a bits: {bits}")
+
+
+def run_search(cm, val, scfg, ctx, device, *, episodes: int,
+               verbose: bool = True, reset_after_sensitivity: bool = False):
+    """Sensitivity + ``episodes`` of the scalar pq search on ``cm``
+    (validation batch ``val``, config ``scfg``, oracle context ``ctx``).
+    Returns (search, history, sensitivity seconds, episode seconds); the
+    host clock brackets work that ends in a device sync. With
+    ``reset_after_sensitivity`` the launch counts are reset between the
+    analysis and the episodes."""
     from repro_torch.core.search import CompressionSearch
     from repro_torch.core.sensitivity import run_sensitivity
-    from repro_torch.kernels.build import LAUNCHES
+    from repro_torch.kernels import build
 
-    cm, val, scfg = search_inputs(
-        cfg, device, episodes=episodes, warmup=warmup, updates=updates,
-        batch_size=batch_size, val_batch=val_batch, val_seq=val_seq,
-        seed=seed)
     _sync(device)
     t0 = time.perf_counter()
     sens = run_sensitivity(cm, val)
     _sync(device)
     t_sens = time.perf_counter() - t0
     if verbose:
-        log(f"  launches after the sensitivity analysis: {dict(LAUNCHES)}")
-    search = CompressionSearch(cm, val, scfg, SERVE_CTX, sens=sens)
+        log(f"  launches after the sensitivity analysis: "
+            f"{dict(build.LAUNCHES)}")
+    search = CompressionSearch(cm, val, scfg, ctx, sens=sens)
     _sync(device)
+    if reset_after_sensitivity:
+        build.reset_launches()
     t0 = time.perf_counter()
     history = []
     for e in range(episodes):
         rec = search.run_episode(e)
         history.append(rec)
         if verbose:
-            bits = " ".join(f"{c.w_bits}/{c.a_bits}" for c in rec.policy.cmps)
-            log(f"  ep {e:2d} reward={rec.reward:+.4f} acc={rec.accuracy:.4f} "
-                f"lat_ratio={rec.latency_ratio:.4f} sigma={rec.sigma:.3f} "
-                f"w/a bits: {bits}")
+            log_record(rec)
     _sync(device)
     t_eps = time.perf_counter() - t0
     return search, history, t_sens, t_eps
 
 
-def run_batched_path(cfg, device, sens, *, episodes: int, warmup: int,
-                     updates: int, batch_size: int, slots: int,
-                     val_batch: int, val_seq: int, seed: int = 0,
-                     verbose: bool = True):
-    """``episodes`` of the pq ``BatchedCompressionSearch`` (``slots``
-    episodes per batch) on the main path's model, validation batch,
-    config and sensitivity table ``sens``. The launch counts are reset
-    just before the episodes. Returns (search, history, episode
-    seconds)."""
+def run_main_path(cfg, device, *, episodes: int, warmup: int, updates: int,
+                  batch_size: int, val_batch: int, val_seq: int,
+                  seed: int = 0, verbose: bool = True):
+    """Sensitivity + ``episodes`` of the pq search on ``cfg`` with seeded
+    random weights (``run_search``)."""
     from repro_torch.configs.testbed import SERVE_CTX
-    from repro_torch.core.search import BatchedCompressionSearch
-    from repro_torch.kernels import build
     cm, val, scfg = search_inputs(
         cfg, device, episodes=episodes, warmup=warmup, updates=updates,
         batch_size=batch_size, val_batch=val_batch, val_seq=val_seq,
         seed=seed)
-    search = BatchedCompressionSearch(cm, val, scfg, SERVE_CTX, sens=sens,
+    return run_search(cm, val, scfg, SERVE_CTX, device, episodes=episodes,
+                      verbose=verbose)
+
+
+def run_batched_search(cm, val, scfg, ctx, sens, device, *, slots: int,
+                       verbose: bool = True):
+    """The pq ``BatchedCompressionSearch`` (``slots`` episodes per batch,
+    ``scfg.episodes`` in all) on ``cm`` with the sensitivity table
+    ``sens``. The launch counts are reset just before the episodes.
+    Returns (search, history, episode seconds)."""
+    from repro_torch.core.search import BatchedCompressionSearch
+    from repro_torch.kernels import build
+    search = BatchedCompressionSearch(cm, val, scfg, ctx, sens=sens,
                                       batch_size=slots)
     _sync(device)
     build.reset_launches()
@@ -1526,11 +1556,24 @@ def run_batched_path(cfg, device, sens, *, episodes: int, warmup: int,
     t_eps = time.perf_counter() - t0
     if verbose:
         for rec in history:
-            bits = " ".join(f"{c.w_bits}/{c.a_bits}" for c in rec.policy.cmps)
-            log(f"  ep {rec.episode:2d} reward={rec.reward:+.4f} "
-                f"acc={rec.accuracy:.4f} lat_ratio={rec.latency_ratio:.4f} "
-                f"sigma={rec.sigma:.3f} w/a bits: {bits}")
+            log_record(rec)
     return search, history, t_eps
+
+
+def run_batched_path(cfg, device, sens, *, episodes: int, warmup: int,
+                     updates: int, batch_size: int, slots: int,
+                     val_batch: int, val_seq: int, seed: int = 0,
+                     verbose: bool = True):
+    """``episodes`` of the pq ``BatchedCompressionSearch`` on the main
+    path's model, validation batch, config and sensitivity table
+    (``run_batched_search``)."""
+    from repro_torch.configs.testbed import SERVE_CTX
+    cm, val, scfg = search_inputs(
+        cfg, device, episodes=episodes, warmup=warmup, updates=updates,
+        batch_size=batch_size, val_batch=val_batch, val_seq=val_seq,
+        seed=seed)
+    return run_batched_search(cm, val, scfg, SERVE_CTX, sens, device,
+                              slots=slots, verbose=verbose)
 
 
 def batch_cspecs(search, history) -> list:
@@ -1545,6 +1588,22 @@ def batch_cspecs(search, history) -> list:
         out.append(search.cmodel.cspec_builder()(pb.keep, pb.w_bits,
                                                  pb.a_bits))
     return out
+
+
+def check_batch_records(search, history, episodes: int) -> None:
+    """The batched engine's records: finite, in episode order, on the
+    sigma schedule."""
+    import numpy as np
+    if [r.episode for r in history] != list(range(episodes)):
+        raise AssertionError("records out of episode order")
+    for r in history:
+        vals = (r.reward, r.accuracy, r.latency_s, r.latency_ratio)
+        if not all(math.isfinite(v) for v in vals) \
+                or not 0.0 <= r.accuracy <= 1.0:
+            raise AssertionError(f"bad record {r}")
+        if r.sigma != float(np.float32(search.agent.sigma_at(r.episode))):
+            raise AssertionError(f"episode {r.episode} off the sigma "
+                                 f"schedule: {r.sigma}")
 
 
 def check_batched_path(search, history, cfg, episodes: int,
@@ -1564,23 +1623,13 @@ def check_batched_path(search, history, cfg, episodes: int,
     bf16. The products over the slots are one bmm, which sums in another
     order than the scalar path's 2-D product in f32, so the f32 logits'
     difference and argmax agreement are printed, not held."""
-    import numpy as np
     import torch
     from repro_torch.core.compress import CompressibleLM
     from repro_torch.core.policy import stack_policies
     from repro_torch.kernels import fake_quant as kfq
     from repro_torch.kernels.ref import fake_quant_slots_ref
     from repro_torch.models import model as M
-    if [r.episode for r in history] != list(range(episodes)):
-        raise AssertionError("records out of episode order")
-    for r in history:
-        vals = (r.reward, r.accuracy, r.latency_s, r.latency_ratio)
-        if not all(math.isfinite(v) for v in vals) \
-                or not 0.0 <= r.accuracy <= 1.0:
-            raise AssertionError(f"bad record {r}")
-        if r.sigma != float(np.float32(search.agent.sigma_at(r.episode))):
-            raise AssertionError(f"episode {r.episode} off the sigma "
-                                 f"schedule: {r.sigma}")
+    check_batch_records(search, history, episodes)
     cspecs = batch_cspecs(search, history)
     rows = search.val_batch["tokens"].shape[0] * (
         search.val_batch["tokens"].shape[1])
@@ -1797,7 +1846,516 @@ def log_profile(prof: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Phases 6 and 7: the calibration path and the measured search
+# Phase 6: the ResNet path (ResNet18 at CIFAR-10 widths)
+# ---------------------------------------------------------------------------
+
+# Kernels whose names mark PyTorch's copies of a tensor, cuDNN's own
+# layout transforms (NHWC <-> NCHW around an NCHW kernel), and the fill
+# of F.pad's border.
+COPY_KERNEL = re.compile(r"copy", re.IGNORECASE)
+LAYOUT_KERNEL = re.compile(r"nchwToNhwc|nhwcToNchw|transpose",
+                           re.IGNORECASE)
+FILL_KERNEL = re.compile(r"fill", re.IGNORECASE)
+
+
+def resnet_inputs(cfg, device, *, episodes: int, warmup: int, updates: int,
+                  batch_size: int, val_batch: int, seed: int = 0):
+    """The ResNet path's model (seeded random f32 weights), validation
+    batch (seeded blob images, NHWC, as the JAX trainer draws its
+    validation batch) and pq search config."""
+    from repro_torch.core.compress import CompressibleResNet
+    from repro_torch.core.ddpg import DDPGConfig
+    from repro_torch.core.reward import RewardConfig
+    from repro_torch.core.search import SearchConfig
+    from repro_torch.data.pipeline import blob_images
+    from repro_torch.models import resnet as R
+    cm = CompressibleResNet(cfg, R.init(cfg, seed=seed, device=device))
+    val = blob_images(cfg.num_classes, val_batch, cfg.img_size,
+                      seed=seed + 7, device=device)
+    scfg = SearchConfig(
+        methods="pq", episodes=episodes, seed=seed,
+        reward=RewardConfig(target_ratio=0.5, beta=-3.0),
+        ddpg=DDPGConfig(warmup_episodes=warmup, updates_per_episode=updates,
+                        batch_size=batch_size, buffer_size=2000))
+    return cm, val, scfg
+
+
+def resnet_conv_inputs(cfg) -> list:
+    """(which, stride, input size, kernel size) of each conv in
+    ``layer_specs`` order: a block's conv1 and skip read the block's
+    input, its conv2 conv1's output."""
+    from repro_torch.models import resnet as R
+    out, block_in, hw = [], cfg.img_size, cfg.img_size
+    for _, _, _, which, stride, _, _, _ in R._iter_convs(cfg):
+        if which == "conv1":
+            block_in, hw = hw, -(-hw // stride)
+        out.append((which, stride, hw if which == "conv2" else block_in,
+                    1 if which == "skip" else 3))
+    return out
+
+
+def resnet_k1_calls(cfg, cspec, images: int) -> list:
+    """(shape, bits, kind) of each K1 launch of one ResNet forward over
+    ``images`` images under ``cspec`` (scalar, or batched: bits as
+    K-tuples), in launch order: per conv its weight [kh·kw·cin, cout]
+    ("weight"), then its input [images·H·W, cin] ("act"; "shared" for
+    the stem's, the images every slot shares), then the head's pooled
+    input [images, C] and its weight. ``bits >= 32`` launches nothing; a
+    batched entry launches once if any slot quantizes there."""
+    from repro_torch.models import resnet as R
+    if cspec is None:
+        return []
+    layers = cspec["layers"] if isinstance(cspec, dict) else cspec
+    calls = []
+
+    def add(shape, bits, kind):
+        if min(bits if isinstance(bits, tuple) else (bits,)) < 32:
+            calls.append((shape, bits, kind))
+
+    for (which, _, hw, k), (_, _, _, _, _, cin, cout, _), e in zip(
+            resnet_conv_inputs(cfg), R._iter_convs(cfg), layers):
+        qs = e["qs"]
+        if qs is not None:
+            add((k * k * cin, cout), qs["w_bits"], "weight")
+            add((images * hw * hw, cin), qs["a_bits"],
+                "shared" if which == "stem" else "act")
+    qs = layers[-1]["qs"]
+    if qs is not None:
+        C = cfg.widths[-1]
+        add((images, C), qs["a_bits"], "act")
+        add((C, cfg.num_classes), qs["w_bits"], "weight")
+    return calls
+
+
+def resnet_slot_input(shape, kind: str, K: int, gen, device):
+    """A [K, R, C] input of K1 over K slots as the ResNet path hands it:
+    an activation as the [K, R, C] view of the slots' side-by-side
+    channels ([R, K·C] rows: slot stride C, row stride K·C), the shared
+    stem input and a weight as one [R, C] tensor at slot stride 0."""
+    import torch
+    R, C = shape
+    if kind == "act":
+        return torch.randn((R, K, C), generator=gen,
+                           device=device).transpose(0, 1)
+    return torch.randn(shape, generator=gen, device=device).expand(K, R, C)
+
+
+def check_resnet_slot_calls(calls, K: int, device) -> dict:
+    """K1 over K slots exact against ``fake_quant_slots_ref`` at every
+    (shape, bits vector, kind) of ``calls``, in the path's layouts
+    (``resnet_slot_input``), f32, plain and straight-through."""
+    import torch
+    from repro_torch.kernels.fake_quant import fake_quant_slots
+    from repro_torch.kernels.ref import fake_quant_slots_ref
+    gen = torch.Generator(device=device).manual_seed(5)
+    sites = sorted(set(calls))
+    err = 0.0
+    for shape, bits, kind in sites:
+        x = resnet_slot_input(shape, kind, K, gen, device)
+        for ste in (False, True):
+            got = fake_quant_slots(x, bits, ste=ste)
+            want = fake_quant_slots_ref(x, bits, ste)
+            if got.shape != want.shape:
+                raise AssertionError(f"fake_quant_slots returned "
+                                     f"{tuple(got.shape)}")
+            err = max(err, float((got - want).abs().max()))
+    if err > 0.0:
+        raise AssertionError(f"K1 over policy slots disagrees with its "
+                             f"plain version at the ResNet's sites: max abs "
+                             f"err {err}")
+    return {"pairs": len(sites), "max_abs_err": err}
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN held to its deterministic algorithms, so that two forwards
+    that differ only in a kernel's wrapper run the same convolutions."""
+    import torch
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+def check_resnet_main(search, history, cfg, episodes: int, device) -> dict:
+    """The scalar ResNet phase's checks: finite records of the expected
+    count; K1 exact at every (shape, bits) the episodes' policies gave it
+    (f32, plain and straight-through, tolerance 0); on 8 images, the best
+    policy's logits through K1 equal, bit for bit, the same forward with
+    the plain fake-quant in place of K1 (cuDNN held to its deterministic
+    algorithms for this check alone); and the uncompressed forward on
+    the device agrees with the plain CPU path on 64 images (logits
+    within 1e-4 of the largest, argmaxes all equal: cuDNN sums in other
+    orders)."""
+    import torch
+    from repro_torch.core.compress import CompressibleResNet
+    from repro_torch.core.policy import Policy
+    from repro_torch.kernels import fake_quant as kfq
+    from repro_torch.kernels.ref import fake_quant_ref, fake_quant_ste_ref
+    if len(history) != episodes:
+        raise AssertionError(f"{len(history)} records, wanted {episodes}")
+    for r in history:
+        vals = (r.reward, r.accuracy, r.latency_s, r.latency_ratio)
+        if not all(math.isfinite(v) for v in vals) \
+                or not 0.0 <= r.accuracy <= 1.0:
+            raise AssertionError(f"bad record {r}")
+    cm, val = search.cmodel, search.val_batch
+    images = val["images"].shape[0]
+    pairs = sorted({(shape, bits) for r in history for shape, bits, _ in
+                    resnet_k1_calls(cfg, cm.build_cspec(r.policy), images)})
+    gen = torch.Generator(device=device).manual_seed(6)
+    err = max((fake_quant_errors(torch.randn(shape, generator=gen,
+                                             device=device), bits)
+               for shape, bits in pairs), default=0.0)
+    log(f"  K1 at the {len(pairs)} (shape, bits) of the {episodes} "
+        f"episodes' policies, f32, plain and straight-through: max |kernel "
+        f"- plain| {err:.3g} (tol 0)")
+    if not pairs or err > 0.0:
+        raise AssertionError(f"K1 at the ResNet's sites: {len(pairs)} "
+                             f"pairs, max abs err {err}")
+
+    best = max(history, key=lambda r: r.reward)
+    small = {"images": val["images"][:8], "labels": val["labels"][:8]}
+    cspec = cm.build_cspec(best.policy)
+    with deterministic_cudnn():
+        lg_kernel = cm.logits(small, cspec)
+        launch = kfq.fake_quant_2d
+        kfq.fake_quant_2d = lambda x, bits, ste=False: (
+            fake_quant_ste_ref if ste else fake_quant_ref)(x, bits)
+        try:
+            lg_plain = cm.logits(small, cspec)
+        finally:
+            kfq.fake_quant_2d = launch
+    if not torch.isfinite(lg_kernel).all() or tuple(lg_kernel.shape) != (
+            8, cfg.num_classes):
+        raise AssertionError(f"bad logits {tuple(lg_kernel.shape)}")
+    diff = float((lg_kernel - lg_plain).abs().max())
+    log(f"  best policy (episode {best.episode}), 8 images: max |logit "
+        f"through K1 - through the plain fake-quant| = {diff:.3g} (cuDNN "
+        f"deterministic for this check)")
+    if diff != 0.0:
+        raise AssertionError("the ResNet's kernel path and plain path "
+                             "differ")
+
+    ref = Policy.reference(cm.specs)
+    cpu = CompressibleResNet(cfg, _to(cm.params, "cpu"))
+    few = {"images": val["images"][:64], "labels": val["labels"][:64]}
+    lg_dev = cm.logits(few, cm.build_cspec(ref)).cpu()
+    lg_cpu = cpu.logits(_to(few, "cpu"), cpu.build_cspec(ref))
+    rel = float((lg_dev - lg_cpu).abs().max() / lg_cpu.abs().max())
+    agree = float((lg_dev.argmax(-1) == lg_cpu.argmax(-1)).float().mean())
+    log(f"  uncompressed, 64 images: device vs plain CPU path max |logit "
+        f"diff| / max |logit| {rel:.3g}, argmax agreement {agree:.4f}")
+    if rel > 1e-4 or agree < 1.0:
+        raise AssertionError(f"the ResNet's device forward disagrees with "
+                             f"the CPU path: {rel:.3g}, {agree:.4f}")
+    return {"pairs": len(pairs), "max_abs_err": err}
+
+
+def check_resnet_batched(search, history, cfg, episodes: int,
+                         launches: dict, per_step: dict, device) -> dict:
+    """The batched ResNet phase's checks. Records as
+    ``check_batch_records``. Launches over the episodes: K1 over slots
+    exactly once per fake-quant site of each batched validation
+    (``resnet_k1_calls`` of its batched cspec), the one-tensor K1 never,
+    K2 and K3 per DDPG step as the scalar phase launched them. K1 over
+    slots exact at every (shape, bits vector) the batches gave it. Then
+    for the last batch's policies: on 8 images the forward through K1
+    over slots equals, bit for bit, the same forward with its plain
+    version in place (cuDNN deterministic); on the whole validation
+    batch each slot's accuracy is within 3% of its scalar engine's
+    ``accuracy(build_cspec(policy))`` (the grouped conv, the spatial
+    mean and GroupNorm over the slots' side-by-side channels sum in other
+    orders than the scalar forward's, and a last-bit difference moves
+    whole fake-quant steps; the logits' difference and the argmax
+    agreement are printed, not held)."""
+    import torch
+    from repro_torch.core.policy import stack_policies
+    from repro_torch.kernels import fake_quant as kfq
+    from repro_torch.kernels.ref import fake_quant_slots_ref
+    check_batch_records(search, history, episodes)
+    cm, val = search.cmodel, search.val_batch
+    images = val["images"].shape[0]
+    cspecs = batch_cspecs(search, history)
+    calls = [resnet_k1_calls(cfg, cs, images) for cs in cspecs]
+    sites = sum(len(c) for c in calls)
+    cfg_ddpg = search.agent.cfg
+    steps = cfg_ddpg.updates_per_episode * sum(
+        r.episode >= cfg_ddpg.warmup_episodes for r in history)
+    want = {"fake_quant_slots": sites, "fake_quant": 0,
+            **{k: round(v * steps) for k, v in per_step.items()}}
+    log(f"  launches {launches}; wanted {want} ({len(cspecs)} batched "
+        f"validations, {sites} fake-quant sites in all)")
+    for k, v in want.items():
+        if launches[k] != v:
+            raise AssertionError(f"{k} launched {launches[k]} times on the "
+                                 f"ResNet's batched path, wanted {v}")
+    err = 0.0
+    for cs, c in zip(cspecs, calls):
+        err = max(err, check_resnet_slot_calls(c, cs["slots"], device)[
+            "max_abs_err"])
+    log(f"  K1 over slots at every (shape, bits vector) of the "
+        f"{len(cspecs)} batches, in the path's layouts, f32, plain and "
+        f"straight-through: max |kernel - plain| {err:.3g} (tol 0)")
+
+    pols = [r.policy for r in history[-search.batch_size:]]
+    pb = stack_policies(cm.specs, pols)
+    bcs = cm.cspec_builder()(pb.keep, pb.w_bits, pb.a_bits)
+    small = {"images": val["images"][:8], "labels": val["labels"][:8]}
+    with deterministic_cudnn():
+        lg_kernel = cm.logits(small, bcs)
+        launch = kfq.fake_quant_slots
+        kfq.fake_quant_slots = lambda x, bits, ste=False: \
+            fake_quant_slots_ref(x, bits, ste)
+        try:
+            lg_plain = cm.logits(small, bcs)
+        finally:
+            kfq.fake_quant_slots = launch
+    if not torch.isfinite(lg_kernel).all() or tuple(lg_kernel.shape) != (
+            len(pols), 8, cfg.num_classes):
+        raise AssertionError(f"bad batched logits {tuple(lg_kernel.shape)}")
+    diff = float((lg_kernel - lg_plain).abs().max())
+    log(f"  last batch's {len(pols)} policies, 8 images: max |logit through "
+        f"K1 over slots - through its plain version| = {diff:.3g}")
+    if diff != 0.0:
+        raise AssertionError("the ResNet's batched kernel path and its "
+                             "plain version differ")
+    accs_b = cm.accuracy_batch(val, bcs).cpu().tolist()
+    lg_b = cm.logits(val, bcs)
+    worst = 0.0
+    for k, p in enumerate(pols):
+        lg_s = cm.logits(val, cm.build_cspec(p))
+        acc_s = float(cm.accuracy(val, cm.build_cspec(p)))
+        agree = float((lg_s.argmax(-1) == lg_b[k].argmax(-1)).float().mean())
+        worst = max(worst, abs(accs_b[k] - acc_s))
+        log(f"    slot {k}: accuracy batched {accs_b[k]:.4f}, scalar "
+            f"{acc_s:.4f}, max |logit diff| "
+            f"{float((lg_s - lg_b[k]).abs().max()):.3g}, argmax agreement "
+            f"{agree:.4f}")
+    if worst > 0.03:
+        raise AssertionError(f"a batched ResNet policy's accuracy is "
+                             f"{worst:.4f} from its scalar accuracy")
+    return {"sites": sites, "max_abs_err": err, "worst_acc_diff": worst}
+
+
+def resnet_padded_convs(cfg) -> int:
+    """How many of the model's convs pad their input explicitly: those
+    whose SAME padding XLA makes asymmetric (stride 2, 3x3, even size)."""
+    from repro_torch.models import resnet as R
+    return sum(len(set(R.same_pads(hw, k, stride))) > 1
+               for _, stride, hw, k in resnet_conv_inputs(cfg))
+
+
+def all_bits_cspec(cm, bits: int = 4) -> list:
+    """A cspec quantizing every site (weights and inputs at ``bits``; the
+    stem and the head, which take no MIX, at 8) and pruning nothing: the
+    one that reaches every K1 site of the model once."""
+    from repro_torch.core.policy import Policy
+    pol = Policy.reference(cm.specs)
+    for s, c in zip(cm.specs, pol.cmps):
+        c.mode, c.w_bits, c.a_bits = ("MIX", bits, bits) \
+            if s.mix_supported else ("INT8", 8, 8)
+    return cm.build_cspec(pol)
+
+
+def time_resnet_sites(cm, images: int, device) -> list:
+    """K1 (one tensor, f32, straight-through: the call the search makes)
+    at every distinct site shape of one forward over ``images`` images,
+    beside its plain version and bytes bound; and K1 over 8 slots at
+    the widest activation and the stem's shared input, in the batched
+    path's layouts."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(8)
+    calls = resnet_k1_calls(cm.cfg, all_bits_cspec(cm), images)
+    rows = []
+    for shape, bits, kind in dict.fromkeys(calls):
+        x = torch.randn(shape, generator=gen, device=device)
+        r = time_fake_quant(x, bits, True, 20)
+        r.update(kind=kind, launches=sum(c[0] == shape for c in calls))
+        rows.append(r)
+    widest = max((c for c in calls if c[2] == "act"),
+                 key=lambda c: c[0][0] * c[0][1])
+    stem = next(c for c in calls if c[2] == "shared")
+    for (shape, _, kind), bits in ((widest, (2, 3, 4, 5, 6, 8, 4, 6)),
+                                   (stem, (8,) * SLOTS)):
+        r = time_fake_quant_slots(resnet_slot_input(shape, kind, SLOTS, gen,
+                                                    device), bits, 10)
+        r.update(kind=f"slots {kind}")
+        rows.append(r)
+    return rows
+
+
+def profile_resnet_forward(cm, batch: dict, cspec) -> dict:
+    """One profiled forward. ``copies``: PyTorch's tensor copies by shape,
+    read from the host-side ops, which name the tensors (``aten::copy_``
+    of a non-scalar: a conv weight turned OIHW is a 5-D [1, cout, kh, kw,
+    cin] copy, a padded input a 4-D one). On the card also ``classes``:
+    device µs and launches by kernel class (cuDNN convs, K1, PyTorch's
+    copies, cuDNN's layout transforms, fills, the rest), and the names of
+    the copy and transform kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    on_card = cm.device.type == "cuda"
+    cm.logits(batch, cspec)
+    _sync(cm.device)
+    with profile(activities=[ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if on_card else []),
+            record_shapes=True) as prof:
+        cm.logits(batch, cspec)
+        _sync(cm.device)
+    copies = {}
+    for ev in prof.events():
+        if ev.name == "aten::copy_" and ev.input_shapes \
+                and ev.input_shapes[0]:
+            shape = tuple(ev.input_shapes[0])
+            copies[shape] = copies.get(shape, 0) + 1
+    classes, kernels = {}, {}
+    for ev in prof.key_averages() if on_card else ():
+        if "CUDA" not in str(getattr(ev, "device_type", None)):
+            continue
+        name = ev.key
+        if re.search(r"\bfq_", name):
+            c = "K1"
+        elif COPY_KERNEL.search(name) or LAYOUT_KERNEL.search(name):
+            c = "layout" if LAYOUT_KERNEL.search(name) else "copy"
+            kernels[name[:100]] = kernels.get(name[:100], 0) + ev.count
+        elif FILL_KERNEL.search(name):
+            c = "fill"
+        elif re.search(r"conv|cudnn|xmma|implicit|gemm|sm90|winograd",
+                       name, re.IGNORECASE):
+            c = "conv"
+        else:
+            c = "rest"
+        us, n = classes.get(c, (0.0, 0))
+        classes[c] = (us + getattr(ev, "self_device_time_total", 0.0),
+                      n + ev.count)
+    return {"copies": copies, "classes": classes, "kernels": kernels}
+
+
+def check_resnet_copies(cm, batch: dict, cspec, name: str) -> dict:
+    """A profiled forward's tensor copies: exactly one per conv weight (the
+    5-D copy that turns it OIHW) and one per input padded for XLA's
+    asymmetric SAME, and no other (K1 reads NHWC activations and HWIO
+    weights in place). cuDNN's own layout transforms are printed, not
+    held."""
+    p = profile_resnet_forward(cm, batch, cspec)
+    n_convs = len(cm.specs) - 1
+    n_pads = resnet_padded_convs(cm.cfg)
+    by_rank = {r: sum(n for s, n in p["copies"].items() if len(s) == r)
+               for r in {len(s) for s in p["copies"]}}
+    log(f"    {name}: tensor copies by rank {by_rank} ({n_convs} conv "
+        f"weights turned OIHW, 5-D; {n_pads} inputs padded for XLA's "
+        f"asymmetric SAME, stride 2, 3x3, even size, 4-D)")
+    if p["classes"]:
+        log("    profiled device time: " + ", ".join(
+            f"{c} {us / 1e3:.3f} ms in {n} launches"
+            for c, (us, n) in sorted(p["classes"].items())))
+        log(f"    copy and layout kernels: {p['kernels']}")
+    if by_rank != {5: n_convs, 4: n_pads}:
+        raise AssertionError(f"{name} forward: tensor copies {p['copies']}, "
+                             f"wanted {n_convs} 5-D and {n_pads} 4-D")
+    return p
+
+
+def resnet_phase(device, batch_size: int) -> dict:
+    """Phase 6, ``[resnet path]``: the scalar and the batched pq search on
+    ResNet18 at CIFAR-10 widths (seeded weights, 256 seeded blob images,
+    the per-image context), their checks, the forwards' and K1's times,
+    a profiled forward's copies, and the deployed raw forward at batch
+    1. Returns the launch counts of the scalar and the batched search."""
+    import dataclasses
+
+    from repro_torch.configs.testbed import (IMG_CTX, IMG_VAL_BATCH,
+                                             RESNET18_CIFAR as cfg)
+    from repro_torch.core.measure import measure_model_row
+    from repro_torch.kernels import build
+    from repro_torch.models import resnet as R
+    episodes, warmup, updates, b_eps = 12, 4, 16, 16
+    cm_specs = R.layer_specs(cfg)
+    n_convs = len(cm_specs) - 1
+    log(f"[resnet path] pq CompressionSearch on {cfg.name} (stages "
+        f"{cfg.stages}, widths {cfg.widths}, {cfg.img_size}x{cfg.img_size} "
+        f"x {cfg.in_channels}, {cfg.num_classes} classes: {n_convs} convs "
+        f"and a head, {sum(s.weight_elems for s in cm_specs) / 1e6:.2f} M "
+        f"weights, f32, seeded), {IMG_VAL_BATCH} blob images, per-image "
+        f"oracle context; {episodes} episodes, warmup {warmup}, {updates} "
+        f"updates/episode, DDPG batch {batch_size}; {CARD}")
+    t_phase = time.perf_counter()
+    cm, val, scfg = resnet_inputs(
+        cfg, device, episodes=episodes, warmup=warmup, updates=updates,
+        batch_size=batch_size, val_batch=IMG_VAL_BATCH)
+    build.reset_launches()
+    search, history, t_sens, t_eps = run_search(
+        cm, val, scfg, IMG_CTX, device, episodes=episodes,
+        reset_after_sensitivity=True)
+    launches = dict(build.LAUNCHES)
+    log(f"  sensitivity {t_sens:.3f} s; {episodes} episodes in {t_eps:.3f} "
+        f"s = {episodes / t_eps:.3f} episodes/s; launches {launches}")
+    steps = (episodes - warmup) * updates
+    sites = sum(len(resnet_k1_calls(cfg, cm.build_cspec(r.policy),
+                                    IMG_VAL_BATCH)) for r in history)
+    want = {"fake_quant": sites, "polyak": steps, "fake_quant_slots": 0}
+    log(f"  wanted {want}, K2 > 0 ({episodes} validations, {sites} "
+        f"fake-quant sites)")
+    if launches["mlp3"] == 0 or any(launches[k] != v
+                                    for k, v in want.items()):
+        raise AssertionError(f"the ResNet's scalar path launched "
+                             f"{launches}, wanted {want} and K2 > 0")
+    check_resnet_main(search, history, cfg, episodes, device)
+    prof = profile_episodes(search, episodes, 2)
+    log_profile(prof)
+    per_step = {k: launches[k] / steps for k in ("mlp3", "polyak")}
+
+    log(f"  [batched] pq BatchedCompressionSearch, K {SLOTS} episodes per "
+        f"batch, {b_eps} episodes, the scalar phase's seeds and "
+        f"sensitivity table")
+    bsearch, bhist, t_b = run_batched_search(
+        cm, val, dataclasses.replace(scfg, episodes=b_eps), IMG_CTX,
+        search.sens, device, slots=SLOTS)
+    b_launches = dict(build.LAUNCHES)
+    log(f"  {b_eps} episodes in {t_b:.3f} s = {b_eps / t_b:.3f} episodes/s "
+        f"(scalar: {episodes / t_eps:.3f}, {episodes} episodes with "
+        f"{warmup} warmup); {CARD}")
+    check_resnet_batched(bsearch, bhist, cfg, b_eps, b_launches, per_step,
+                         device)
+    b_prof = profile_episodes(bsearch, b_eps, 1)
+    log_profile(b_prof)
+    log(f"  steady state (every episode live): batched "
+        f"{1 / b_prof['episode_s']:.3f} episodes/s, scalar "
+        f"{1 / prof['episode_s']:.3f}: "
+        f"{prof['episode_s'] / b_prof['episode_s']:.3f}x; {CARD}")
+    del bsearch
+
+    policy_cs = cm.build_cspec(seeded_policy(cm, 0))
+    for name, cs in (("raw", None), ("seeded pq policy", policy_cs)):
+        build.reset_launches()
+        cm.logits(val, cs)
+        n_k1 = build.LAUNCHES["fake_quant"]
+        if n_k1 != len(resnet_k1_calls(cfg, cs, IMG_VAL_BATCH)):
+            raise AssertionError(f"{name} forward: {n_k1} K1 launches")
+        ms, paced = cuda_ms(lambda: cm.logits(val, cs), 5, 2)
+        log(f"  validation forward, {name}, {IMG_VAL_BATCH} images: "
+            f"{paced:.3f} ms (paced by the host), {ms:.3f} ms device; "
+            f"{n_k1} K1 launches per forward; {CARD}")
+        check_resnet_copies(cm, val, cs, name)
+
+    log("  K1 at each of the ResNet's site shapes (f32, straight-through, "
+        f"{IMG_VAL_BATCH} images):")
+    time_resnet_sites(cm, IMG_VAL_BATCH, device)
+
+    one = {"images": val["images"][:1], "labels": val["labels"][:1]}
+    row = measure_model_row(cm, one, "raw")
+    log(f"  deployed raw forward at batch 1 (measure_model_row): "
+        f"{row['measured_s'] * 1e3:.4f} ms (host clock, best of 5); {CARD}")
+    log(f"  {time.perf_counter() - t_phase:.1f} s for the ResNet phase")
+    del search, cm
+    release_cached_memory(device)
+    return {"launches": launches, "slot_launches": b_launches}
+
+
+# ---------------------------------------------------------------------------
+# Phases 7 and 8: the calibration path and the measured search
 # ---------------------------------------------------------------------------
 
 def _positive(x) -> bool:
@@ -1895,7 +2453,7 @@ def run_measured_search(cfg, device, table_dict: dict, *, episodes: int,
 
 
 # ---------------------------------------------------------------------------
-# Phases 8 and 9: prefill and decode of qwen2-0.5b
+# Phases 9 and 10: prefill and decode of qwen2-0.5b
 # ---------------------------------------------------------------------------
 
 def seeded_policy(cm, seed: int):
@@ -2522,7 +3080,7 @@ def _to(tree, device):
 # ---------------------------------------------------------------------------
 
 def recurrentgemma_phases(device, results: dict, launches: dict) -> None:
-    """Phases 12 and 13 on the card: recurrentgemma-2b's prefill and
+    """Phases 13 and 14 on the card: recurrentgemma-2b's prefill and
     decode (the earlier models freed first). Adds the K6 (D 256) and K7
     rows to ``results`` and their launch counts to ``launches``."""
     import torch
@@ -2732,6 +3290,10 @@ def main() -> int:
         f"{1 / prof['episode_s']:.3f}: {prof['episode_s'] / b_prof['episode_s']:.3f}x; "
         f"{CARD}")
     del bsearch, b_check
+
+    resnet = resnet_phase(device, batch)
+    log(f"  ResNet launches: scalar {resnet['launches']}, batched "
+        f"{resnet['slot_launches']}")
 
     log(f"[calibration path] launch.calibrate.run on {LM_CFG.name} at full "
         f"width (deploy-path units, K4/K5 kernel rows, raw/int8/int4 "

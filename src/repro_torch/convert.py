@@ -2,8 +2,8 @@
 
 Inputs are the JAX package's trees with numpy leaves (``jax.device_get``
 of its params or ``AgentState``); nothing here imports JAX. Layouts are
-kept: weights stay ``[d_in, d_out]``, so fake-quant ranges reduce over the
-same axes on both sides.
+kept: weights stay ``[d_in, d_out]`` (a conv's ``[kh, kw, cin, cout]``),
+so fake-quant ranges reduce over the same axes on both sides.
 """
 from __future__ import annotations
 
@@ -39,6 +39,12 @@ def lm_params(cfg: ArchConfig, params, device="cuda") -> dict:
         blocks = [_layer(blocks, i) for i in range(cfg.num_layers)]
     out["blocks"] = [_to_torch(b, device) for b in blocks]
     return out
+
+
+def resnet_params(params, device="cuda") -> dict:
+    """The JAX ResNet params -> the port's: the same tree (``stem``, the
+    ``stages`` list of block lists, ``head``), HWIO conv weights kept."""
+    return _to_torch(params, device)
 
 
 def agent_state(st, device="cuda") -> AgentState:

@@ -1,15 +1,18 @@
-"""Apply a compression policy to the dense LM: LayerSpec enumeration,
-cspec building (quant bits + ℓ1 pruning masks), and the model adapter the
-search and the sensitivity analysis call.
+"""Apply a compression policy to a model: LayerSpec enumeration, cspec
+building (quant bits + ℓ1 pruning masks), and the model adapters the
+search and the sensitivity analysis call (``CompressibleLM``,
+``CompressibleResNet``).
 
 Bits in a cspec are host ints (the scalar engine builds one cspec per
 policy on the host); masks are float tensors on the model's device.
 
 A batched cspec holds K policies for one forward (the batched engine's
-validation): ``"slots": K``, bits as K-tuples of host ints, masks [K, n].
-``make_lm_cspec_builder`` builds it from (K, L) keep / w_bits / a_bits
-arrays; ``stack_cspecs`` from K scalar cspecs. Both give the same masks
-and bits as ``build_lm_cspec`` policy by policy.
+validation): ``"slots": K``, bits as K-tuples of host ints, masks [K, n]
+(a ResNet's: ``{"layers": [...], "slots": K}``).
+``make_lm_cspec_builder`` / ``make_resnet_cspec_builder`` build it from
+(K, L) keep / w_bits / a_bits arrays; ``stack_cspecs`` from K scalar
+cspecs. Both give the same masks and bits as the scalar cspecs policy by
+policy.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import torch
 from ..configs.base import ArchConfig
 from ..models import blocks as B
 from ..models import model as M
+from ..models import resnet as R
 from . import pruning
 from .policy import Policy, PolicyBatch
 from .spec import LayerCMP, LayerSpec, effective_bits
@@ -333,11 +337,51 @@ def make_lm_cspec_builder(cfg: ArchConfig, params,
     return build
 
 
-def stack_cspecs(cspecs: Sequence[dict]) -> dict:
+def _resnet_prune_scores(cmodel: "CompressibleResNet") -> dict:
+    """spec index -> ℓ1 scores of a prunable conv's output channels."""
+    scores, conv_i = {}, 0
+    for idx, s in enumerate(cmodel.specs):
+        if s.kind == "conv":
+            if s.prunable:
+                scores[idx] = pruning.l1_scores([cmodel._conv_weight(conv_i)])
+            conv_i += 1
+    return scores
+
+
+def make_resnet_cspec_builder(cmodel: "CompressibleResNet"):
+    """The ResNet analogue of ``make_lm_cspec_builder``: ``build(keep,
+    w_bits, a_bits) -> {"layers": [...], "slots": K}`` for (K, L) arrays,
+    per entry the K bits as tuples and, for a prunable conv, the K
+    ``pruning.keep_mask_dynamic`` masks [K, cout] from the ℓ1 scores of
+    ``cmodel``."""
+    specs = cmodel.specs
+    scores = _resnet_prune_scores(cmodel)
+
+    def build(keep, w_bits, a_bits) -> dict:
+        keep, w_bits, a_bits = (np.asarray(a) for a in (keep, w_bits,
+                                                        a_bits))
+        layers = []
+        for idx, s in enumerate(specs):
+            entry: dict[str, Any] = {"qs": None, "mask": None}
+            if s.quantizable:
+                entry["qs"] = {
+                    "w_bits": tuple(int(b) for b in w_bits[:, idx]),
+                    "a_bits": tuple(int(b) for b in a_bits[:, idx])}
+            if idx in scores:
+                entry["mask"] = pruning.keep_mask_dynamic(scores[idx],
+                                                          keep[:, idx])
+            layers.append(entry)
+        return {"layers": layers, "slots": keep.shape[0]}
+
+    return build
+
+
+def stack_cspecs(cspecs: Sequence) -> dict:
     """K scalar cspecs as one batched cspec: bits as K-tuples, masks
     stacked into [K, n]. Their structure does not depend on the policy
     (masks always present, bits always set; see ``build_lm_cspec``), so
-    they stack leaf by leaf."""
+    they stack leaf by leaf. K ResNet cspecs (lists) stack into
+    ``{"layers": [...], "slots": K}``."""
     def stack(*xs):
         if isinstance(xs[0], dict):
             return {k: stack(*(x[k] for x in xs)) for k in xs[0]}
@@ -345,9 +389,13 @@ def stack_cspecs(cspecs: Sequence[dict]) -> dict:
             return [stack(*leaves) for leaves in zip(*xs)]
         if isinstance(xs[0], torch.Tensor):
             return torch.stack(xs)
+        if xs[0] is None:           # a ResNet conv that prunes nothing
+            return None
         return tuple(int(x) for x in xs)
 
     out = stack(*cspecs)
+    if isinstance(out, list):       # a ResNet's cspec is a list of entries
+        out = {"layers": out}
     out["slots"] = len(cspecs)
     return out
 
@@ -356,8 +404,33 @@ def stack_cspecs(cspecs: Sequence[dict]) -> dict:
 # Model adapter (the interface of the search / sensitivity analysis)
 # ===========================================================================
 
+class _BatchedAccuracyMixin:
+    """The batched validation shared by both adapters (the JAX package's
+    mixin of the same name): the batched-cspec builder, made once per
+    params object, and the (K,) accuracies of a ``PolicyBatch`` from one
+    forward over its K policies (``accuracy_batch``, per adapter)."""
+
+    def cspec_builder(self):
+        """``_make_cspec_builder()`` for the current params, made once per
+        params object."""
+        cached = getattr(self, "_builder_cache", None)
+        if cached is None or cached[0] is not self.params:
+            self._builder_cache = (self.params, self._make_cspec_builder())
+        return self._builder_cache[1]
+
+    def build_cspec_batch(self, policies: Sequence[Policy]) -> dict:
+        return stack_cspecs([self.build_cspec(p) for p in policies])
+
+    def accuracy_policy_batch(self, batch: dict,
+                              pbatch: PolicyBatch) -> torch.Tensor:
+        """(K,) accuracies straight from a ``PolicyBatch``'s arrays: the
+        batched cspec of ``cspec_builder`` and one forward."""
+        return self.accuracy_batch(batch, self.cspec_builder()(
+            pbatch.keep, pbatch.w_bits, pbatch.a_bits))
+
+
 @dataclass
-class CompressibleLM:
+class CompressibleLM(_BatchedAccuracyMixin):
     """Adapter: ArchConfig LM + params -> the search interface. All work
     runs on the device the params live on."""
     cfg: ArchConfig
@@ -380,17 +453,8 @@ class CompressibleLM:
         return build_lm_cspec(self.cfg, self.params, policy, self.specs,
                               self._scores)
 
-    def cspec_builder(self):
-        """``make_lm_cspec_builder`` for the current params, made once per
-        params object."""
-        cached = getattr(self, "_builder_cache", None)
-        if cached is None or cached[0] is not self.params:
-            self._builder_cache = (self.params, make_lm_cspec_builder(
-                self.cfg, self.params, self.specs))
-        return self._builder_cache[1]
-
-    def build_cspec_batch(self, policies: Sequence[Policy]) -> dict:
-        return stack_cspecs([self.build_cspec(p) for p in policies])
+    def _make_cspec_builder(self):
+        return make_lm_cspec_builder(self.cfg, self.params, self.specs)
 
     @torch.no_grad()
     def accuracy_batch(self, batch: dict, stacked_cspec) -> torch.Tensor:
@@ -401,13 +465,6 @@ class CompressibleLM:
                        stacked_cspec)[:, :, :-1]
         tgt = batch["tokens"][None, :, 1:]
         return torch.mean((torch.argmax(lg, -1) == tgt).float(), (1, 2))
-
-    def accuracy_policy_batch(self, batch: dict,
-                              pbatch: PolicyBatch) -> torch.Tensor:
-        """(K,) accuracies straight from a ``PolicyBatch``'s arrays: the
-        batched cspec of ``cspec_builder`` and one forward."""
-        return self.accuracy_batch(batch, self.cspec_builder()(
-            pbatch.keep, pbatch.w_bits, pbatch.a_bits))
 
     @torch.no_grad()
     def logits(self, batch: dict, cspec=None) -> torch.Tensor:
@@ -421,3 +478,69 @@ class CompressibleLM:
         lg = self.logits(batch, cspec)[:, :-1]
         tgt = batch["tokens"][:, 1:]
         return torch.mean((torch.argmax(lg, -1) == tgt).float())
+
+
+@dataclass
+class CompressibleResNet(_BatchedAccuracyMixin):
+    """Adapter: ResNetConfig + params -> the search interface, scored by
+    top-1 accuracy over ``batch["labels"]``. All work runs on the device
+    the params live on."""
+    cfg: R.ResNetConfig
+    params: Any
+    _scores: dict = field(default_factory=dict, init=False, repr=False)
+
+    def __post_init__(self):
+        self.specs = R.layer_specs(self.cfg)
+        self._scores = _resnet_prune_scores(self)
+
+    @property
+    def device(self) -> torch.device:
+        return self.params["stem"]["w"].device
+
+    def build_cspec(self, policy: Policy) -> list:
+        """One entry per spec: ``{"qs": bits, "mask": [cout] | None}``; a
+        prunable conv's mask always present (ones when unpruned), as in
+        the JAX package."""
+        cspec = []
+        for idx, (s, c) in enumerate(zip(self.specs, policy.cmps)):
+            cspec.append({
+                "qs": _qs(c) if s.quantizable else None,
+                "mask": pruning.keep_mask(self._scores[idx], c.keep)
+                if idx in self._scores else None})
+        return cspec
+
+    def _make_cspec_builder(self):
+        return make_resnet_cspec_builder(self)
+
+    def _conv_weight(self, idx: int) -> torch.Tensor:
+        """The weight of the idx-th conv in ``layer_specs`` order."""
+        if idx == 0:
+            return self.params["stem"]["w"]
+        i = 1
+        for blocks in self.params["stages"]:
+            for blk in blocks:
+                for key in ("conv1", "conv2", "skip"):
+                    if key in blk:
+                        if i == idx:
+                            return blk[key]["w"]
+                        i += 1
+        raise IndexError(idx)
+
+    @torch.no_grad()
+    def logits(self, batch: dict, cspec=None) -> torch.Tensor:
+        return R.forward(self.cfg, self.params, batch["images"], cspec)
+
+    def log_probs(self, batch: dict, cspec=None) -> torch.Tensor:
+        return torch.log_softmax(self.logits(batch, cspec), -1)
+
+    def accuracy(self, batch: dict, cspec=None) -> torch.Tensor:
+        """Top-1 accuracy (a 0-d tensor on the device)."""
+        lg = self.logits(batch, cspec)
+        return torch.mean((torch.argmax(lg, -1) == batch["labels"]).float())
+
+    def accuracy_batch(self, batch: dict, stacked_cspec) -> torch.Tensor:
+        """(K,) top-1 accuracies of the K policies of a batched cspec, from
+        one forward over all of them (a tensor on the device)."""
+        lg = self.logits(batch, stacked_cspec)
+        return torch.mean((torch.argmax(lg, -1) == batch["labels"][None])
+                          .float(), 1)

@@ -370,13 +370,19 @@ def deploy_policy_params(cmodel, policy: Policy):
 
 
 def _deployed_forward(cmodel):
-    """fn(deployed params, batch) -> logits: the deployed forward of an
-    LM compressible model."""
+    """fn(deployed params, batch) -> logits: the deployed forward of a
+    ``CompressibleLM`` or a ``CompressibleResNet``. The ResNet's takes raw
+    weights only, as the JAX package's does (whose ``resnet._conv`` reads
+    ``p["w"]``): a tree holding an int8 or packed-int4 container raises
+    ``ValueError`` (``models.resnet.RAW_ONLY``)."""
     cfg = cmodel.cfg
     if not hasattr(cfg, "vocab_size"):
-        raise NotImplementedError(
-            "the deployed ResNet forward waits for the ResNet slice "
-            "(ROADMAP slice 2)")
+        from ..models import resnet as R
+
+        @torch.no_grad()
+        def fwd_resnet(qp, batch):
+            return R.forward(cfg, qp, batch["images"])
+        return fwd_resnet
     from ..models import model as M
 
     @torch.no_grad()

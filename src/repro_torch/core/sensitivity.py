@@ -143,7 +143,8 @@ def plan_kls(cmodel, batch, plan: ProbePlan) -> np.ndarray:
 
 def run_sensitivity(cmodel, batch) -> SensitivityResult:
     """The agent-state analysis: legalized feature probes for every
-    layer. ``cmodel``: ``CompressibleLM``; ``batch``: calibration data."""
+    layer. ``cmodel``: ``CompressibleLM`` or ``CompressibleResNet``;
+    ``batch``: calibration data (tokens or labelled images)."""
     plan = build_probe_plan(cmodel.specs)
     kls = plan_kls(cmodel, batch, plan)
     table: Dict[str, Dict[str, float]] = {s.name: {} for s in cmodel.specs}

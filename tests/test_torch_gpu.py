@@ -195,6 +195,63 @@ def test_gpu_fake_quant_slots_exact(cuda, K, R, C, dtype, shared):
             assert torch.equal(got[k], fn(x[k], bits[k]))
 
 
+# (rows, channels) of the ResNet path's K1 sites at 256 images: the stem's
+# input (3 channels), stage 0's activations, the stages' widths, the head's
+# pooled input and weight (10 classes), the widest weight, the testbed's
+# 16-channel stage; C 3 and 10 are not multiples of the 4-float vector
+# (the kernels' scalar path).
+RESNET_SITES = [(262144, 3), (262144, 64), (65536, 128), (16384, 256),
+                (4096, 512), (256, 512), (512, 10), (4608, 512), (27, 64),
+                (65536, 16), (256, 10)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R,C", RESNET_SITES)
+def test_gpu_fake_quant_resnet_sites_exact(cuda, R, C):
+    """K1 at the ResNet's channel counts (3, 10, 16, 64, 512) and row
+    counts up to 262,144, f32, plain and straight-through, bit for bit
+    its plain versions: one tensor, and over 8 slots in the batched
+    path's layouts (each slot's channels side by side in [R, 8·C] rows,
+    read as the [8, R, C] view; a tensor shared by the slots)."""
+    x = torch.from_numpy(_normal(C, (R, C))).to(cuda)
+    x[0, C // 2], x[-1, C // 2] = -9.0, 11.0     # in different slabs
+    for ste in (False, True):
+        fn = fake_quant_ste_ref if ste else fake_quant_ref
+        for bits in (2, 4, 8):
+            assert torch.equal(fake_quant_2d(x, bits, ste=ste), fn(x, bits))
+    bits = SLOT_BITS
+    side = torch.from_numpy(_normal(C + 1, (R, 8, C))).to(cuda)
+    for xs in (side.transpose(0, 1), x.expand(8, R, C)):
+        for ste in (False, True):
+            got = fake_quant_slots(xs, bits, ste=ste)
+            assert torch.equal(got, fake_quant_slots_ref(xs, bits, ste))
+
+
+@pytest.mark.gpu
+def test_gpu_resnet_k1_reads_nhwc_and_hwio_in_place(cuda, monkeypatch):
+    """A ResNet conv under a policy hands K1 its NHWC activation and its
+    HWIO weight as they lie (the same storage, no copy before the
+    launch): one tensor on the scalar forward, the slots' side-by-side
+    channels and the shared weight over 8 slots on the batched one."""
+    from repro_torch.kernels import fake_quant as kfq
+    from repro_torch.models import resnet as R
+    seen = []
+    for name in ("fake_quant_2d", "fake_quant_slots"):
+        def record(x, *a, _real=getattr(kfq, name), **kw):
+            seen.append(x.data_ptr())
+            return _real(x, *a, **kw)
+        monkeypatch.setattr(kfq, name, record)
+    w = torch.from_numpy(_normal(1, (3, 3, 64, 128))).to(cuda)
+    x = torch.from_numpy(_normal(2, (16, 32, 32, 64))).to(cuda)
+    R._conv({"w": w}, x, 2, {"w_bits": 4, "a_bits": 4})
+    assert seen == [w.data_ptr(), x.data_ptr()]
+    seen.clear()
+    xb = torch.from_numpy(_normal(3, (16, 32, 32, 8 * 64))).to(cuda)
+    R._conv({"w": w}, xb, 2, {"w_bits": SLOT_BITS, "a_bits": SLOT_BITS},
+            K=8)
+    assert seen == [w.data_ptr(), xb.data_ptr()]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_gpu_fake_quant_slots_reads_views_in_place(cuda, dtype):

@@ -442,12 +442,48 @@ def test_measured_mode_times_top_k_and_memoizes(monkeypatch):
                              mcfg) == t1
 
 
-def test_deployed_forward_refuses_resnet():
-    class _ResNetLike:
-        cfg = object()
+def _resnet_pair():
+    """The tests' tiny ResNet (``tests/conftest.py``'s sizes) as a (JAX,
+    port) adapter pair on the port's seeded weights, and a blob batch."""
+    from repro.core.compress import CompressibleResNet
+    from repro.data.pipeline import blob_images
+    from repro.models import resnet as JR
+    from repro_torch.data.pipeline import blob_images as tblob
+    from repro_torch.models import resnet as TR
+    args = dict(stages=(1, 1), widths=(8, 16), img_size=8, num_classes=4)
+    tparams = TR.init(TR.ResNetConfig(**args), seed=0, device="cpu")
+    jparams = jax.tree.map(lambda t: jnp.asarray(t.numpy()), tparams)
+    return (CompressibleResNet(JR.ResNetConfig(**args), jparams),
+            tcompress.CompressibleResNet(TR.ResNetConfig(**args), tparams),
+            blob_images(4, 16, 8, seed=5), tblob(4, 16, 8, seed=5,
+                                                 device="cpu"))
 
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        tm._deployed_forward(_ResNetLike())
+
+def test_deployed_resnet_forward_raw_matches_jax():
+    """The deployed raw ResNet forward equals the JAX one (≤1e-5 of the
+    largest logit), and ``measure_model_row`` times it."""
+    jcm, tcm, jb, tb = _resnet_pair()
+    want = np.asarray(jm._deployed_forward(jcm)(jcm.params, jb))
+    got = tm._deployed_forward(tcm)(tcm.params, tb).numpy()
+    assert got.shape == (16, 4)
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+    row = tm.measure_model_row(tcm, tb, "raw",
+                               tm.MeasureConfig(warmup=1, repeats=1))
+    assert row["container"] == "raw" and row["measured_s"] > 0
+
+
+@pytest.mark.parametrize("container", ["int8", "int4"])
+def test_deployed_resnet_forward_refuses_containers(container):
+    """A ResNet tree with int8 or packed-int4 containers: the JAX
+    package's deployed forward fails with ``KeyError: 'w'``
+    (``resnet._conv`` reads ``p["w"]``); the port's raises ValueError
+    naming that limitation."""
+    jcm, tcm, jb, tb = _resnet_pair()
+    cfg = tm.MeasureConfig(warmup=1, repeats=1)
+    with pytest.raises(KeyError, match="'w'"):
+        jm.measure_model_row(jcm, jb, container, cfg)
+    with pytest.raises(ValueError, match=r"resnet\.py:49"):
+        tm.measure_model_row(tcm, tb, container, cfg)
 
 
 def test_calibration_path_on_cpu():
