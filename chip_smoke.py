@@ -92,16 +92,35 @@ Phases, each fatal on failure (non-zero exit, no result line):
    per conv weight turned OIHW plus one per input padded for XLA's
    asymmetric SAME), K1's µs at each site shape beside its bound, and
    the deployed raw forward at batch 1.
-7. Calibration path: ``repro_torch.launch.calibrate.run`` at full width
+7. Fused path: ``FusedCompressionSearch`` on the LM testbed (K 8, the
+   batched path's seeds and KL table): per batch 16 episodes (the
+   rollout and the update chunk each one CUDA-graph replay, validation
+   eager on host bits), then epoch mode (E 2) 32 episodes (E whole
+   batches one replay and one readback, validation on device bits:
+   K1's device-bits entry); then both on ResNet18 at CIFAR-10 widths
+   (256 images, the ResNet path's seeds and KL table). Each run is held
+   bit for bit to the same engine with its graphs' functions run
+   eagerly on the card (records, agent and ring tensors), and epoch mode
+   to the per-batch records on the same draws. K1's device-bits entry
+   exact at every (shape, bits vector) of the epoch runs' validations
+   (all-32 sites included) and equal to the host-bits form; timed at
+   [8, 3072, 256] bf16 beside it. In steady state (every episode live,
+   every graph captured) a chunk must capture nothing, replay the
+   rollout and the update graph once a batch or the epoch graph once
+   with one readback, and launch K2 once per rollout step and 5 times
+   per DDPG step, K3 once per DDPG step, and K1 once per validation
+   site (over slots on host bits, or its device-bits entry). Episodes/s
+   and the ``[time]`` split beside the scalar and batched engines'.
+8. Calibration path: ``repro_torch.launch.calibrate.run`` at full width
    (unit, kernel and whole-model deploy-path timings, the fitted table,
    the int8/int4 demo rows), launch counts reset before and read after;
    K4 and K5 must have launched, all on the tensor-core route, and every
    time must be finite.
-8. Measured search: a pq ``CompressionSearch`` with
+9. Measured search: a pq ``CompressionSearch`` with
    ``oracle_mode="measured"`` on the fitted table; its top-K rows
    (predicted vs measured ratio) must be finite and its reference
    latency the calibrated oracle's.
-9. Prefill: ``make_prefill_step`` on qwen2-0.5b at full width (24
+10. Prefill: ``make_prefill_step`` on qwen2-0.5b at full width (24
    layers, d 896, vocab 151,936; seeded random weights) over 1 x 32,768
    seeded tokens, uncompressed and under a seeded pq policy. First K6 on
    one layer's q/k/v at that shape against the chunked plain branch
@@ -113,13 +132,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
    kernels and the oracle's predicted compressed/reference ratio beside
    the measured one. The whole prefill at the SMOKE widths and 1,100
    tokens (f32) must agree with the plain CPU path.
-10. Decode: ``decode_loop`` and ``sustained_throughput`` on the same
+11. Decode: ``decode_loop`` and ``sustained_throughput`` on the same
    model, batch 8, 64 steps, max_len 256, KV cache 16 and 8 bits, raw
    and under the policy; tok/s per variant, then one profiled 8-step
    decode each (device busy share, kernels per step). At the SMOKE
    widths (f32) the greedy tokens must be the prefill forward's
    argmaxes.
-11. Mamba-2 prefill: ``make_prefill_step`` on mamba2-780m at full width
+12. Mamba-2 prefill: ``make_prefill_step`` on mamba2-780m at full width
    (48 SSD layers, d 1536, d_inner 3072, 48 heads of 64, state 128,
    vocab 50,280; seeded random weights) over 1 x 32,768 tokens, raw and
    under a seeded pq policy (SSD heads pruned at ``ssm_in``). First K8
@@ -127,17 +146,17 @@ Phases, each fatal on failure (non-zero exit, no result line):
    plain branch (each (token, head) row within ``K8_ROW_TOL``, the final
    state within 2e-4), timed beside it and its bounds (f32 on the CUDA
    cores, split TF32 on the tensor cores), its route and its four
-   kernels' times (profiler); then, as in phase 9, a warm-up and one
+   kernels' times (profiler); then, as in phase 10, a warm-up and one
    timed forward each, with exactly 48 K8 launches, all 48 on the
    tensor-core route, and ``k1_calls``' count of K1 launches per
    forward. At the SMOKE
    widths (f32, 2 x 1,100 tokens, chunk 32: a ragged last chunk) the
    device forward's argmaxes equal the plain CPU path's.
-12. Mamba-2 decode: ``decode_loop`` and ``sustained_throughput``, batch 8,
+13. Mamba-2 decode: ``decode_loop`` and ``sustained_throughput``, batch 8,
    64 steps, the conv and state cache (no KV cache, so no int8 variant),
    raw and under the policy; one profiled 8-step decode each. At the
    SMOKE widths (f32) the greedy tokens are the prefill's argmaxes.
-13. RecurrentGemma prefill: ``make_prefill_step`` on recurrentgemma-2b at
+14. RecurrentGemma prefill: ``make_prefill_step`` on recurrentgemma-2b at
    full width (26 layers in a (rglru, rglru, attn) pattern: 18 RG-LRU
    layers of width 2,560 and 8 local-attention layers, 10 / 1 heads of
    256, window 2,048; d 2,560, GeGLU d_ff 7,680, vocab 256,000; seeded
@@ -149,19 +168,19 @@ Phases, each fatal on failure (non-zero exit, no result line):
    against the former three-launch kernel (``tools/k7_three_pass.cu``)
    at the same chunk, and K6 on layer 2's
    q/k/v (window 2,048) against the chunked plain branch and the dense
-   tail rows, each timed beside its bound; then, as in phase 9, a warm-up
+   tail rows, each timed beside its bound; then, as in phase 10, a warm-up
    and one timed forward each, with exactly 18 K7, 8 K6 (all 8 on the
    tensor-core route) and ``k1_calls``' count of K1 launches per
    forward; a profiled raw forward, with the device ms of layer 0's
    RG-LRU block split into its gate passes, K7, the GEMMs and the rest;
    the phase's peak device memory; at the SMOKE widths (f32, 2 x 1,100
    tokens) the device forward's argmaxes equal the plain CPU path's.
-14. RecurrentGemma decode: ``decode_loop`` and ``sustained_throughput``,
+15. RecurrentGemma decode: ``decode_loop`` and ``sustained_throughput``,
    batch 8, 64 steps, the RG-LRU state and the ring KV cache (16 and 8
    bits), raw and under the policy; one profiled 8-step decode each. At
    the SMOKE widths (f32, window 16) 24 greedy steps (the ring wraps) are
    the prefill's argmaxes.
-15. Lines before the last: the kernels as JSON, then ``nvidia-smi``'s name
+16. Lines before the last: the kernels as JSON, then ``nvidia-smi``'s name
    and power limit. Last line: ``{"ok": true, "device": {...}}``.
 
 K8 (SSD scan) joins phase 3: against the sequential ``ssd_scan_ref`` and
@@ -214,6 +233,9 @@ KERNELS = {
     "fake_quant": {"source": "src/repro_torch/kernels/csrc/fake_quant.cu",
                    "replaces": "src/repro/kernels/fake_quant.py:22"},
     "fake_quant_slots": {
+        "source": "src/repro_torch/kernels/csrc/fake_quant.cu",
+        "replaces": "src/repro/kernels/fake_quant.py:22"},
+    "fake_quant_slots_dev": {
         "source": "src/repro_torch/kernels/csrc/fake_quant.cu",
         "replaces": "src/repro/kernels/fake_quant.py:22"},
     "mlp3": {"source": "src/repro_torch/kernels/csrc/mlp3.cu",
@@ -420,7 +442,10 @@ def k1_calls(cfg, cspec, rows: int) -> list:
     transpose). ``bits >= 32`` launches nothing. For a batched cspec of
     K policies (``rows`` per policy) each entry's bits are the site's
     K-tuple and the entries are K1's launches over the K slots: a site
-    launches once if any slot quantizes there."""
+    launches once if any slot quantizes there. A device cspec's bits
+    ([K] int32 tensors, ``cspec_builder`` on device tensors) launch K1's
+    device-bits entry at every such site, whatever the bits: their
+    entries carry the bits as a tuple."""
     from repro_torch.models.blocks import ssm_dims
     if cspec is None:
         return []
@@ -430,7 +455,9 @@ def k1_calls(cfg, cspec, rows: int) -> list:
     calls = []
 
     def add(shape, bits):
-        if bits is not None and min(
+        if hasattr(bits, "tolist"):
+            calls.append((shape, tuple(int(b) for b in bits.tolist())))
+        elif bits is not None and min(
                 bits if isinstance(bits, tuple) else (bits,)) < 32:
             calls.append((shape, bits))
 
@@ -1901,7 +1928,9 @@ def resnet_k1_calls(cfg, cspec, images: int) -> list:
     ("weight"), then its input [images·H·W, cin] ("act"; "shared" for
     the stem's, the images every slot shares), then the head's pooled
     input [images, C] and its weight. ``bits >= 32`` launches nothing; a
-    batched entry launches once if any slot quantizes there."""
+    batched entry launches once if any slot quantizes there; a device
+    cspec's ([K] int32 bits) at every quantizable site, its bits given
+    as a tuple."""
     from repro_torch.models import resnet as R
     if cspec is None:
         return []
@@ -1909,7 +1938,10 @@ def resnet_k1_calls(cfg, cspec, images: int) -> list:
     calls = []
 
     def add(shape, bits, kind):
-        if min(bits if isinstance(bits, tuple) else (bits,)) < 32:
+        if hasattr(bits, "tolist"):
+            calls.append((shape, tuple(int(b) for b in bits.tolist()),
+                          kind))
+        elif min(bits if isinstance(bits, tuple) else (bits,)) < 32:
             calls.append((shape, bits, kind))
 
     for (which, _, hw, k), (_, _, _, _, _, cin, cout, _), e in zip(
@@ -2349,13 +2381,446 @@ def resnet_phase(device, batch_size: int) -> dict:
     log(f"  deployed raw forward at batch 1 (measure_model_row): "
         f"{row['measured_s'] * 1e3:.4f} ms (host clock, best of 5); {CARD}")
     log(f"  {time.perf_counter() - t_phase:.1f} s for the ResNet phase")
+    sens = search.sens
     del search, cm
     release_cached_memory(device)
-    return {"launches": launches, "slot_launches": b_launches}
+    return {"launches": launches, "slot_launches": b_launches,
+            "sens": sens, "profile": prof, "batched_profile": b_prof}
 
 
 # ---------------------------------------------------------------------------
-# Phases 7 and 8: the calibration path and the measured search
+# Phase 7: the fused path (the fused and epoch engines as CUDA graphs)
+# ---------------------------------------------------------------------------
+
+FUSED_E = 2                 # batches per epoch on the fused path
+
+
+@contextlib.contextmanager
+def eager_graphs():
+    """The fused engine's graphs run their pure functions eagerly on the
+    card instead of capturing and replaying them: the reference that a
+    graph's replay is held to."""
+    from repro_torch.core import graphs
+    call = graphs.Graph.__call__
+    graphs.Graph.__call__ = lambda self: self.fn()
+    try:
+        yield
+    finally:
+        graphs.Graph.__call__ = call
+
+
+def run_fused_search(cm, val, scfg, ctx, sens, device, *, slots: int,
+                     epoch_batches: int = 0, eager: bool = False):
+    """``FusedCompressionSearch`` (``slots`` episodes a batch; epoch mode
+    with ``epoch_batches``) over ``scfg.episodes`` on ``cm`` with the
+    sensitivity table ``sens``; launch and graph counts reset just before
+    the episodes. ``eager``: the graphs' functions run eagerly (the
+    reference). Returns (search, history, seconds, launches, counts)."""
+    from repro_torch.core import graphs
+    from repro_torch.core.search import FusedCompressionSearch
+    from repro_torch.kernels import build
+    search = FusedCompressionSearch(cm, val, scfg, ctx, sens=sens,
+                                    batch_size=slots,
+                                    epoch_batches=epoch_batches)
+    _sync(device)
+    build.reset_launches()
+    graphs.reset_counts()
+    t0 = time.perf_counter()
+    with eager_graphs() if eager else contextlib.nullcontext():
+        history = search.run().history
+    _sync(device)
+    return (search, history, time.perf_counter() - t0, dict(build.LAUNCHES),
+            {k: dict(v) for k, v in graphs.COUNTS.items()})
+
+
+def _cmps(policy) -> list:
+    return [(c.keep, c.w_bits, c.a_bits) for c in policy.cmps]
+
+
+def check_fused_equal(got, want, search_got, search_want, what: str) -> None:
+    """Two fused runs on the same seeds bit for bit: every record (reward,
+    accuracy, latency, policy), every agent tensor and the ring."""
+    import torch
+    from repro_torch.core.ddpg import state_leaves
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} records, {len(want)}")
+    for a, b in zip(got, want):
+        if (a.reward, a.accuracy, a.latency_s, _cmps(a.policy)) != (
+                b.reward, b.accuracy, b.latency_s, _cmps(b.policy)):
+            raise AssertionError(f"{what}: episode {a.episode} differs: "
+                                 f"{a.reward} vs {b.reward}, {a.accuracy} "
+                                 f"vs {b.accuracy}")
+    tensors = list(zip(state_leaves(search_got.agent.state)
+                       + list(search_got.replay.data),
+                       state_leaves(search_want.agent.state)
+                       + list(search_want.replay.data)))
+    worst = max(float((x.double() - y.double()).abs().max())
+                for x, y in tensors)
+    log(f"  {what}: {len(got)} records equal; max |difference| over the "
+        f"{len(tensors)} agent and ring tensors {worst:.3g} (tol 0)")
+    if worst != 0.0 or not all(torch.equal(x, y) for x, y in tensors):
+        raise AssertionError(f"{what}: agent or ring tensors differ")
+
+
+def check_fused_launches(launches: dict, want: dict, what: str) -> None:
+    log(f"  {what}: launches {launches}; wanted {want}")
+    for k, v in want.items():
+        if launches[k] != v:
+            raise AssertionError(f"{what}: {k} launched {launches[k]} "
+                                 f"times, wanted {v}")
+
+
+def fused_steady(search, first: int, chunks: int, sites) -> dict:
+    """``chunks`` more chunks after a run (every episode live, every graph
+    captured): zero captures; per batch one rollout and one update replay,
+    or per epoch one epoch replay and one readback; launches K2 once per
+    rollout step and 5 times per DDPG step, K3 once per DDPG step, K1
+    over slots (host bits) or its device-bits entry once per validation
+    site (``sites(history)`` of the chunks' records)."""
+    from repro_torch.core import graphs
+    from repro_torch.kernels import build
+    K, T = search.batch_size, len(search.steps)
+    k = search._chunk_size()
+    _sync(search.device)
+    build.reset_launches()
+    graphs.reset_counts()
+    reads = search.readbacks
+    hist = []
+    for c in range(chunks):
+        hist += search._run_chunk(first + c * k, k)
+    _sync(search.device)
+    counts = {key: dict(v) for key, v in graphs.COUNTS.items()}
+    batches = chunks * k // K
+    steps = batches * K * search.agent.cfg.updates_per_episode
+    epoch = search.epoch_batches > 0
+    want_counts = ({"epoch": {"captures": 0, "replays": chunks}} if epoch
+                   else {"rollout": {"captures": 0, "replays": batches},
+                         "update": {"captures": 0, "replays": batches}})
+    log(f"  steady state, {chunks} more chunk(s) of {k}: graphs {counts}, "
+        f"{search.readbacks - reads} readback(s)")
+    if search.device.type != "cuda":
+        want_counts = {}            # the CPU runs the functions: no graphs
+    if counts != want_counts or search.readbacks - reads != (
+            chunks if epoch else 0):
+        raise AssertionError(f"steady state: graphs {counts}, wanted "
+                             f"{want_counts}")
+    n_sites = sites(hist)
+    check_fused_launches(dict(build.LAUNCHES), {
+        "mlp3": batches * T + 5 * steps, "polyak": steps,
+        "fake_quant_slots_dev" if epoch else "fake_quant_slots": n_sites,
+        "fake_quant_slots" if epoch else "fake_quant_slots_dev": 0,
+        "fake_quant": 0}, "steady state")
+    return {"records": hist}
+
+
+def profile_fused(search, first: int, chunks: int) -> dict:
+    """Where a fused episode's time goes, from ``chunks`` more chunks (not
+    in the launch counts): host-clock split of the graph replays by label
+    (rollout, update, or the whole epoch) and the validation (each ended
+    by a device sync) and the rest (other host: records, reads, ring
+    writes); then, on the card, one ``torch.profiler`` pass over as many
+    chunks for the device's busy share."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import graphs
+    device = search.device
+    split = {"rollout": 0.0, "validation": 0.0, "update": 0.0, "epoch": 0.0}
+    call, acc = graphs.Graph.__call__, search.cmodel.accuracy_policy_batch
+
+    def timed(key, fn):
+        def run(*a, **kw):
+            _sync(device)
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            _sync(device)
+            split[key or a[0].label] += time.perf_counter() - t0
+            return out
+        return run
+
+    graphs.Graph.__call__ = timed(None, call)
+    search.cmodel.accuracy_policy_batch = timed("validation", acc)
+    k = search._chunk_size()
+    try:
+        _sync(device)
+        t0 = time.perf_counter()
+        for c in range(chunks):
+            search._run_chunk(first + c * k, k)
+        _sync(device)
+        wall = time.perf_counter() - t0
+    finally:
+        graphs.Graph.__call__ = call
+        del search.cmodel.accuracy_policy_batch
+    eps = chunks * k
+    split = {key: v / eps for key, v in split.items() if v > 0}
+    split["other host"] = wall / eps - sum(split.values())
+    out = {"episode_s": wall / eps, "episodes": eps, "split_s": split,
+           "profiled_wall_s": 0.0, "device_busy_s": 0.0, "top": []}
+    if device.type != "cuda":
+        return out
+    _sync(device)
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for c in range(chunks, 2 * chunks):
+            search._run_chunk(first + c * k, k)
+        _sync(device)
+    rows = [(getattr(ev, "self_device_time_total", 0.0), ev.key)
+            for ev in prof.key_averages()
+            if getattr(ev, "device_type", None) is not None
+            and "CUDA" in str(ev.device_type)]
+    out.update(profiled_wall_s=time.perf_counter() - t0,
+               device_busy_s=sum(t for t, _ in rows) * 1e-6 / eps,
+               top=sorted(rows, reverse=True)[:8])
+    return out
+
+
+def check_fake_quant_dev_calls(calls, make_input, dtypes, device) -> dict:
+    """K1's device-bits entry at every (shape, bits vector, ...) of
+    ``calls`` (all-32 sites included: the entry copies them), inputs from
+    ``make_input(call, dtype)`` in the path's layout, plain and
+    straight-through: exact against ``fake_quant_slots_ref`` and equal to
+    the host-bits slot form."""
+    import torch
+    from repro_torch.kernels.fake_quant import (fake_quant_slots,
+                                                fake_quant_slots_dev)
+    from repro_torch.kernels.ref import fake_quant_slots_ref
+    sites = sorted(set(calls))
+    err = 0.0
+    for call in sites:
+        bits = call[1]
+        dev = torch.tensor(bits, dtype=torch.int32, device=device)
+        for dtype in dtypes(call):
+            x = make_input(call, dtype)
+            for ste in (False, True):
+                got = fake_quant_slots_dev(x, dev, ste=ste)
+                want = fake_quant_slots_ref(x, bits, ste)
+                if got.dtype != x.dtype or got.shape != want.shape:
+                    raise AssertionError(f"fake_quant_slots_dev returned "
+                                         f"{got.dtype} {tuple(got.shape)}")
+                err = max(err, float((got.float() - want.float()).abs()
+                                     .max()))
+                if not torch.equal(got, fake_quant_slots(x, bits, ste=ste)):
+                    raise AssertionError(f"K1's device-bits entry differs "
+                                         f"from its host-bits form at "
+                                         f"{call}")
+    if err > 0.0:
+        raise AssertionError(f"K1's device-bits entry disagrees with its "
+                             f"plain version: max abs err {err}")
+    return {"pairs": len(sites), "max_abs_err": err}
+
+
+def time_fake_quant_slots_dev(x, bits, iters: int = 50) -> dict:
+    """K1's device-bits entry, straight-through, on x [K, R, C] (device
+    and host-paced ms) beside the host-bits slot form at the same bits,
+    the plain version and the bound (``time_fake_quant_slots``')."""
+    import torch
+    from repro_torch.kernels.fake_quant import (fake_quant_slots,
+                                                fake_quant_slots_dev)
+    from repro_torch.kernels.ref import fake_quant_slots_ref
+    dev = torch.tensor(bits, dtype=torch.int32, device=x.device)
+    ms, paced = cuda_ms(lambda: fake_quant_slots_dev(x, dev, ste=True),
+                        iters, 3)
+    host, _ = cuda_ms(lambda: fake_quant_slots(x, bits, ste=True), iters, 3)
+    plain, _ = cuda_ms(lambda: fake_quant_slots_ref(x, bits, True), 5, 1)
+    n = x.numel()
+    bound, by = bound_ms(2.0 * x.element_size() * n, 12.0 * n)
+    log(f"    {list(x.shape)} {str(x.dtype)[6:]} bits {list(bits)} "
+        f"straight-through, device bits: {ms * 1e3:.2f} us kernel "
+        f"({paced * 1e3:.2f} paced), host-bits slot form "
+        f"{host * 1e3:.2f} us, {plain * 1e3:.2f} us plain, bound "
+        f"{bound * 1e3:.3f} us ({by}); {CARD}")
+    return dict(shape=list(x.shape), ms=ms, paced_ms=paced, plain_ms=plain,
+                host_bits_ms=host, bound_ms=bound, bound_by=by,
+                library_ms=None, tolerance=0.0)
+
+
+def device_cspecs(search, history) -> list:
+    """The device cspec (``cspec_builder`` on device int tensors) of each
+    batch of ``history``'s policies, as the epoch graph built them."""
+    import torch
+    from repro_torch.core.policy import stack_policies
+    k, out = search.batch_size, []
+    for i in range(0, len(history), k):
+        pb = stack_policies(search.specs,
+                            [r.policy for r in history[i:i + k]])
+        out.append(search.cmodel.cspec_builder()(*(
+            torch.as_tensor(x, dtype=torch.int32, device=search.device)
+            for x in (pb.keep, pb.w_bits, pb.a_bits))))
+    return out
+
+
+def fused_runs(name, make, device, episodes: int, sites_host, sites_dev,
+               check_sites) -> dict:
+    """The fused path on one model: per batch over ``episodes``, then
+    epoch mode (E ``FUSED_E``) over twice as many on the same seeds; each
+    held to its eager reference on the card bit for bit, epoch mode to
+    the per-batch records, then timed in steady state (``[time]``) with
+    the graph and launch counts checked. ``make(episodes)`` gives (cm,
+    val, scfg, ctx, sens)."""
+    from repro_torch.kernels import build
+    out = {}
+    runs = {}
+    for mode, E, eps in (("fused", 0, episodes),
+                         ("epoch", FUSED_E, 2 * episodes)):
+        t0 = time.perf_counter()
+        cm, val, scfg, ctx, sens = make(eps)
+        search, hist, secs, launches, counts = run_fused_search(
+            cm, val, scfg, ctx, sens, device, slots=SLOTS,
+            epoch_batches=E)
+        check_batch_records(search, hist, eps)
+        log(f"  {name} {mode}: {eps} episodes in {secs:.3f} s = "
+            f"{eps / secs:.3f} episodes/s (captures included); graphs "
+            f"{counts}; readbacks {search.readbacks}; launches {launches};"
+            f" {CARD}")
+        ref, ref_hist, ref_secs, _, _ = run_fused_search(
+            cm, val, scfg, ctx, sens, device, slots=SLOTS, epoch_batches=E,
+            eager=True)
+        check_fused_equal(hist, ref_hist, search, ref,
+                          f"{mode} graphs vs the same functions eager "
+                          f"({ref_secs:.3f} s)")
+        del ref
+        runs[mode] = (search, hist)
+        out[mode] = {"launches": launches, "seconds": secs}
+        log(f"  {time.perf_counter() - t0:.1f} s for the {name} {mode} runs")
+    (fused, f_hist), (epoch, e_hist) = runs["fused"], runs["epoch"]
+    worst = max(abs(a.reward - b.reward) for a, b in zip(f_hist, e_hist))
+    same = sum(_cmps(a.policy) == _cmps(b.policy)
+               for a, b in zip(f_hist, e_hist))
+    log(f"  epoch vs per batch, episodes 0-{episodes - 1} on the same "
+        f"draws: {same}/{episodes} policies equal, max |reward diff| "
+        f"{worst:.3g} (tol 0)")
+    if same != episodes or worst != 0.0:
+        raise AssertionError("epoch mode differs from the per-batch fused "
+                             "engine on the same draws")
+    err = check_sites(sum((sites_dev(cs) for cs in device_cspecs(
+        epoch, e_hist)), []))
+    log(f"  K1 device bits at the {err['pairs']} (shape, bits vector) sites"
+        f" of the epoch run's validations: max |kernel - plain| "
+        f"{err['max_abs_err']:.3g} (tol 0), equal to the host-bits form")
+    out["dev_check"] = err
+    for mode, (search, hist) in runs.items():
+        first = len(hist)
+        sites = sites_dev if mode == "epoch" else sites_host
+        fused_steady(search, first, 1, lambda h, s=search, f=sites: sum(
+            len(f(cs)) for cs in (device_cspecs(s, h) if s.epoch_batches
+                                  else batch_cspecs(s, h))))
+        first += search._chunk_size()
+        prof = profile_fused(search, first, 1)
+        log(f"  {name} {mode}, steady state:")
+        log_profile(prof)
+        out[mode]["profile"] = prof
+    build.reset_launches()
+    return out
+
+
+def log_engines(name: str, profiles: dict) -> None:
+    """The engines' steady-state profiles side by side: episodes/s, the
+    ``[time]`` split (ms per episode) and the device's busy share."""
+    keys = ("rollout", "validation", "update", "epoch", "other host")
+    log(f"  [time] {name}, steady state, ms per episode ({CARD}):")
+    log("    engine    episodes/s  " + "  ".join(f"{k:>10}" for k in keys)
+        + "  device busy")
+    for engine, p in profiles.items():
+        busy = p["device_busy_s"]
+        log(f"    {engine:8s}  {1 / p['episode_s']:10.3f}  " + "  ".join(
+            f"{p['split_s'].get(k, 0.0) * 1e3:10.2f}" for k in keys)
+            + (f"  {busy * 1e3:.2f} ({busy / p['episode_s']:.1%})" if busy
+               else "  not measured"))
+
+
+def fused_phase(device, lm_sens, resnet_sens, batch_size: int,
+                baselines: dict) -> dict:
+    """Phase 7, ``[fused path]``: ``FusedCompressionSearch`` per batch
+    and in epoch mode on the LM testbed (K 8, the batched path's seeds
+    and KL table) and on ResNet18 at CIFAR-10 widths (256 images, the
+    ResNet path's), each held to the eager run of its graphs and epoch
+    mode to per batch; K1's device-bits entry at every site; episodes/s
+    and the ``[time]`` split beside the scalar and batched engines'
+    (``baselines``). Returns the LM's and ResNet's results and K1's
+    device-bits row."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.testbed import (IMG_CTX, IMG_VAL_BATCH,
+                                             LM_CFG, RESNET18_CIFAR,
+                                             SERVE_CTX, VAL_BATCH, VAL_SEQ)
+    t_phase = time.perf_counter()
+    episodes, warmup, updates = 16, 4, 16
+    rows = VAL_BATCH * VAL_SEQ
+    log(f"[fused path] FusedCompressionSearch on {LM_CFG.name}, K {SLOTS} "
+        f"episodes per batch: per batch {episodes} episodes, then epoch "
+        f"mode (E {FUSED_E}) {2 * episodes} episodes, warmup {warmup}, "
+        f"{updates} updates per live episode, DDPG batch {batch_size}; the "
+        f"batched path's seeds and sensitivity table; {CARD}")
+
+    def make_lm(eps):
+        cm, val, scfg = search_inputs(
+            LM_CFG, device, episodes=eps, warmup=warmup, updates=updates,
+            batch_size=batch_size, val_batch=VAL_BATCH, val_seq=VAL_SEQ)
+        return cm, val, scfg, SERVE_CTX, lm_sens
+
+    gen = torch.Generator(device=device).manual_seed(6)
+
+    def lm_input(call, dtype):
+        (R, C), bits = call
+        if R == rows:
+            return torch.randn((SLOTS, R, C), generator=gen,
+                               device=device).to(dtype)
+        return torch.randn((R, C), generator=gen, device=device).to(
+            dtype).expand(SLOTS, R, C)
+
+    lm = fused_runs(
+        LM_CFG.name, make_lm, device, episodes,
+        lambda cs: k1_calls(LM_CFG, cs, rows),
+        lambda cs: k1_calls(LM_CFG, cs, rows),
+        lambda calls: check_fake_quant_dev_calls(
+            calls, lm_input, lambda c: {torch.float32, k1_call_dtype(
+                LM_CFG, c[0], rows)}, device))
+    log_engines(LM_CFG.name, {
+        "scalar": baselines["scalar"], "batched": baselines["batched"],
+        "fused": lm["fused"]["profile"], "epoch": lm["epoch"]["profile"]})
+
+    log("  K1's device-bits entry, timed (the LM's activation, 8 slots):")
+    dev_row = time_fake_quant_slots_dev(
+        torch.randn((SLOTS, rows, LM_CFG.d_model), generator=gen,
+                    device=device).to(getattr(torch, LM_CFG.compute_dtype)),
+        (2, 3, 4, 5, 6, 8, 4, 6))
+    dev_row["max_abs_err"] = lm["dev_check"]["max_abs_err"]
+    release_cached_memory(device)
+
+    cfg = RESNET18_CIFAR
+    log(f"  [fused path] {cfg.name}, {IMG_VAL_BATCH} blob images, K {SLOTS}"
+        f": per batch {episodes} episodes, epoch mode (E {FUSED_E}) "
+        f"{2 * episodes}; the ResNet path's seeds and sensitivity table")
+
+    def make_resnet(eps):
+        cm, val, scfg = resnet_inputs(
+            cfg, device, episodes=eps, warmup=warmup, updates=updates,
+            batch_size=batch_size, val_batch=IMG_VAL_BATCH)
+        return cm, val, dataclasses.replace(scfg, episodes=eps), IMG_CTX, \
+            resnet_sens
+
+    def resnet_input(call, dtype):
+        (shape, bits, kind) = call
+        return resnet_slot_input(shape, kind, SLOTS, gen, device).to(dtype)
+
+    resnet = fused_runs(
+        cfg.name, make_resnet, device, episodes,
+        lambda cs: resnet_k1_calls(cfg, cs, IMG_VAL_BATCH),
+        lambda cs: resnet_k1_calls(cfg, cs, IMG_VAL_BATCH),
+        lambda calls: check_fake_quant_dev_calls(
+            calls, resnet_input, lambda c: {torch.float32}, device))
+    log_engines(cfg.name, {
+        "scalar": baselines["resnet_scalar"],
+        "batched": baselines["resnet_batched"],
+        "fused": resnet["fused"]["profile"],
+        "epoch": resnet["epoch"]["profile"]})
+    log(f"  {time.perf_counter() - t_phase:.1f} s for the fused phase")
+    release_cached_memory(device)
+    return {"lm": lm, "resnet": resnet, "dev_row": dev_row}
+
+
+# ---------------------------------------------------------------------------
+# Phases 8 and 9: the calibration path and the measured search
 # ---------------------------------------------------------------------------
 
 def _positive(x) -> bool:
@@ -2453,7 +2918,7 @@ def run_measured_search(cfg, device, table_dict: dict, *, episodes: int,
 
 
 # ---------------------------------------------------------------------------
-# Phases 9 and 10: prefill and decode of qwen2-0.5b
+# Phases 10 and 11: prefill and decode of qwen2-0.5b
 # ---------------------------------------------------------------------------
 
 def seeded_policy(cm, seed: int):
@@ -3080,7 +3545,7 @@ def _to(tree, device):
 # ---------------------------------------------------------------------------
 
 def recurrentgemma_phases(device, results: dict, launches: dict) -> None:
-    """Phases 13 and 14 on the card: recurrentgemma-2b's prefill and
+    """Phases 14 and 15 on the card: recurrentgemma-2b's prefill and
     decode (the earlier models freed first). Adds the K6 (D 256) and K7
     rows to ``results`` and their launch counts to ``launches``."""
     import torch
@@ -3294,6 +3759,16 @@ def main() -> int:
     resnet = resnet_phase(device, batch)
     log(f"  ResNet launches: scalar {resnet['launches']}, batched "
         f"{resnet['slot_launches']}")
+
+    fused = fused_phase(device, search.sens, resnet["sens"], batch, {
+        "scalar": prof, "batched": b_prof, "resnet_scalar":
+        resnet["profile"], "resnet_batched": resnet["batched_profile"]})
+    results["fake_quant_slots_dev"] = fused["dev_row"]
+    launches["fake_quant_slots_dev"] = fused["lm"]["epoch"]["launches"][
+        "fake_quant_slots_dev"]
+    if launches["fake_quant_slots_dev"] == 0:
+        raise AssertionError("K1's device-bits entry never launched on the "
+                             "fused path")
 
     log(f"[calibration path] launch.calibrate.run on {LM_CFG.name} at full "
         f"width (deploy-path units, K4/K5 kernel rows, raw/int8/int4 "

@@ -58,7 +58,9 @@ def agent_state(st, device="cuda") -> AgentState:
                  for k, v in layer.items()} for layer in x]
 
     def opt(o):
-        return {"m": net(o["m"]), "v": net(o["v"]), "t": int(o["t"])}
+        return {"m": net(o["m"]), "v": net(o["v"]),
+                "t": torch.tensor(int(o["t"]), dtype=torch.int32,
+                                  device=device)}
 
     def scalar(x):
         return torch.as_tensor(np.array(x, np.float32), device=device)

@@ -12,7 +12,13 @@ validation): ``"slots": K``, bits as K-tuples of host ints, masks [K, n]
 ``make_lm_cspec_builder`` / ``make_resnet_cspec_builder`` build it from
 (K, L) keep / w_bits / a_bits arrays; ``stack_cspecs`` from K scalar
 cspecs. Both give the same masks and bits as the scalar cspecs policy by
-policy.
+policy. Given (K, L) int tensors on the device (the fused engine's epoch
+graph, whose policies never leave the card), the builders make the
+device form: each site's bits a [K] int32 tensor that K1 reads
+(``kernels.fake_quant.fake_quant_slots_dev``), each mask from the device
+kept counts; a site that no spec makes quantizable keeps static 32-bit
+tuples and launches nothing. ``accuracy_policy_fn`` is that validator,
+(K, L) int32 tensors -> (K,) accuracies, read without a sync.
 """
 from __future__ import annotations
 
@@ -273,11 +279,13 @@ def _lm_prune_scores(cfg: ArchConfig, params,
 def make_lm_cspec_builder(cfg: ArchConfig, params,
                           specs: Sequence[LayerSpec]):
     """Returns ``build(keep, w_bits, a_bits) -> batched cspec`` for (K, L)
-    arrays (a ``PolicyBatch``'s): per unit the K bits as a tuple, per
-    mask the K ``pruning.keep_mask_dynamic`` masks [K, dim] from the
-    ℓ1 scores computed here once. Policy by policy it gives
+    arrays (a ``PolicyBatch``'s, or int tensors on the device: the module
+    docstring): per unit the K bits, per mask the K
+    ``pruning.keep_mask_dynamic`` masks [K, dim] from the ℓ1 scores
+    computed (and sorted) here once. Policy by policy it gives
     ``build_lm_cspec``'s bits and masks (the same scores and ties)."""
     scores = _lm_prune_scores(cfg, params, specs)
+    ranked = _sorted(scores)
     device = params["embed"].device
     pos: dict = {}
     for idx, s in enumerate(specs):
@@ -285,12 +293,8 @@ def make_lm_cspec_builder(cfg: ArchConfig, params,
             else (s.layer_idx, s.kind)] = idx
 
     def build(keep, w_bits, a_bits) -> dict:
-        keep, w_bits, a_bits = (np.asarray(a) for a in (keep, w_bits,
-                                                        a_bits))
+        keep, w_bits, a_bits, bits = _policy_columns(keep, w_bits, a_bits)
         K = keep.shape[0]
-
-        def bits(arr, i):
-            return tuple(int(b) for b in arr[:, i])
 
         def qs(key):
             i = pos.get(key)
@@ -303,7 +307,8 @@ def make_lm_cspec_builder(cfg: ArchConfig, params,
             if i is None or i not in scores:
                 return torch.ones((K, dim), dtype=torch.float32,
                                   device=device)
-            return pruning.keep_mask_dynamic(scores[i], keep[:, i])
+            return pruning.keep_mask_dynamic(scores[i], keep[:, i],
+                                             ranked[i])
 
         layer_cspecs = []
         for i, kind in enumerate(cfg.layer_kinds):
@@ -337,6 +342,23 @@ def make_lm_cspec_builder(cfg: ArchConfig, params,
     return build
 
 
+def _sorted(scores: dict) -> dict:
+    """Each unit's ℓ1 scores sorted once, for ``keep_mask_dynamic``."""
+    return {i: torch.sort(v).values for i, v in scores.items()}
+
+
+def _policy_columns(keep, w_bits, a_bits):
+    """A builder's (K, L) inputs as (keep, w_bits by site, a_bits by site,
+    bits of a site): host arrays give each site's K-tuple of host ints;
+    tensors stay on the device, each site's bits a contiguous [K] int32
+    row of the transposed (L, K) tensor (what K1 reads)."""
+    if isinstance(keep, torch.Tensor):
+        return (keep, *(x.to(torch.int32).t().contiguous()
+                        for x in (w_bits, a_bits)), lambda col, i: col[i])
+    return (np.asarray(keep), np.asarray(w_bits).T, np.asarray(a_bits).T,
+            lambda col, i: tuple(int(b) for b in col[i]))
+
+
 def _resnet_prune_scores(cmodel: "CompressibleResNet") -> dict:
     """spec index -> ℓ1 scores of a prunable conv's output channels."""
     scores, conv_i = {}, 0
@@ -350,26 +372,26 @@ def _resnet_prune_scores(cmodel: "CompressibleResNet") -> dict:
 
 def make_resnet_cspec_builder(cmodel: "CompressibleResNet"):
     """The ResNet analogue of ``make_lm_cspec_builder``: ``build(keep,
-    w_bits, a_bits) -> {"layers": [...], "slots": K}`` for (K, L) arrays,
-    per entry the K bits as tuples and, for a prunable conv, the K
+    w_bits, a_bits) -> {"layers": [...], "slots": K}`` for (K, L) arrays
+    (host arrays, or int tensors on the device: the module docstring),
+    per entry the K bits and, for a prunable conv, the K
     ``pruning.keep_mask_dynamic`` masks [K, cout] from the ℓ1 scores of
-    ``cmodel``."""
+    ``cmodel``, sorted once here."""
     specs = cmodel.specs
     scores = _resnet_prune_scores(cmodel)
+    ranked = _sorted(scores)
 
     def build(keep, w_bits, a_bits) -> dict:
-        keep, w_bits, a_bits = (np.asarray(a) for a in (keep, w_bits,
-                                                        a_bits))
+        keep, w_bits, a_bits, bits = _policy_columns(keep, w_bits, a_bits)
         layers = []
         for idx, s in enumerate(specs):
             entry: dict[str, Any] = {"qs": None, "mask": None}
             if s.quantizable:
-                entry["qs"] = {
-                    "w_bits": tuple(int(b) for b in w_bits[:, idx]),
-                    "a_bits": tuple(int(b) for b in a_bits[:, idx])}
+                entry["qs"] = {"w_bits": bits(w_bits, idx),
+                               "a_bits": bits(a_bits, idx)}
             if idx in scores:
-                entry["mask"] = pruning.keep_mask_dynamic(scores[idx],
-                                                          keep[:, idx])
+                entry["mask"] = pruning.keep_mask_dynamic(
+                    scores[idx], keep[:, idx], ranked[idx])
             layers.append(entry)
         return {"layers": layers, "slots": keep.shape[0]}
 
@@ -407,8 +429,10 @@ def stack_cspecs(cspecs: Sequence) -> dict:
 class _BatchedAccuracyMixin:
     """The batched validation shared by both adapters (the JAX package's
     mixin of the same name): the batched-cspec builder, made once per
-    params object, and the (K,) accuracies of a ``PolicyBatch`` from one
-    forward over its K policies (``accuracy_batch``, per adapter)."""
+    params object, the (K,) accuracies of a ``PolicyBatch`` from one
+    forward over its K policies (``accuracy_policy_batch``, through
+    ``accuracy_batch``, per adapter), and the device validator of the
+    fused engine's epoch graph (``accuracy_policy_fn``)."""
 
     def cspec_builder(self):
         """``_make_cspec_builder()`` for the current params, made once per
@@ -428,11 +452,24 @@ class _BatchedAccuracyMixin:
         return self.accuracy_batch(batch, self.cspec_builder()(
             pbatch.keep, pbatch.w_bits, pbatch.a_bits))
 
+    def accuracy_policy_fn(self, batch: dict):
+        """The device validator the fused engine's epoch graph runs:
+        ``fn(keep, w_bits, a_bits)`` on (K, L) int32 tensors on the
+        model's device -> (K,) accuracies, every bit and mask built on the
+        device (``cspec_builder``'s device form), so nothing in it reads
+        the policies back. Equal to ``accuracy_policy_batch`` on the same
+        policies."""
+        build = self.cspec_builder()
+        return lambda keep, w_bits, a_bits: self.accuracy_batch(
+            batch, build(keep, w_bits, a_bits))
+
 
 @dataclass
 class CompressibleLM(_BatchedAccuracyMixin):
-    """Adapter: ArchConfig LM + params -> the search interface. All work
-    runs on the device the params live on."""
+    """Adapter: ArchConfig LM + params -> the search interface (scalar
+    ``accuracy``, batched ``accuracy_policy_batch``, the fused engine's
+    device validator ``accuracy_policy_fn``). All work runs on the device
+    the params live on."""
     cfg: ArchConfig
     params: Any
     _scores: dict = field(default_factory=dict, init=False, repr=False)
@@ -482,9 +519,11 @@ class CompressibleLM(_BatchedAccuracyMixin):
 
 @dataclass
 class CompressibleResNet(_BatchedAccuracyMixin):
-    """Adapter: ResNetConfig + params -> the search interface, scored by
-    top-1 accuracy over ``batch["labels"]``. All work runs on the device
-    the params live on."""
+    """Adapter: ResNetConfig + params -> the search interface (scalar
+    ``accuracy``, batched ``accuracy_policy_batch``, the fused engine's
+    device validator ``accuracy_policy_fn``), scored by top-1 accuracy
+    over ``batch["labels"]``. All work runs on the device the params
+    live on."""
     cfg: R.ResNetConfig
     params: Any
     _scores: dict = field(default_factory=dict, init=False, repr=False)

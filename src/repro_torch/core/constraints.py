@@ -8,8 +8,15 @@ they are so the port searches the same action space:
   * MIX (sub-8-bit) weights need the contracted dim 256-aligned (int4
     packing); layers that cannot satisfy it take INT8 instead;
   * embedding/unembedding are INT8-or-FP32 only.
+
+``LegalTables`` holds the same rules as per-spec tensors, the form that
+``policy.map_actions_batch`` and the fused engine's rollout consume.
 """
 from __future__ import annotations
+
+from typing import NamedTuple, Sequence
+
+import torch
 
 from .spec import LayerCMP, LayerSpec
 
@@ -44,3 +51,40 @@ def legalize(spec: LayerSpec, cmp: LayerCMP) -> LayerCMP:
         # paper: unsupported layers take the INT8 option instead
         cmp.mode, cmp.w_bits, cmp.a_bits = "INT8", 8, 8
     return cmp
+
+
+# ===========================================================================
+# Tensor form — the same legality rules as data, for vectorized mapping
+# ===========================================================================
+
+class LegalTables(NamedTuple):
+    """Per-spec legality parameters (one entry per ``LayerSpec``) as
+    tensors on the engine's device: policy-independent constants that a
+    captured rollout reads in place."""
+    prune_dim: torch.Tensor    # (L,) f32
+    granularity: torch.Tensor  # (L,) f32  (>= 1)
+    prunable: torch.Tensor     # (L,) bool  (prunable AND prune_dim > 0)
+    quantizable: torch.Tensor  # (L,) bool
+    mix_ok: torch.Tensor       # (L,) bool  (mix_allowed per spec)
+
+
+def legal_tables(specs: Sequence[LayerSpec], device="cpu") -> LegalTables:
+    f32 = dict(dtype=torch.float32, device=device)
+    return LegalTables(
+        prune_dim=torch.tensor([s.prune_dim for s in specs], **f32),
+        granularity=torch.tensor(
+            [max(1, s.prune_granularity) for s in specs], **f32),
+        prunable=torch.tensor([bool(s.prunable and s.prune_dim)
+                               for s in specs], device=device),
+        quantizable=torch.tensor([s.quantizable for s in specs],
+                                 device=device),
+        mix_ok=torch.tensor([mix_allowed(s) for s in specs], device=device))
+
+
+def round_keep_arrays(keep, granularity, prune_dim):
+    """``round_keep`` as tensor ops: round kept counts down to the
+    granularity, floor one granule, cap at the prunable dim. Inputs
+    broadcast; counts stay exact in f32."""
+    rounded = torch.maximum(torch.floor(keep / granularity) * granularity,
+                            granularity)
+    return torch.minimum(rounded, prune_dim)

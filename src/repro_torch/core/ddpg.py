@@ -8,15 +8,21 @@ with a moving average; states standardized with running mean/var estimates.
 
 Layout follows the JAX package: all learnable/learning state lives in an
 ``AgentState`` (networks as lists of ``{"w", "b"}`` layers, ``[in, out]``
-weights), manipulated by plain functions (``update_step``,
-``update_chunk``); ``DDPGAgent`` is the stateful shim the search calls.
+weights, Adam step counts as 0-d device ints), manipulated by plain
+functions (``update_step``, ``update_chunk``, ``agent_act_batch``,
+``observe_states_pure``); ``DDPGAgent`` is the stateful shim the search
+calls. The shim's tensors are never reallocated: a chunk's result and
+the host's running-norm statistics are copied into them
+(``adopt_state``, ``state_for_dispatch``), so a CUDA graph captured over
+them (the fused engine's) stays valid from replay to replay.
 
 Kernels: the actor/critic trunk runs through K2
 (``kernels.ops.fused_mlp3``, whose backward is plain tensor ops) and the
 soft target update of both networks through one K3 launch
-(``kernels.ops.fused_polyak_nets``). Acting stays host numpy with
-``np.random.default_rng(seed)``, as in the JAX package, so exploration
-draws match it bit for bit.
+(``kernels.ops.fused_polyak_nets``). The scalar and batched engines act
+in host numpy with ``np.random.default_rng(seed)``, as in the JAX
+package, so exploration draws match it bit for bit; the fused engine
+acts on the device (``agent_act_batch``, K2) with its draws fed in.
 """
 from __future__ import annotations
 
@@ -28,6 +34,7 @@ import numpy as np
 import torch
 
 from ..kernels import ops
+from .replay import device_replay_sample
 
 
 @dataclass(frozen=True)
@@ -86,15 +93,22 @@ def critic_forward(params, state, action):
 # --- minimal Adam ---
 
 def adam_init(params):
+    device = params[0]["w"].device
     return {"m": [{k: torch.zeros_like(v) for k, v in l.items()}
                   for l in params],
             "v": [{k: torch.zeros_like(v) for k, v in l.items()}
                   for l in params],
-            "t": 0}
+            "t": torch.zeros((), dtype=torch.int32, device=device)}
 
 
 def adam_step(params, grads, st, lr, b1=0.9, b2=0.999, eps=1e-8):
+    """The step count ``t`` is a 0-d device int, so the bias corrections
+    ``1 - b^t`` are f32 device values, as in the JAX package's traced
+    scan (and a captured graph bakes in no step)."""
     t = st["t"] + 1
+    tf = t.float()
+    c1 = 1 - torch.pow(b1, tf)
+    c2 = 1 - torch.pow(b2, tf)
     new_p, new_m, new_v = [], [], []
     for p_l, g_l, m_l, v_l in zip(params, grads, st["m"], st["v"]):
         p2, m2, v2 = {}, {}, {}
@@ -102,8 +116,8 @@ def adam_step(params, grads, st, lr, b1=0.9, b2=0.999, eps=1e-8):
             g = g_l[k]
             m = b1 * m_l[k] + (1 - b1) * g
             v = b2 * v_l[k] + (1 - b2) * g * g
-            mh = m / (1 - b1 ** t)
-            vh = v / (1 - b2 ** t)
+            mh = m / c1
+            vh = v / c2
             p2[k] = p_l[k] - lr * mh / (torch.sqrt(vh) + eps)
             m2[k], v2[k] = m, v
         new_p.append(p2)
@@ -155,10 +169,10 @@ class RunningNorm:
 # ===========================================================================
 
 class AgentState(NamedTuple):
-    """Everything one DDPG agent learns or consumes while learning. The
-    networks, moments and statistics are tensors on the agent's device;
-    the Adam step counts ``opt_*["t"]`` are host ints. The replay
-    sampling stream is a ``torch.Generator`` held by ``DDPGAgent``."""
+    """Everything one DDPG agent learns or consumes while learning: the
+    networks, moments, Adam step counts (``opt_*["t"]``, 0-d int32) and
+    statistics, all tensors on the agent's device. The replay sampling
+    stream is a ``torch.Generator`` held by ``DDPGAgent``."""
     actor: list
     critic: list
     target_actor: list
@@ -188,6 +202,49 @@ def agent_init(cfg: DDPGConfig, gen: torch.Generator, device) -> AgentState:
         norm_var=torch.ones((cfg.state_dim,), **f32),
         reward_ma=torch.zeros((), **f32),
         reward_ma_init=torch.zeros((), **f32))
+
+
+def agent_act_batch(cfg: DDPGConfig, st: AgentState, states, sigmas,
+                    warmup, uniforms, normals):
+    """Batched acting on the device, the draws fed in: K states -> K
+    actions. Warmup rows take ``uniforms`` [K, A]; live rows run the
+    standardized actor (K2) with truncated-normal exploration over the
+    16 candidates ``mu + sigma * normals`` ([K, 16, A]): the first
+    in-bounds candidate wins, else ``clip(cand[0], 0, 1)``, and sigma 0
+    acts greedily. The JAX package's ``agent_act_batch`` given the same
+    draws (not ``DDPGAgent.act_batch``, whose fallback draws a 17th
+    normal)."""
+    s = (states - st.norm_mean) / torch.sqrt(st.norm_var + 1e-8)
+    mu = actor_forward(st.actor, s)
+    cand = mu[:, None, :] + sigmas[:, None, None] * normals
+    ok = torch.all((cand >= 0.0) & (cand <= 1.0), dim=-1)       # [K, 16]
+    first = torch.argmax(ok.to(torch.int32), dim=1)
+    pick = torch.gather(cand, 1, first[:, None, None].expand(
+        -1, 1, cand.shape[-1]))[:, 0]
+    noisy = torch.where(ok.any(dim=1, keepdim=True), pick,
+                        torch.clamp(cand[:, 0], 0.0, 1.0))
+    acted = torch.where(sigmas[:, None] > 0.0, noisy, mu)
+    return torch.where(warmup[:, None], uniforms, acted)
+
+
+def observe_states_pure(st: AgentState, states: torch.Tensor) -> AgentState:
+    """Advance the running-norm statistics from an (N, state_dim) block
+    on the device, in place (the f32 twin of ``RunningNorm.update``: the
+    same parallel-variance formula, as the JAX package's
+    ``observe_states_pure``). Returns ``st``."""
+    bc = float(states.shape[0])
+    bm = states.mean(dim=0)
+    bv = states.var(dim=0, correction=0)
+    delta = bm - st.norm_mean
+    tot = st.norm_count + bc
+    mean = st.norm_mean + delta * bc / tot
+    m_a = st.norm_var * st.norm_count
+    m_b = bv * bc
+    var = (m_a + m_b + delta ** 2 * st.norm_count * bc / tot) / tot
+    st.norm_count.copy_(tot)
+    st.norm_mean.copy_(mean)
+    st.norm_var.copy_(var)
+    return st
 
 
 def _grad_leaves(net):
@@ -250,14 +307,18 @@ def update_step(cfg: DDPGConfig, st: AgentState, batch):
 def update_chunk(cfg: DDPGConfig, st: AgentState, replay, n: int,
                  gen: Optional[torch.Generator] = None,
                  indices: Optional[torch.Tensor] = None):
-    """n critic/actor/target updates, each on a uniform replay sample.
-    ``indices`` ((n, batch_size) ints) replaces the draws from ``gen``:
-    the parity tests feed the JAX package's replay indices. Returns the
-    new state and the (n,) critic and actor losses, left on the device."""
+    """n critic/actor/target updates, each on a uniform replay sample of a
+    ``DeviceReplay`` or its ``DeviceReplayData``. ``indices`` ((n,
+    batch_size) ints) replaces the draws from ``gen``: the fused engine
+    draws them before a replay, the parity tests feed the JAX package's.
+    Returns the new state and the (n,) critic and actor losses, left on
+    the device."""
+    data = getattr(replay, "data", replay)
+    if indices is None:
+        indices = replay.sample_indices((n, cfg.batch_size), gen)
     lcs, las = [], []
     for i in range(n):
-        batch = replay.sample(cfg.batch_size, gen,
-                              idx=None if indices is None else indices[i])
+        batch = device_replay_sample(data, indices[i])
         st, (lc, la) = update_step(cfg, st, batch)
         lcs.append(lc)
         las.append(la)
@@ -362,13 +423,20 @@ class DDPGAgent:
 
     # ---------------- learning ----------------
     def state_for_dispatch(self) -> AgentState:
-        """The state with the host running-norm statistics synced in, so
-        an update chunk standardizes with the values acting used."""
-        f32 = dict(dtype=torch.float32, device=self.device)
-        return self.state._replace(
-            norm_count=torch.tensor(self.norm.count, **f32),
-            norm_mean=torch.as_tensor(self.norm.mean, **f32),
-            norm_var=torch.as_tensor(self.norm.var, **f32))
+        """The state with the host running-norm statistics copied into its
+        tensors, so an update chunk (or the fused rollout) standardizes
+        with the values acting used."""
+        st = self.state
+        st.norm_count.fill_(self.norm.count)
+        st.norm_mean.copy_(torch.as_tensor(self.norm.mean))
+        st.norm_var.copy_(torch.as_tensor(self.norm.var))
+        return st
+
+    def adopt_state(self, st: AgentState):
+        """Take a post-chunk state as truth by copying it into the agent's
+        own tensors (never reallocated); invalidates the host actor."""
+        copy_state(self.state, st)
+        self._actor_host = None
 
     def update_chunk(self, replay, n: int,
                      indices: Optional[torch.Tensor] = None):
@@ -378,6 +446,25 @@ class DDPGAgent:
             return None
         st, losses = update_chunk(self.cfg, self.state_for_dispatch(),
                                   replay, int(n), self.sample_gen, indices)
-        self.state = st
-        self._actor_host = None
+        self.adopt_state(st)
         return losses
+
+
+def state_leaves(st: AgentState) -> list:
+    """Every tensor of an ``AgentState``, in one fixed order."""
+    out = []
+    for net in (st.actor, st.critic, st.target_actor, st.target_critic):
+        out += [l[k] for l in net for k in sorted(l)]
+    for opt in (st.opt_a, st.opt_c):
+        out += [l[k] for part in ("m", "v") for l in opt[part]
+                for k in sorted(l)] + [opt["t"]]
+    return out + [st.norm_count, st.norm_mean, st.norm_var, st.reward_ma,
+                  st.reward_ma_init]
+
+
+def copy_state(dst: AgentState, src: AgentState) -> None:
+    """Copy ``src``'s tensors into ``dst``'s, in place (``dst``'s are
+    never reallocated, so a graph that reads them stays valid)."""
+    for d, s in zip(state_leaves(dst), state_leaves(src)):
+        if d is not s:
+            d.copy_(s)

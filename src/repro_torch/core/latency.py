@@ -15,15 +15,19 @@ overhead by the lumped residual factors.
 
 ``policy_latency_batch`` (``BatchOracle``) evaluates K policies at once
 with numpy array ops over precomputed per-spec tables, the same roofline
-terms in float64: the batched engine probes it every layer step. The
-traced oracle form waits for the fused engine.
+terms in float64: the batched engine probes it every layer step.
+``DeviceBatchOracle`` (``get_device_oracle``) is the same roofline as
+f32 tensor ops on the engine's device, tables borrowed from the
+``BatchOracle`` (calibration factors included): the fused engine's
+rollout probes it every layer step without leaving the device.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Optional, Sequence, Union
+from typing import NamedTuple, Optional, Sequence, Union
 
 import numpy as np
+import torch
 
 from .policy import Policy, PolicyBatch, stack_policies
 from .spec import LayerCMP, LayerSpec, effective_bits
@@ -515,3 +519,176 @@ def policy_latency_batch(
     if not isinstance(policies, PolicyBatch):
         policies = stack_policies(specs, policies)
     return get_batch_oracle(specs, hw, ctx, window, calib)(policies)
+
+
+# ===========================================================================
+# Device oracle — the BatchOracle in f32 tensor ops, for the fused rollout
+# ===========================================================================
+
+class HwParams(NamedTuple):
+    """The hardware rates the roofline divides by, as 0-d f32 tensors on
+    the engine's device (``mxu_align`` stays on the oracle: it shapes
+    the padding formula)."""
+    peak_bf16: torch.Tensor
+    peak_int8: torch.Tensor
+    hbm_bw: torch.Tensor
+    ici_bw: torch.Tensor
+    op_overhead: torch.Tensor
+
+
+def hw_params(hw: HardwareTarget, device="cpu") -> HwParams:
+    f32 = dict(dtype=torch.float32, device=device)
+    return HwParams(*(torch.tensor(getattr(hw, k), **f32)
+                      for k in HwParams._fields))
+
+
+class DeviceBatchOracle:
+    """``BatchOracle``'s roofline as f32 tensor ops on ``device``: the
+    counterpart of the JAX package's ``JaxBatchOracle``, the oracle the
+    fused rollout probes every layer step. Its tables are borrowed from
+    the (cached) ``BatchOracle``, calibration factors included, and live
+    on the device, so a captured rollout reads them in place. Matches
+    the float64 oracle up to f32 rounding, and the JAX one term for
+    term."""
+
+    def __init__(self, specs: Sequence[LayerSpec], hw: HardwareTarget,
+                 ctx: LatencyContext, window: int = 0, calib=None,
+                 device="cpu"):
+        b = get_batch_oracle(specs, hw, ctx, window, calib)
+        dev = torch.device(device)
+        f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32),
+                                        device=dev)
+        flag = lambda x: torch.as_tensor(np.asarray(x, bool), device=dev)
+        self.specs, self.hw, self.ctx, self.window = specs, hw, ctx, window
+        self.calib, self.device = calib, dev
+        self.calib_f = None if b.calib_f is None else f32(b.calib_f)
+        self.extra_f = float(b.extra_f)
+        self.overhead_f = float(b.overhead_f)
+        self.hwp = hw_params(hw, dev)
+        self.is_conv, self.is_embed = flag(b.is_conv), flag(b.is_embed)
+        self.is_qkv, self.is_moe = flag(b.is_qkv), flag(b.is_moe)
+        self.prunable = flag(b.prunable)
+        self.in_dim, self.out_dim = f32(b.in_dim), f32(b.out_dim)
+        self.prune_dim = f32(b.prune_dim)
+        self.weight_elems = f32(b.weight_elems)
+        self.px, self.hd, self.kv = f32(b.px), f32(b.hd), f32(b.kv)
+        self.n_mats, self.top_k = f32(b.n_mats), f32(b.top_k)
+        self.expert_frac = f32(b.expert_frac)
+        self.owner = torch.as_tensor(np.maximum(b.owner, 0), device=dev)
+        self.has_owner = flag(b.owner >= 0)
+        # BatchOracle folds 1/ici_bw into coll_coef; keep the rate out
+        self.coll_base = f32(b.coll_coef * hw.ici_bw)
+        self.extra_idx = torch.as_tensor(b.extra_idx, device=dev)
+        self.spec_idx = torch.arange(len(specs), device=dev)
+        self.bucket_rows = self.spec_idx[None, :]
+        self.n_ops = b.n_ops
+        self.mxu_align = f32(hw.mxu_align)
+        self.chips = float(max(1, ctx.chips))
+        self.tokens = float(ctx.tokens)
+        self.causal = ctx.mode in ("train", "prefill")
+        self.seq = float(ctx.seq_ctx if window <= 0
+                         else min(ctx.seq_ctx, window))
+        if len(b.extra_idx):
+            q = b.extra_idx
+            self.extra_hd = f32(b.hd[q])
+            self.extra_prunable = flag(b.prune_dim[q] > 0)
+            self.extra_cache_bytes = f32(
+                ctx.tokens * self.seq * 2 * b.kv_cache[q] * b.hd[q]
+                * (ctx.cache_bits / 8.0))
+
+    def _pad(self, x):
+        return torch.ceil(torch.clamp_min(x, 1.0) / self.mxu_align) \
+            * self.mxu_align
+
+    def unit_times(self, keep, wb, ab):
+        """(K, L) per-unit and (K, E) attention-extra times of the f32
+        (K, L) policy tensors: the terms of ``BatchOracle.__call__``."""
+        hwp = self.hwp
+        T, chips = self.tokens, self.chips
+        keep_frac = torch.where(
+            self.prune_dim > 0, keep / torch.clamp_min(self.prune_dim, 1.0),
+            torch.ones_like(keep))
+        in_frac = torch.where(self.has_owner, keep_frac[:, self.owner],
+                              torch.ones_like(keep))
+        wbpe = torch.where(wb >= 9, 2.0, torch.where(wb >= 5, 1.0, 0.5))
+        abpe = torch.where(ab <= 8, 1.0, 2.0)
+        peak = torch.where((wb <= 8) & (ab <= 8), hwp.peak_int8,
+                           hwp.peak_bf16)
+
+        k_dim = torch.where(
+            self.is_conv,
+            (self.weight_elems / torch.clamp_min(self.out_dim, 1.0))
+            * in_frac, self.in_dim * in_frac)
+        n_dim = torch.where(
+            self.is_qkv,
+            keep_frac * (self.out_dim - 2 * self.kv * self.hd)
+            + 2 * self.kv * self.hd,
+            torch.where(self.prunable, self.out_dim * keep_frac,
+                        self.out_dim))
+        k_pad, n_pad = self._pad(k_dim), self._pad(n_dim)
+
+        m_rows = torch.where(self.is_conv, T * self.px,
+                             torch.full_like(self.px, T))
+        flops = 2.0 * m_rows * k_pad * n_pad * torch.where(
+            self.is_conv, torch.ones_like(self.n_mats),
+            self.n_mats * torch.where(self.is_moe, self.top_k,
+                                      torch.ones_like(self.top_k)))
+        w_bytes = (self.weight_elems * keep_frac * in_frac
+                   * self.expert_frac * wbpe)
+        a_bytes = m_rows * k_dim * abpe + m_rows * n_dim * 2.0
+
+        compute = flops / (peak * chips)
+        memory = (w_bytes + a_bytes) / (hwp.hbm_bw * chips)
+        compute = torch.where(self.is_embed, 0.0, compute)
+        memory = torch.where(
+            self.is_embed, T * self.out_dim * wbpe / (hwp.hbm_bw * chips),
+            memory)
+        coll = self.coll_base / hwp.ici_bw * n_dim
+        unit_time = torch.maximum(compute, memory) + coll
+        if self.calib_f is not None:
+            bucket = torch.where(wb >= 9, 0, torch.where(wb >= 5, 1, 2))
+            unit_time = unit_time * self.calib_f[self.bucket_rows, bucket]
+
+        if len(self.extra_idx):
+            keep_heads = torch.where(self.extra_prunable,
+                                     keep[:, self.extra_idx], 0.0)
+            eflops = 4.0 * T * self.seq * self.extra_hd * keep_heads
+            if self.causal:
+                eflops = eflops * 0.5
+            extra = torch.maximum(
+                eflops / (hwp.peak_bf16 * chips),
+                self.extra_cache_bytes / (hwp.hbm_bw * chips)) \
+                * self.extra_f
+        else:
+            extra = keep.new_zeros((keep.shape[0], 0))
+        return unit_time, extra
+
+    def totals(self, unit_time, extra_time):
+        return (unit_time.sum(dim=1) + extra_time.sum(dim=1)
+                + self.n_ops * self.hwp.op_overhead * self.overhead_f)
+
+    def decided_before(self, unit_time, extra_time, t: int):
+        """Per-policy latency of units with spec index < t: the device
+        form of ``BatchedPolicyLatency.decided_before`` (masked sums over
+        the whole row, as the JAX oracle takes them)."""
+        out = (unit_time * (self.spec_idx < t)).sum(dim=1)
+        if len(self.extra_idx):
+            out = out + (extra_time * (self.extra_idx < t)).sum(dim=1)
+        return out
+
+
+_device_oracle_cache: dict = {}
+
+
+def get_device_oracle(specs: Sequence[LayerSpec], hw: HardwareTarget,
+                      ctx: LatencyContext, window: int = 0, calib=None,
+                      device="cpu") -> DeviceBatchOracle:
+    """FIFO-evicting cache, the keying of ``get_batch_oracle`` plus the
+    device."""
+    dev = torch.device(device)
+    return fifo_cached(
+        _device_oracle_cache, _ORACLE_CACHE_MAX,
+        (id(specs), hw, ctx, window, id(calib) if calib is not None
+         else None, str(dev)),
+        lambda o: o.specs is specs and o.calib is calib,
+        lambda: DeviceBatchOracle(specs, hw, ctx, window, calib, dev))

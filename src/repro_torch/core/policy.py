@@ -13,6 +13,7 @@ from dataclasses import dataclass, field
 from typing import List, Sequence
 
 import numpy as np
+import torch
 
 from . import constraints
 from .spec import LayerCMP, LayerSpec, effective_bits
@@ -76,6 +77,58 @@ def map_actions(spec: LayerSpec, actions: Sequence[float],
     else:
         raise ValueError(methods)
     return constraints.legalize(spec, cmp)
+
+
+def action_columns(methods: str) -> tuple:
+    """(prune, w-quant, a-quant) column indices into the action vector.
+    Dead columns point at index 0; the rollout keeps the reference's
+    parameters for a method the agent does not search."""
+    if methods == "p":
+        return (0, 0, 0)
+    if methods == "q":
+        return (0, 0, 1)
+    if methods == "pq":
+        return (0, 1, 2)
+    raise ValueError(methods)
+
+
+def map_actions_batch(actions: torch.Tensor, *, prune_dim, granularity,
+                      prunable, quantizable, mix_ok, ip=0, iw=1, ia=2):
+    """Vectorized ``map_actions`` + ``legalize`` over K action rows for
+    ONE spec: (K, A) f32 actions -> (keep, w_bits, a_bits) f32 tensors of
+    *effective* bits (the ``PolicyBatch`` form). The spec parameters are
+    0-d tensors (a row of ``constraints.legal_tables``); ``ip``/``iw``/
+    ``ia`` the action columns of ``action_columns``. Element for element
+    the scalar path: Eq. 4, the Eq. 8 thresholds, then the hardware
+    legalization (granularity rounding, MIX -> INT8 where int4 cannot
+    pack, FP32 where nothing quantizes), in f32 as the JAX package's."""
+    a_p, a_w, a_a = actions[..., ip], actions[..., iw], actions[..., ia]
+
+    # pruning: d_inverse(a_p, prune_dim), rounded to the granularity
+    raw = torch.floor((1.0 - a_p) * prune_dim) + 1.0
+    keep = torch.minimum(raw, prune_dim)
+    keep = constraints.round_keep_arrays(keep, granularity, prune_dim)
+    keep = torch.where(prunable, keep, prune_dim)
+
+    # quantization: threshold mode selection + Eq. 4 on mix bits (the
+    # divisor 1 - T_MIX is 0.5, so tensor / scalar is exact on any route)
+    hi = torch.maximum(a_w, a_a)
+    is_mix = hi > T_MIX
+    is_int8 = ~is_mix & (hi > T_INT8)
+    r_w = torch.clamp((a_w - T_MIX) / (1.0 - T_MIX), 0.0, 1.0)
+    r_a = torch.clamp((a_a - T_MIX) / (1.0 - T_MIX), 0.0, 1.0)
+    mix_w = torch.clamp_max(torch.floor((1.0 - r_w) * MAX_MIX_BITS) + 1.0,
+                            float(MAX_MIX_BITS))
+    mix_a = torch.clamp_max(torch.floor((1.0 - r_a) * MAX_MIX_BITS) + 1.0,
+                            float(MAX_MIX_BITS))
+    is_int8 = is_int8 | (is_mix & ~mix_ok)
+    is_mix = is_mix & mix_ok
+    eight, full = torch.full_like(hi, 8.0), torch.full_like(hi, 32.0)
+    wb = torch.where(is_mix, mix_w, torch.where(is_int8, eight, full))
+    ab = torch.where(is_mix, mix_a, torch.where(is_int8, eight, full))
+    wb = torch.where(quantizable, wb, full)
+    ab = torch.where(quantizable, ab, full)
+    return keep, wb, ab
 
 
 @dataclass

@@ -41,15 +41,24 @@ def keep_mask(scores: torch.Tensor, keep: int) -> torch.Tensor:
     return torch.where(excess, torch.zeros_like(mask), mask)
 
 
-def keep_mask_dynamic(scores: torch.Tensor, keep) -> torch.Tensor:
+def keep_mask_dynamic(scores: torch.Tensor, keep,
+                      sorted_scores=None) -> torch.Tensor:
     """``keep_mask`` for a vector of K kept counts: scores [n] and keep
-    [K] (host ints) -> float masks [K, n]. The same selection as
-    ``keep_mask`` for each count: threshold at the keep-th largest score,
-    then drop later-indexed ties past the count."""
+    [K] (host ints, or an int tensor on the scores' device: the fused
+    engine's, read without a sync) -> float masks [K, n]. The same
+    selection as ``keep_mask`` for each count: threshold at the keep-th
+    largest score, then drop later-indexed ties past the count.
+    ``sorted_scores`` is ``torch.sort(scores).values``, for a caller that
+    sorts once (a cspec builder)."""
     n = scores.shape[0]
-    keep = torch.as_tensor(np.clip(np.asarray(keep, np.int64), 0, n),
-                           device=scores.device)
-    thresh = torch.sort(scores).values[torch.clamp(n - keep, 0, n - 1)]
+    if isinstance(keep, torch.Tensor):
+        keep = torch.clamp(keep.to(torch.int64), 0, n)
+    else:
+        keep = torch.as_tensor(np.clip(np.asarray(keep, np.int64), 0, n),
+                               device=scores.device)
+    if sorted_scores is None:
+        sorted_scores = torch.sort(scores).values
+    thresh = sorted_scores[torch.clamp(n - keep, 0, n - 1)]
     mask = (scores[None, :] >= thresh[:, None]).float()
     mask = torch.where(torch.cumsum(mask, 1) > keep[:, None],
                        torch.zeros_like(mask), mask)

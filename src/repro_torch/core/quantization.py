@@ -16,12 +16,14 @@ the input's dtype, at the same points as the JAX package's
 ``core/quantization.py``.
 
 The batched validation carries K policies at once: its bits are K-tuples
-of host ints, one per policy slot. ``fake_quant_act_slots`` and
+of host ints, one per policy slot, or, in the fused engine's epoch graph,
+a [K] int32 tensor on the device. ``fake_quant_act_slots`` and
 ``fake_quant_weight_slots`` are the per-policy forms (what ``vmap`` makes
 of ``fake_quant`` in the JAX package): each slot gets its own range and
-its own bits, ``bits >= 32`` passes the slot through, and a site at which
-every slot is >= 32 launches nothing. They run under ``no_grad`` (no
-straight-through gradient).
+its own bits, ``bits >= 32`` passes the slot through. With host bits a
+site at which every slot is >= 32 launches nothing; device bits always
+launch K1, which copies such slots (nothing on the host may read them).
+They run under ``no_grad`` (no straight-through gradient).
 """
 from __future__ import annotations
 
@@ -85,11 +87,23 @@ def fake_quant_act(x: torch.Tensor, bits: int) -> torch.Tensor:
     return fake_quant(x, bits)
 
 
+def slotted(bits) -> bool:
+    """Whether a quant spec's bits are a batched spec's (K-tuples of host
+    ints, or a [K] int32 device tensor) rather than one host int."""
+    return isinstance(bits, (tuple, torch.Tensor))
+
+
+def _all_pass(bits) -> bool:
+    """Whether host bits pass every slot through (device bits: unknown)."""
+    return not isinstance(bits, torch.Tensor) and min(bits) >= 32
+
+
 def fake_quant_act_slots(x: torch.Tensor, bits) -> torch.Tensor:
     """Activations of K policies, x [K, rows, C]: slot k quantized at
-    ``bits[k]`` with one range per channel over that slot's rows only;
-    the straight-through forward value, in x's dtype."""
-    if min(bits) >= 32:
+    ``bits[k]`` (K host ints or a [K] int32 device tensor) with one range
+    per channel over that slot's rows only; the straight-through forward
+    value, in x's dtype."""
+    if _all_pass(bits):
         return x
     from ..kernels import ops
     return ops.fake_quant_slots(x, bits)
@@ -101,7 +115,7 @@ def fake_quant_weight_slots(w: torch.Tensor, bits) -> torch.Tensor:
     view of w itself (slot stride 0) where every slot passes it
     through."""
     shared = w.expand(len(bits), *w.shape)
-    if min(bits) >= 32:
+    if _all_pass(bits):
         return shared
     from ..kernels import ops
     return ops.fake_quant_slots(shared, bits)

@@ -7,13 +7,15 @@ Also provided: the hard-exponential reward (MnasNet) the paper tried and
 rejected.
 
 ``compute_reward`` is the scalar host path; ``compute_reward_batch`` is
-the same math over (K,) arrays, for the batched engine's record tail.
+the same math over (K,) numpy arrays (the batched engine's record tail)
+or tensors (the fused engine, on the device).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 
 @dataclass(frozen=True)
@@ -48,11 +50,19 @@ def compute_reward(cfg: RewardConfig, acc: float, latency: float,
 
 
 def compute_reward_batch(cfg: RewardConfig, acc, latency, ref_latency):
-    """``compute_reward`` over (K,) numpy arrays (the batched engine keeps
-    its record tail on the host)."""
-    ratio = latency / (cfg.target_ratio * ref_latency)
+    """``compute_reward`` over (K,) numpy arrays or tensors. With tensors
+    ``ref_latency`` may be a 0-d tensor (the epoch engine's) or a float;
+    the divisor is made a tensor, so the quotient is correctly rounded on
+    every device (the card takes ``tensor / float`` as a product by the
+    reciprocal)."""
+    xp = torch if isinstance(latency, torch.Tensor) else np
+    denom = cfg.target_ratio * ref_latency
+    if xp is torch and not isinstance(denom, torch.Tensor):
+        denom = torch.full((), denom, dtype=latency.dtype,
+                           device=latency.device)
+    ratio = latency / denom
     if cfg.kind == "absolute":
-        return acc + cfg.beta * np.abs(ratio - 1.0)
+        return acc + cfg.beta * xp.abs(ratio - 1.0)
     if cfg.kind == "hard_exponential":
-        return acc * np.where(ratio > 1.0, ratio ** cfg.hard_beta, 1.0)
+        return acc * xp.where(ratio > 1.0, ratio ** cfg.hard_beta, 1.0)
     raise ValueError(cfg.kind)

@@ -5,15 +5,18 @@ dimensions, FLOPs/weight shares, sensitivity probes, previous action, and
 latency-budget bookkeeping under the partial policy (AMC's reduced/rest
 features, computed against the hardware latency oracle instead of FLOPs).
 
-Two builders share the feature definitions: ``build_state`` (scalar) and
-``build_state_batch`` (K episodes); the traced builder waits for the fused
-engine. Host numpy, so the features match the reference exactly.
+Three builders share the feature definitions: ``build_state`` (scalar)
+and ``build_state_batch`` (K episodes) in host numpy, so the features
+match the reference exactly, and ``fused_state_block`` (the fused
+engine's rollout) on the device, from the per-step constants of
+``StateTables`` (the same numpy values, moved once).
 """
 from __future__ import annotations
 
 from typing import Sequence
 
 import numpy as np
+import torch
 
 from .latency import (HardwareTarget, LatencyContext, PolicyLatency,
                       fifo_cached, policy_latency)
@@ -70,6 +73,50 @@ def build_state_batch(specs: Sequence[LayerSpec], t: int, cur_lat,
         np.full(K, rest_share, np.float32)])
     return np.concatenate([np.tile(static, (K, 1)), prev_actions, tail],
                           axis=1)
+
+
+class StateTables:
+    """Per-step state-feature constants for the fused rollout: everything
+    in ``build_state_batch`` that does not depend on the partial policy,
+    one row per actionable unit — the static feature block (T, S), the
+    reference-latency shares (T, 2), the spec index per step — from the
+    ``_static_features`` cache the numpy engines read, so the two paths
+    agree bit for bit on these features. ``static`` and ``shares`` are
+    numpy; ``to(device)`` gives their tensors."""
+
+    def __init__(self, specs, steps, sens, ref_lat):
+        rows, this_s, rest_s = [], [], []
+        ref_total = 1.0
+        for t in steps:
+            static, a, b, ref_total = _static_features(specs, t, sens,
+                                                       ref_lat)
+            rows.append(static)
+            this_s.append(a)
+            rest_s.append(b)
+        self.static = np.stack(rows).astype(np.float32)      # (T, S)
+        self.shares = np.stack(                              # (T, 2)
+            [np.asarray(this_s, np.float32),
+             np.asarray(rest_s, np.float32)], axis=1)
+        self.ref_total = float(ref_total)
+        self.spec_idx = np.asarray(steps, np.int32)          # (T,)
+
+    def to(self, device) -> tuple:
+        """(static, shares, ref_total) as f32 tensors on ``device``."""
+        f32 = dict(dtype=torch.float32, device=device)
+        return (torch.as_tensor(self.static, **f32),
+                torch.as_tensor(self.shares, **f32),
+                torch.tensor(self.ref_total, **f32))
+
+
+def fused_state_block(static_row, shares_row, decided, prev_actions):
+    """One rollout step's (K, state_dim) block: the device twin of
+    ``build_state_batch`` given ``StateTables`` rows and the decided-
+    latency share of each of the K partial policies."""
+    K = prev_actions.shape[0]
+    static = static_row.expand(K, static_row.shape[0])
+    tail = torch.stack([shares_row[0].expand(K), decided,
+                        shares_row[1].expand(K)], dim=1)
+    return torch.cat([static, prev_actions, tail], dim=1)
 
 
 _static_cache: dict = {}

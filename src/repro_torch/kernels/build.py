@@ -36,7 +36,10 @@ _SIGNATURES = {
                    "fake_quant_slots_launch":
                    [_P, _P, _P, ctypes.c_longlong, ctypes.c_longlong]
                    + [_I] * 3 + [ctypes.POINTER(ctypes.c_int)] + [_I] * 6
-                   + [_P]},
+                   + [_P],
+                   "fake_quant_slots_dev_launch":
+                   [_P, _P, _P, ctypes.c_longlong, ctypes.c_longlong]
+                   + [_I] * 3 + [_P] + [_I] * 6 + [_P]},
     "mlp3": {"mlp3_launch": [_P] * 10 + [_I] * 8 + [_P]},
     "polyak": {"polyak_launch":
                [ctypes.POINTER(ctypes.c_longlong)] * 4
@@ -69,7 +72,8 @@ _SIGNATURES = {
 # "polyak" counts K3 launches, each over all the leaves it is given.
 # "fake_quant_slots" counts K1's launches over K policy slots, apart from
 # "fake_quant" (one tensor).
-LAUNCHES = {"fake_quant": 0, "fake_quant_slots": 0, "mlp3": 0, "polyak": 0,
+LAUNCHES = {"fake_quant": 0, "fake_quant_slots": 0,
+            "fake_quant_slots_dev": 0, "mlp3": 0, "polyak": 0,
             "quant_matmul_int8": 0, "quant_matmul_int4": 0,
             "quant_matmul_tc": 0, "flash_attention": 0,
             "flash_attention_tc": 0, "ssd_scan": 0, "ssd_scan_tc": 0,

@@ -65,6 +65,17 @@
 // is the case K = 1; a launch of one slot (or pass 1 of a shared range)
 // takes one int (OneBits), so its kernels are the one-tensor kernels,
 // with no table to carry and no slot to find.
+//
+// Device bits (the fused engine's epoch graph, whose policies never leave
+// the card; what the TPU kernel does with its bits_ref): the K bits are
+// a [K] int32 array on the card that each block reads for its slot
+// (DevBits).  The host knows nothing of their values, so what the
+// host-bits entry decides from them comes from the shapes alone: the
+// grid is plan(R, C, itemsize, K)'s, the scratch is sized for the worst
+// case (every slot quantizing), a shared range is always reduced, and a
+// slot at >= 32 bits is copied by the kernel itself (pass 1 skips it,
+// pass 2 or the fused kernel copies it).  The arithmetic and the grid are
+// those of the slot form, so the two entries agree bit for bit.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -90,6 +101,12 @@ struct SlotBits {
     static constexpr bool ONE = false;
     int b[FQ_MAX_SLOTS];
     __device__ __forceinline__ int operator[](int k) const { return b[k]; }
+};
+
+struct DevBits {
+    static constexpr bool ONE = false;
+    const int* p;                           // [K] int32 on the card
+    __device__ __forceinline__ int operator[](int k) const { return p[k]; }
 };
 
 template <typename T> struct Vec;           // elements of T in 16 bytes
@@ -471,6 +488,73 @@ extern "C" int fake_quant_slots_launch(const void* x, void* out, float* part,
         case 2: return launch_as<__half>(x, out, part, ld, sld, K, R, C, bits,
                                          ste, n_slabs, slab_rows, vec, fused,
                                          s);
+        default: return (int)cudaErrorInvalidValue;
+    }
+}
+
+// Device bits: x, out, part, ld, sld, K, R, C as fake_quant_slots_launch;
+// bits: a [K] int32 array on the card (any K the grid's y axis holds);
+// part: (sld ? K : 1) * 2 * n_slabs * C floats unless fused (n_slabs 1).
+template <typename T, bool VEC>
+static int launch_dev(const void* x, void* out, float* part, long long ld,
+                      long long sld, int K, int R, int C, const int* bits,
+                      int ste, int n_slabs, int slab_rows, int fused,
+                      cudaStream_t stream) {
+    if (K < 1 || K > 65535 || (fused && n_slabs != 1))
+        return (int)cudaErrorInvalidValue;
+    const T* xt = static_cast<const T*>(x);
+    T* ot = static_cast<T*>(out);
+    const int tile = FQ_LANES * Vec<T>::N;
+    const int n_ctiles = (C + tile - 1) / tile;
+    const dim3 grid(n_ctiles * n_slabs, K);
+    const DevBits tab{bits};
+    if (fused) {
+        fq_fused<T, VEC, DevBits><<<grid, FQ_THREADS, 0, stream>>>(
+            xt, ot, ld, sld, R, C, n_ctiles, slab_rows, tab, ste);
+    } else {
+        const int shared_range = sld == 0;
+        if (shared_range)   // one range for every slot, whatever its bits
+            fq_minmax<T, VEC, OneBits><<<grid.x, FQ_THREADS, 0, stream>>>(
+                xt, part, ld, sld, R, C, n_ctiles, slab_rows, OneBits{1});
+        else
+            fq_minmax<T, VEC, DevBits><<<grid, FQ_THREADS, 0, stream>>>(
+                xt, part, ld, sld, R, C, n_ctiles, slab_rows, tab);
+        fq_apply<T, VEC, DevBits><<<grid, FQ_THREADS, 0, stream>>>(
+            xt, ot, part, ld, sld, R, C, n_ctiles, slab_rows, tab,
+            shared_range, ste);
+    }
+    return (int)cudaGetLastError();
+}
+
+template <typename T>
+static int launch_dev_as(const void* x, void* out, float* part, long long ld,
+                         long long sld, int K, int R, int C, const int* bits,
+                         int ste, int n_slabs, int slab_rows, int vec,
+                         int fused, cudaStream_t s) {
+    return vec ? launch_dev<T, true>(x, out, part, ld, sld, K, R, C, bits,
+                                     ste, n_slabs, slab_rows, fused, s)
+               : launch_dev<T, false>(x, out, part, ld, sld, K, R, C, bits,
+                                      ste, n_slabs, slab_rows, fused, s);
+}
+
+extern "C" int fake_quant_slots_dev_launch(const void* x, void* out,
+                                           float* part, long long ld,
+                                           long long sld, int K, int R,
+                                           int C, const int* bits,
+                                           int dtype, int ste, int n_slabs,
+                                           int slab_rows, int vec, int fused,
+                                           void* stream) {
+    cudaStream_t s = (cudaStream_t)stream;
+    switch (dtype) {
+        case 0: return launch_dev_as<float>(x, out, part, ld, sld, K, R, C,
+                                            bits, ste, n_slabs, slab_rows,
+                                            vec, fused, s);
+        case 1: return launch_dev_as<__nv_bfloat16>(x, out, part, ld, sld, K,
+                                                    R, C, bits, ste, n_slabs,
+                                                    slab_rows, vec, fused, s);
+        case 2: return launch_dev_as<__half>(x, out, part, ld, sld, K, R, C,
+                                             bits, ste, n_slabs, slab_rows,
+                                             vec, fused, s);
         default: return (int)cudaErrorInvalidValue;
     }
 }

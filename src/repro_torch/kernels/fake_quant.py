@@ -3,7 +3,9 @@ tensor (``csrc/fake_quant.cu``; replaces the JAX package's
 ``kernels/fake_quant.py::fake_quant_kernel``), plain or with the
 straight-through forward value fused in; and of K policy slots at once
 (``fake_quant_slots``: [K, R, C], each slot at its own bits with its own
-range, what ``vmap`` makes of the TPU kernel in the batched validation)."""
+range, what ``vmap`` makes of the TPU kernel in the batched validation),
+its bits host ints or, in ``fake_quant_slots_dev``, a [K] int32 tensor on
+the card that the kernel reads (the TPU kernel's ``bits_ref``)."""
 from __future__ import annotations
 
 import ctypes
@@ -143,4 +145,51 @@ def fake_quant_slots(x: torch.Tensor, bits, ste: bool = False
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "fake_quant_slots")
     build.LAUNCHES["fake_quant_slots"] += 1
+    return out
+
+
+def fake_quant_slots_dev(x: torch.Tensor, bits: torch.Tensor,
+                         ste: bool = False) -> torch.Tensor:
+    """``fake_quant_slots`` with the K bits a [K] int32 tensor on x's
+    device, read by the kernel: nothing the host does depends on their
+    values, so the call can sit in a captured CUDA graph whose policies
+    never leave the card. The grid is ``plan(R, C, itemsize, K)``'s, as
+    for host bits; the scratch is sized for every slot quantizing; a
+    slot at >= 32 bits is copied by the kernel. Bit-equal to
+    ``fake_quant_slots`` at the same bits. A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel or raises."""
+    K = bits.shape[0] if bits.dim() == 1 else -1
+    if x.dim() != 3 or x.shape[0] != K:
+        raise ValueError(f"x: expected [K, R, C] and bits [K], got "
+                         f"{tuple(x.shape)} and {tuple(bits.shape)}")
+    if x.device.type == "cpu":
+        return fake_quant_slots_ref(x, bits, ste)
+    if x.dtype not in DTYPES:
+        raise TypeError(f"x: expected float32, bfloat16 or float16, got "
+                        f"{x.dtype}")
+    if bits.dtype != torch.int32 or bits.device != x.device \
+            or bits.stride(0) != 1:
+        raise ValueError(f"bits: expected contiguous int32 on {x.device}, "
+                         f"got {bits.dtype} on {bits.device} with stride "
+                         f"{bits.stride()}")
+    build.check_operand(x, "x", 3, dtype=x.dtype, contiguous=False)
+    _, R, C = x.shape
+    if x.stride(2) != 1 and C > 1 or x.stride(1) < C and R > 1:
+        raise ValueError(f"x: expected unit channel stride and rows apart "
+                         f"by >= C, got strides {x.stride()}")
+    out = torch.empty((K, R, C), dtype=x.dtype, device=x.device)
+    if x.numel() == 0:
+        return out
+    sld = x.stride(0) if K > 1 else 0
+    p = plan(R, C, x.element_size(), K)
+    part = torch.empty(0 if p.fused else (K if sld else 1) * 2 * p.n_slabs
+                       * C, dtype=torch.float32, device=x.device)
+    err = build.lib("fake_quant").fake_quant_slots_dev_launch(
+        x.data_ptr(), out.data_ptr(), part.data_ptr() or None,
+        x.stride(1) if R > 1 else C, sld, K, R, C, bits.data_ptr(),
+        DTYPES[x.dtype], int(ste), p.n_slabs, p.slab_rows,
+        int(vector_ok(x)), int(p.fused),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, "fake_quant_slots_dev")
+    build.LAUNCHES["fake_quant_slots_dev"] += 1
     return out

@@ -91,12 +91,16 @@ def fake_quant_slots(x: torch.Tensor, bits) -> torch.Tensor:
     every slot): slot k's ``(xf + (xq - xf)).to(x.dtype)`` at ``bits[k]``
     with its own range, one launch for the K slots. A view whose rows
     K1 cannot read in place (channel stride not 1, such as the tied
-    head's ``embed.T``) is copied once, however many slots share it. No
-    gradient: the batched validation runs under ``no_grad``."""
+    head's ``embed.T``) is copied once, however many slots share it.
+    ``bits``: K host ints, or a [K] int32 tensor on x's device (K1's
+    device-bits entry, the fused engine's epoch graph). No gradient: the
+    batched validation runs under ``no_grad``."""
     _, R, C = x.shape
     if x.stride(2) != 1 and C > 1 or x.stride(1) < C and R > 1:
         x = x[0].contiguous().expand_as(x) if x.stride(0) == 0 \
             else x.contiguous()
+    if isinstance(bits, torch.Tensor):
+        return _fq.fake_quant_slots_dev(x, bits, ste=True)
     return _fq.fake_quant_slots(x, bits, ste=True)
 
 

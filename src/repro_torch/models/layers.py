@@ -6,7 +6,8 @@ masks, so a Galen compression policy can flow through the whole model.
 With ``qs=None``/``mask=None`` the hooks vanish.
 
 A batched quant spec carries K policies at once (the batched
-validation): its bits are K-tuples and its masks [K, n]. The K policies'
+validation): its bits are K-tuples of host ints or [K] int32 device
+tensors (the fused engine's epoch graph), its masks [K, n]. The K policies'
 rows are folded into the batch axis (slot k is the k-th block of rows),
 so every other op runs unchanged; only the quantizers, the products that
 follow them (``project``) and the masks (``apply_mask``) see the policy
@@ -26,7 +27,8 @@ import torch
 
 from ..core.deploy import unpack_int4_weight
 from ..core.quantization import (fake_quant_act, fake_quant_act_slots,
-                                 fake_quant_weight, fake_quant_weight_slots)
+                                 fake_quant_weight, fake_quant_weight_slots,
+                                 slotted)
 from ..kernels import ops
 
 
@@ -54,14 +56,15 @@ def project(x: torch.Tensor, qs: Optional[dict], *ws: torch.Tensor
             ) -> list:
     """x [..., d_in] times each weight of ``ws`` ([d_in, d_out] each),
     under the quant spec ``qs``: none, a scalar spec, or a batched one
-    (bits as K-tuples, the K policies' rows folded into the batch axis:
+    (bits as K-tuples or [K] device tensors, the K policies' rows folded
+    into the batch axis:
     slot k's rows quantized at ``a_bits[k]`` over their own range, each
     weight at ``w_bits[k]``, then one product over the slots,
     ``product_slots``). x is quantized once for all of ``ws``. Returns
     one product per weight, in their order."""
     if qs is None:
         return [torch.einsum("...i,io->...o", x, w.to(x.dtype)) for w in ws]
-    if not isinstance(qs["w_bits"], tuple):
+    if not slotted(qs["w_bits"]):
         xq = fake_quant_act(x, qs["a_bits"])
         return [torch.einsum("...i,io->...o", xq, fake_quant_weight(
             w, qs["w_bits"]).to(x.dtype)) for w in ws]

@@ -7,9 +7,9 @@ The JAX package stacks homogeneous layers on a leading axis and scans over
 them; here ``params["blocks"]``, ``cspec["blocks"]`` and the cache are
 lists with one entry per layer, and each pass is a Python loop.
 
-A batched cspec (``cspec["slots"]`` = K policies; what the JAX package
-gets from ``vmap`` over stacked cspecs) runs the K policies in one
-forward: the policies' rows are folded into the batch axis, each slot
+A batched cspec (``cspec["slots"]`` = K policies, bits as K-tuples or
+[K] int32 device tensors; what the JAX package gets from ``vmap`` over
+stacked cspecs) runs the K policies in one forward: the policies' rows are folded into the batch axis, each slot
 gathers its tokens from its own quantized embedding table, and
 ``forward`` returns [K, B, S, V].
 """

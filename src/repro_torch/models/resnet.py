@@ -19,8 +19,9 @@ the others pass their pad to the conv. GroupNorm is written in NHWC
 ``cspec`` is a list (one entry per conv, in ``layer_specs`` order, then
 the head) of ``{"qs": {"w_bits", "a_bits"} | None, "mask": [C_out] |
 None}``. A batched cspec ``{"layers": [...], "slots": K}`` holds K
-policies (bits as K-tuples, masks [K, C_out]; what the JAX package gets
-from ``vmap`` over stacked cspecs). Its forward keeps the K slots'
+policies (bits as K-tuples, or [K] int32 device tensors in the fused
+engine's epoch graph; masks [K, C_out]; what the JAX package gets from
+``vmap`` over stacked cspecs). Its forward keeps the K slots'
 channels side by side (activations [B, H, W, K·C]): each conv is one
 grouped cuDNN call (``groups=K``), GroupNorm takes K·g groups, each
 fake-quant site is one K1 launch over the slots (``fake_quant_act_slots``
@@ -37,7 +38,8 @@ import torch
 import torch.nn.functional as F
 
 from ..core.quantization import (fake_quant_act, fake_quant_act_slots,
-                                 fake_quant_weight, fake_quant_weight_slots)
+                                 fake_quant_weight, fake_quant_weight_slots,
+                                 slotted)
 from ..core.spec import LayerSpec
 from .layers import product_slots
 
@@ -180,7 +182,7 @@ def _quant_act(x: torch.Tensor, qs: Optional[dict], K: int,
     if qs is None and not (shared and K > 1):
         return x
     bits = (32,) * K if qs is None else qs["a_bits"]
-    if not isinstance(bits, tuple):
+    if not slotted(bits):
         return fake_quant_act(x, bits)
     C = x.shape[-1] if shared else x.shape[-1] // K
     rows = x.reshape(-1, C)
@@ -200,7 +202,7 @@ def _oihw(w: torch.Tensor, qs: Optional[dict], K: int) -> torch.Tensor:
     bits = None if qs is None else qs["w_bits"]
     if bits is None:
         ws = flat.expand(K, *flat.shape)
-    elif not isinstance(bits, tuple):
+    elif not slotted(bits):
         ws = fake_quant_weight(flat, bits)[None]
     else:
         ws = fake_quant_weight_slots(flat, bits)

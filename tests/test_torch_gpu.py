@@ -1087,3 +1087,110 @@ def test_gpu_rglru_scan_refuses_bad_operands(cuda):
     with pytest.raises(ValueError, match="chunk 4096 needs"):
         rglru_scan(a, b, chunk=4096)
     assert build.LAUNCHES["rglru_scan"] == before
+
+
+# ------------------------------------------- the fused engine's graphs
+
+# K1 sites of the LM testbed (3,072 token rows, d 256, d_ff 1024, vocab
+# 256) and of ResNet18 at CIFAR-10 widths over 16 images (its channel
+# widths, rows cut from 256 images'): (R, C, slot stride 0 = shared).
+DEV_BITS_SITES = [(3072, 256, False), (3072, 1024, False), (256, 256, True),
+                  (256, 128, True), (256, 1024, True), (1024, 256, True),
+                  (16384, 3, True), (16384, 64, False), (4096, 128, False),
+                  (1024, 256, False), (256, 512, False), (16, 512, False),
+                  (27, 64, True), (576, 64, True), (4608, 512, True),
+                  (512, 10, True)]
+DEV_BITS = [(32,) * 8, (2, 4, 32, 8, 6, 32, 3, 5), (4,) * 8,
+            (1, 31, 32, 33, 8, 2, 7, 6)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R,C,shared", DEV_BITS_SITES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gpu_fake_quant_slots_dev_equals_host_bits(cuda, R, C, shared,
+                                                   dtype):
+    """K1's device-bits entry is bit-equal to its host-bits slot form
+    (and to the plain version) at every bits vector, all slots at 32
+    included (copied by the kernel), plain and straight-through; one
+    launch a call."""
+    from repro_torch.kernels.fake_quant import fake_quant_slots_dev
+    K = 8
+    g = torch.Generator(device=cuda).manual_seed(R + C)
+    x = torch.randn((R, C) if shared else (K, R, C), generator=g,
+                    device=cuda).to(getattr(torch, dtype))
+    if shared:
+        x = x.expand(K, R, C)
+    for bits in DEV_BITS:
+        dev = torch.tensor(bits, dtype=torch.int32, device=cuda)
+        for ste in (False, True):
+            before = build.LAUNCHES["fake_quant_slots_dev"]
+            got = fake_quant_slots_dev(x, dev, ste=ste)
+            assert build.LAUNCHES["fake_quant_slots_dev"] == before + 1
+            assert torch.equal(got, fake_quant_slots(x, bits, ste=ste))
+            assert torch.equal(got, fake_quant_slots_ref(x, bits, ste))
+
+
+def _small_fused(cuda, epoch_batches):
+    from repro_torch.configs.testbed import LM_CFG, SERVE_CTX
+    from repro_torch.core.compress import CompressibleLM
+    from repro_torch.core.ddpg import DDPGConfig
+    from repro_torch.core.reward import RewardConfig
+    from repro_torch.core.search import FusedCompressionSearch, SearchConfig
+    from repro_torch.core.sensitivity import SensitivityResult
+    from repro_torch.data.pipeline import make_bigram_table, sample_bigram
+    from repro_torch.models import model as M
+    cfg = LM_CFG.replace(num_layers=2, compute_dtype="float32")
+    cm = CompressibleLM(cfg, M.init(cfg, seed=0, device=cuda))
+    val = {"tokens": torch.as_tensor(sample_bigram(
+        make_bigram_table(cfg.vocab_size, 0), 8, 32, 7), device=cuda)}
+    scfg = SearchConfig(methods="pq", episodes=16, seed=0,
+                        reward=RewardConfig(target_ratio=0.5),
+                        ddpg=DDPGConfig(warmup_episodes=2,
+                                        updates_per_episode=4,
+                                        batch_size=32, buffer_size=512))
+    table = {s.name: {"w4": 0.1 * i, "a4": 0.05 * i}
+             for i, s in enumerate(cm.specs)}
+    return FusedCompressionSearch(cm, val, scfg, SERVE_CTX,
+                                  sens=SensitivityResult(table),
+                                  batch_size=4,
+                                  epoch_batches=epoch_batches)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("epoch_batches", [0, 2])
+def test_gpu_fused_graphs_equal_eager(cuda, epoch_batches):
+    """The fused engine's replayed graphs (rollout and update per batch,
+    or the epoch) give, bit for bit, the records, the agent's tensors
+    and the ring of the same pure functions run eagerly on the card;
+    after the run, a chunk replays without capturing: one rollout and
+    one update replay a batch, or one epoch replay and one readback."""
+    from repro_torch.core import graphs
+    from repro_torch.core.ddpg import state_leaves
+    graphs.reset_counts()
+    a = _small_fused(cuda, epoch_batches)
+    ha = a.run().history
+    b = _small_fused(cuda, epoch_batches)
+    call = graphs.Graph.__call__
+    graphs.Graph.__call__ = lambda self: self.fn()
+    try:
+        hb = b.run().history
+    finally:
+        graphs.Graph.__call__ = call
+    for x, y in zip(ha, hb):
+        assert (x.reward, x.accuracy, x.latency_s) == \
+            (y.reward, y.accuracy, y.latency_s)
+    for x, y in zip(state_leaves(a.agent.state) + list(a.replay.data),
+                    state_leaves(b.agent.state) + list(b.replay.data)):
+        assert torch.equal(x, y)
+    assert sum(c["captures"] for c in graphs.COUNTS.values()) > 0
+    graphs.reset_counts()
+    k, reads = a._chunk_size(), a.readbacks
+    a._run_chunk(16, k)
+    if epoch_batches:
+        assert dict(graphs.COUNTS) == {"epoch": {"captures": 0,
+                                                 "replays": 1}}
+        assert a.readbacks == reads + 1
+    else:
+        assert dict(graphs.COUNTS) == {
+            "rollout": {"captures": 0, "replays": 1},
+            "update": {"captures": 0, "replays": 1}}

@@ -428,6 +428,9 @@ def test_wrappers_route_cpu_to_plain_without_launching():
     xs = x.expand(3, 8, 4)
     assert torch.equal(fake_quant_slots(xs, (4, 32, 2)),
                        fake_quant_slots_ref(xs, (4, 32, 2)))
+    from repro_torch.kernels.fake_quant import fake_quant_slots_dev
+    assert torch.equal(fake_quant_slots_dev(xs, torch.tensor(
+        [4, 32, 2], dtype=torch.int32)), fake_quant_slots_ref(xs, (4, 32, 2)))
     t, p = torch.ones(10), torch.zeros(10)
     assert torch.equal(polyak_leaves([t], [p], 0.5)[0],
                        polyak_ref(t, p, 0.5))
@@ -456,6 +459,7 @@ def test_wrappers_route_cpu_to_plain_without_launching():
     assert torch.equal(rglru_scan(a, bc[:, :, :4].expand(2, 8, 4), h0),
                        rglru_scan_ref(a, bc[:, :, :4].expand(2, 8, 4), h0))
     assert build.LAUNCHES == {"fake_quant": 0, "fake_quant_slots": 0,
+                              "fake_quant_slots_dev": 0,
                               "mlp3": 0, "polyak": 0,
                               "quant_matmul_int8": 0,
                               "quant_matmul_int4": 0, "quant_matmul_tc": 0,
