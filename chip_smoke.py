@@ -111,16 +111,45 @@ Phases, each fatal on failure (non-zero exit, no result line):
    per DDPG step, K3 once per DDPG step, and K1 once per validation
    site (over slots on host bits, or its device-bits entry). Episodes/s
    and the ``[time]`` split beside the scalar and batched engines'.
-8. Calibration path: ``repro_torch.launch.calibrate.run`` at full width
+8. Population path: ``PopulationSearch`` on ResNet18 at CIFAR-10 widths
+   (the paper's p, q and pq agents as ``BatchedCompressionSearch``
+   members, action_dim padded to 3, K 8, 16 episodes, warmup 4, 16
+   updates per live episode): the updates shared, one megabatched
+   chunk a batch as one graph replay (products over the members by
+   bmm, a hand-written backward, the fused Adam + Polyak kernel once a
+   network a step); each chunk run again eagerly step by step, the
+   replay equal to it, each step within 1e-5 of the per-member steps
+   from the same state (the whole chunk's per-member trajectory
+   reported). Then on the LM testbed two ``FusedCompressionSearch``
+   members in epoch mode (E 2, K 8, 32 episodes), V5E and the JAX
+   tests' tpu-v5p, ``fuse_rollouts=True``: each epoch of both members
+   one replay and one readback (the rollout's actor one launch of K2's
+   member form a step, the P·K policies validated in one forward, K1's
+   device-bits entry once a site), held bit for bit to the same
+   population with its graphs run eagerly, and each member's records
+   compared with it run alone (the first batch's must be equal); K1
+   exact at every site of the last shared validation. Steady chunks:
+   one update replay a batch (ResNet) or one epoch replay and one
+   readback (LM), launches counted exactly (K2's member form, fused
+   Adam + Polyak, K1, K2 and K3), member-episodes/s and the device's
+   busy share beside the members run alone; the fused sensitivity
+   against the per-probe path on both models (seconds, KL differences
+   within 1e-6, ResNet activation probes behind a GroupNorm within
+   10%). ``[kernels]`` also holds K2's member form bit-equal to its
+   one-network launches (P 1 to 3, the DDPG batch and the rollout's
+   rows), the fused Adam + Polyak pass exact against its plain version
+   (P 1, 3, 8: the paper trunk's leaves) and K1 over 80 slots (two
+   launches) exact.
+9. Calibration path: ``repro_torch.launch.calibrate.run`` at full width
    (unit, kernel and whole-model deploy-path timings, the fitted table,
    the int8/int4 demo rows), launch counts reset before and read after;
    K4 and K5 must have launched, all on the tensor-core route, and every
    time must be finite.
-9. Measured search: a pq ``CompressionSearch`` with
+10. Measured search: a pq ``CompressionSearch`` with
    ``oracle_mode="measured"`` on the fitted table; its top-K rows
    (predicted vs measured ratio) must be finite and its reference
    latency the calibrated oracle's.
-10. Prefill: ``make_prefill_step`` on qwen2-0.5b at full width (24
+11. Prefill: ``make_prefill_step`` on qwen2-0.5b at full width (24
    layers, d 896, vocab 151,936; seeded random weights) over 1 x 32,768
    seeded tokens, uncompressed and under a seeded pq policy. First K6 on
    one layer's q/k/v at that shape against the chunked plain branch
@@ -132,13 +161,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
    kernels and the oracle's predicted compressed/reference ratio beside
    the measured one. The whole prefill at the SMOKE widths and 1,100
    tokens (f32) must agree with the plain CPU path.
-11. Decode: ``decode_loop`` and ``sustained_throughput`` on the same
+12. Decode: ``decode_loop`` and ``sustained_throughput`` on the same
    model, batch 8, 64 steps, max_len 256, KV cache 16 and 8 bits, raw
    and under the policy; tok/s per variant, then one profiled 8-step
    decode each (device busy share, kernels per step). At the SMOKE
    widths (f32) the greedy tokens must be the prefill forward's
    argmaxes.
-12. Mamba-2 prefill: ``make_prefill_step`` on mamba2-780m at full width
+13. Mamba-2 prefill: ``make_prefill_step`` on mamba2-780m at full width
    (48 SSD layers, d 1536, d_inner 3072, 48 heads of 64, state 128,
    vocab 50,280; seeded random weights) over 1 x 32,768 tokens, raw and
    under a seeded pq policy (SSD heads pruned at ``ssm_in``). First K8
@@ -146,17 +175,17 @@ Phases, each fatal on failure (non-zero exit, no result line):
    plain branch (each (token, head) row within ``K8_ROW_TOL``, the final
    state within 2e-4), timed beside it and its bounds (f32 on the CUDA
    cores, split TF32 on the tensor cores), its route and its four
-   kernels' times (profiler); then, as in phase 10, a warm-up and one
+   kernels' times (profiler); then, as in phase 11, a warm-up and one
    timed forward each, with exactly 48 K8 launches, all 48 on the
    tensor-core route, and ``k1_calls``' count of K1 launches per
    forward. At the SMOKE
    widths (f32, 2 x 1,100 tokens, chunk 32: a ragged last chunk) the
    device forward's argmaxes equal the plain CPU path's.
-13. Mamba-2 decode: ``decode_loop`` and ``sustained_throughput``, batch 8,
+14. Mamba-2 decode: ``decode_loop`` and ``sustained_throughput``, batch 8,
    64 steps, the conv and state cache (no KV cache, so no int8 variant),
    raw and under the policy; one profiled 8-step decode each. At the
    SMOKE widths (f32) the greedy tokens are the prefill's argmaxes.
-14. RecurrentGemma prefill: ``make_prefill_step`` on recurrentgemma-2b at
+15. RecurrentGemma prefill: ``make_prefill_step`` on recurrentgemma-2b at
    full width (26 layers in a (rglru, rglru, attn) pattern: 18 RG-LRU
    layers of width 2,560 and 8 local-attention layers, 10 / 1 heads of
    256, window 2,048; d 2,560, GeGLU d_ff 7,680, vocab 256,000; seeded
@@ -168,19 +197,19 @@ Phases, each fatal on failure (non-zero exit, no result line):
    against the former three-launch kernel (``tools/k7_three_pass.cu``)
    at the same chunk, and K6 on layer 2's
    q/k/v (window 2,048) against the chunked plain branch and the dense
-   tail rows, each timed beside its bound; then, as in phase 10, a warm-up
+   tail rows, each timed beside its bound; then, as in phase 11, a warm-up
    and one timed forward each, with exactly 18 K7, 8 K6 (all 8 on the
    tensor-core route) and ``k1_calls``' count of K1 launches per
    forward; a profiled raw forward, with the device ms of layer 0's
    RG-LRU block split into its gate passes, K7, the GEMMs and the rest;
    the phase's peak device memory; at the SMOKE widths (f32, 2 x 1,100
    tokens) the device forward's argmaxes equal the plain CPU path's.
-15. RecurrentGemma decode: ``decode_loop`` and ``sustained_throughput``,
+16. RecurrentGemma decode: ``decode_loop`` and ``sustained_throughput``,
    batch 8, 64 steps, the RG-LRU state and the ring KV cache (16 and 8
    bits), raw and under the policy; one profiled 8-step decode each. At
    the SMOKE widths (f32, window 16) 24 greedy steps (the ring wraps) are
    the prefill's argmaxes.
-16. Lines before the last: the kernels as JSON, then ``nvidia-smi``'s name
+17. Lines before the last: the kernels as JSON, then ``nvidia-smi``'s name
    and power limit. Last line: ``{"ok": true, "device": {...}}``.
 
 K8 (SSD scan) joins phase 3: against the sequential ``ssd_scan_ref`` and
@@ -258,6 +287,11 @@ KERNELS = {
         "replaces": "src/repro/kernels/flash_attention.py:29"},
     "rglru_scan": {"source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
                    "replaces": "src/repro/kernels/rglru_scan.py:25"},
+    "mlp3_members": {"source": "src/repro_torch/kernels/csrc/mlp3.cu",
+                     "replaces": "src/repro/kernels/mlp_fused.py:32"},
+    "adam_polyak": {"source": "src/repro_torch/kernels/csrc/adam_polyak.cu",
+                    "replaces": "no Pallas counterpart (the JAX package's "
+                                "jnp pass src/repro/core/ddpg.py:435)"},
 }
 MAIN_PATH_KERNELS = ("fake_quant", "mlp3", "polyak")
 CALIBRATION_KERNELS = ("quant_matmul_int8", "quant_matmul_int4")
@@ -771,6 +805,227 @@ def check_polyak(shapes, tau, device) -> dict:
         raise AssertionError(f"polyak disagrees with its plain version: "
                              f"max abs err {err}")
     return out
+
+
+def check_mlp3_members(state_dim, action_dim, hidden, rollout_rows,
+                       members, timed, device) -> dict:
+    """K2's member form (``mlp3_members``) for the actor and the critic
+    at [P, 64, ·] (the DDPG batch) and the actor at the shared rollout's
+    [P, K, S] for each P of ``members``: (y, h1, h2) bit-equal to P
+    launches of the one-network K2 on each member's slices (the same
+    arithmetic per member), and within 1e-5 of its plain version (f32,
+    summation order). Timed at the rollout's [P, K, S] for P = ``timed``
+    (the population path's) beside P one-network launches, the plain
+    version and the bound."""
+    import torch
+    from repro_torch.core.ddpg import _mlp_init
+    from repro_torch.kernels import build
+    from repro_torch.kernels.mlp_fused import mlp3, mlp3_members
+    from repro_torch.kernels.ref import mlp3_members_ref
+    gen = torch.Generator(device=device).manual_seed(12)
+    err, out, cases = 0.0, {}, 0
+    for P in members:
+        for name, d0, d3, sig, rows in (
+                ("actor", state_dim, action_dim, True, 64),
+                ("critic", state_dim + action_dim, 1, False, 64),
+                ("actor", state_dim, action_dim, True, rollout_rows)):
+            dims = (d0,) + tuple(hidden) + (d3,)
+            nets = [_mlp_init(gen, dims, device) for _ in range(P)]
+            flat = [torch.stack([net[i // 2]["wb"[i % 2]] for net in nets])
+                    for i in range(6)]
+            x = torch.randn((P, rows, d0), generator=gen, device=device)
+            before = build.LAUNCHES["mlp3_members"]
+            got = mlp3_members(x, *flat, sigmoid=sig)
+            if build.LAUNCHES["mlp3_members"] != before + 1:
+                raise AssertionError("mlp3_members took more than one "
+                                     "launch")
+            for p in range(P):
+                solo = mlp3(x[p], *(t[p] for t in flat), sigmoid=sig)
+                for g, s in zip(got, solo):
+                    if not torch.equal(g[p], s):
+                        raise AssertionError(
+                            f"mlp3_members member {p} of {P} differs from "
+                            f"its one-network launch ({name}, {rows} rows)")
+            for g, w in zip(got, mlp3_members_ref(x, *flat, sig)):
+                err = max(err, float((g - w).abs().max()))
+            cases += 1
+            if name == "actor" and rows == rollout_rows and P == timed:
+                ms, paced = cuda_ms(lambda: mlp3_members(x, *flat,
+                                                         sigmoid=sig))
+                solo_ms, _ = cuda_ms(lambda: [mlp3(
+                    x[p], *(t[p] for t in flat), sigmoid=sig)
+                    for p in range(P)])
+                plain, _ = cuda_ms(lambda: mlp3_members_ref(x, *flat, sig))
+                d1, d2 = hidden
+                n_bytes = 4.0 * (x.numel() + sum(t.numel() for t in flat)
+                                 + P * rows * (d1 + d2 + d3))
+                n_ops = 2.0 * P * rows * (d0 * d1 + d1 * d2 + d2 * d3)
+                bound, by = bound_ms(n_bytes, n_ops)
+                out.update(ms=ms, paced_ms=paced, plain_ms=plain,
+                           solo_launches_ms=solo_ms, bound_ms=bound,
+                           bound_by=by, shape=[P, rows, d0, d1, d2, d3])
+    log(f"  mlp3_members: {cases} cases (P in {list(members)}; actor and "
+        f"critic at 64 rows, the actor at the rollout's {rollout_rows}), "
+        f"each member bit-equal to its one-network launch; max |kernel - "
+        f"plain| {err:.3g} (tol 1e-5)")
+    log(f"    actor {out['shape']}: {out['ms'] * 1e3:.2f} us kernel "
+        f"({out['paced_ms'] * 1e3:.2f} paced), {out['shape'][0]} "
+        f"one-network launches {out['solo_launches_ms'] * 1e3:.2f} us, "
+        f"{out['plain_ms'] * 1e3:.2f} us plain, bound "
+        f"{out['bound_ms'] * 1e3:.3f} us ({out['bound_by']}); {CARD}")
+    out.update(max_abs_err=err, tolerance=1e-5, library_ms=None)
+    if err > 1e-5:
+        raise AssertionError(f"mlp3_members disagrees with its plain "
+                             f"version: max abs err {err}")
+    return out
+
+
+def ddpg_network_shapes(state_dim, action_dim, hidden) -> dict:
+    """Each DDPG network's leaves as ``_fused_adam_polyak`` hands them to
+    the kernel (per layer "b" then "w")."""
+    out = {}
+    for name, d0, d3 in (("actor", state_dim, action_dim),
+                         ("critic", state_dim + action_dim, 1)):
+        dims = (d0,) + tuple(hidden) + (d3,)
+        out[name] = [sh for a, b in zip(dims[:-1], dims[1:])
+                     for sh in ((b,), (a, b))]
+    return out
+
+
+def check_adam_polyak(state_dim, action_dim, hidden, lr, tau, members,
+                      device) -> dict:
+    """The fused Adam + Polyak pass over each network's stacked leaves of
+    the paper's trunk for each P of ``members`` (step counts from 1 to
+    ~10^3, second moments non-negative): one launch a network, exact
+    against ``fused_adam_polyak_ref`` (the same correctly rounded f32
+    steps, lr_t / eps_t from ``powf`` as PyTorch's pow). Timed for both
+    networks at P = 3 (the paper's p/q/pq population) beside the plain
+    version, ``torch._fused_adam_`` + ``torch._foreach_lerp_`` on the same
+    leaves (the library's fused Adam, its bias correction in the step,
+    then the soft update) and the bytes bound (36 B an element)."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels.adam_polyak import adam_polyak_
+    from repro_torch.kernels.ref import fused_adam_polyak_ref
+    gen = torch.Generator(device=device).manual_seed(13)
+    nets = ddpg_network_shapes(state_dim, action_dim, hidden)
+    err, timed, n_el = 0.0, {}, 0
+
+    def leaves_for(P, shapes):
+        out = []
+        for sh in shapes:
+            r = lambda s=1.0: torch.randn((P, *sh), generator=gen,
+                                          device=device) * s
+            out.append((r(0.05), r(1e-3), r(1e-3) ** 2, r(1e-2), r(0.05)))
+        t = torch.randint(0, 1000, (P,), generator=gen, device=device,
+                          dtype=torch.int32)
+        return out, t
+
+    for P in members:
+        for name, shapes in nets.items():
+            leaves, t = leaves_for(P, shapes)
+            want, t_want = fused_adam_polyak_ref(leaves, t, lr, tau)
+            got = [tuple(x.clone() for x in leaf) for leaf in leaves]
+            t_got = t.clone()
+            before = build.LAUNCHES["adam_polyak"]
+            adam_polyak_(got, t_got, lr, tau)
+            if build.LAUNCHES["adam_polyak"] != before + 1:
+                raise AssertionError("adam_polyak took more than one launch")
+            if not torch.equal(t_got, t_want):
+                raise AssertionError("adam_polyak: step counts differ")
+            for g, w in zip(got, want):
+                for a, b in zip(g[:3] + g[4:], w):
+                    err = max(err, float((a - b).abs().max()))
+            if P == 3:
+                timed[name] = (leaves, t)
+                n_el += sum(leaf[0].numel() for leaf in leaves)
+    flat = {k: [[x for x in leaf] for leaf in leaves]
+            for k, (leaves, _) in timed.items()}
+
+    def kernel():
+        for name, (leaves, t) in timed.items():
+            adam_polyak_(flat[name], t, lr, tau)
+
+    def plain():
+        for name, (leaves, t) in timed.items():
+            fused_adam_polyak_ref(flat[name], t, lr, tau)
+
+    steps = {k: [torch.ones((), device=device) for _ in leaves]
+             for k, (leaves, _) in timed.items()}
+
+    def library():
+        for name, leaves in flat.items():
+            p, m, v, g, tg = (list(z) for z in zip(*leaves))
+            torch._fused_adam_(p, g, m, v, [], steps[name], lr=lr,
+                               beta1=0.9, beta2=0.999, weight_decay=0.0,
+                               eps=1e-8, amsgrad=False, maximize=False)
+            torch._foreach_lerp_(tg, p, tau)
+
+    out = {"shape": [3, n_el // 3]}
+    out["ms"], out["paced_ms"] = cuda_ms(kernel)
+    out["plain_ms"], _ = cuda_ms(plain)
+    out["library_ms"], _ = cuda_ms(library)
+    out["bound_ms"], out["bound_by"] = bound_ms(36.0 * n_el, 14.0 * n_el)
+    out.update(max_abs_err=err, tolerance=0.0)
+    log(f"  adam_polyak: P in {list(members)}, actor and critic of the "
+        f"paper trunk, one launch a network; max |kernel - plain| "
+        f"{err:.3g} (tol 0), step counts equal")
+    log(f"    both networks at P 3 ({n_el} elements, 2 launches), {CARD}: "
+        f"{out['ms'] * 1e3:.2f} us kernel ({out['paced_ms'] * 1e3:.2f} "
+        f"paced), {out['plain_ms'] * 1e3:.2f} us plain, "
+        f"{out['library_ms'] * 1e3:.2f} us torch._fused_adam_ + "
+        f"torch._foreach_lerp_, bound {out['bound_ms'] * 1e3:.3f} us "
+        f"({out['bound_by']})")
+    if err > 0.0:
+        raise AssertionError(f"adam_polyak disagrees with its plain "
+                             f"version: max abs err {err}")
+    return out
+
+
+def check_fake_quant_slot_split(device, K: int = 80) -> dict:
+    """K1 over more than ``MAX_SLOTS`` policy slots (a population's P·K
+    policies): the wrappers cut the slots into launches of at most 64
+    (2 for 80), host bits and device bits, per-slot activations and a
+    weight shared by the slots, f32 and bf16, straight-through: exact
+    against the plain version slot by slot."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels.fake_quant import (MAX_SLOTS, fake_quant_slots,
+                                                fake_quant_slots_dev,
+                                                launches)
+    from repro_torch.kernels.ref import fake_quant_slots_ref
+    gen = torch.Generator(device=device).manual_seed(14)
+    bits = tuple(int(b) for b in torch.randint(
+        2, 9, (K,), generator=gen, device=device).tolist())
+    bits = (32,) + bits[1:]
+    dev_bits = torch.tensor(bits, dtype=torch.int32, device=device)
+    want_launches = len(launches(K))
+    err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for x in (torch.randn((K, 512, 64), generator=gen,
+                              device=device).to(dtype),
+                  torch.randn((256, 128), generator=gen, device=device)
+                  .to(dtype).expand(K, 256, 128)):
+            want = fake_quant_slots_ref(x, bits, True)
+            for key, fn, b in (
+                    ("fake_quant_slots", fake_quant_slots, bits),
+                    ("fake_quant_slots_dev", fake_quant_slots_dev,
+                     dev_bits)):
+                before = build.LAUNCHES[key]
+                got = fn(x, b, ste=True)
+                if build.LAUNCHES[key] != before + want_launches:
+                    raise AssertionError(f"{key} over {K} slots took "
+                                         f"{build.LAUNCHES[key] - before} "
+                                         f"launches, not {want_launches}")
+                err = max(err, float((got.float() - want.float()).abs()
+                                     .max()))
+    log(f"  K1 over {K} slots (more than {MAX_SLOTS}): {want_launches} "
+        f"launches a call, host and device bits, f32 and bf16; max |kernel"
+        f" - plain| {err:.3g} (tol 0)")
+    if err > 0.0:
+        raise AssertionError(f"K1 split over {K} slots disagrees with its "
+                             f"plain version: max abs err {err}")
+    return {"slots": K, "launches": want_launches, "max_abs_err": err}
 
 
 # granite-3-8b's MLP at full width (configs/granite_3_8b.py: d 4,096,
@@ -2820,7 +3075,450 @@ def fused_phase(device, lm_sens, resnet_sens, batch_size: int,
 
 
 # ---------------------------------------------------------------------------
-# Phases 8 and 9: the calibration path and the measured search
+# Phase 8: the population path (PopulationSearch, shared dispatches)
+# ---------------------------------------------------------------------------
+
+V5P = dict(name="tpu-v5p", peak_bf16=459e12, peak_int8=918e12,
+           hbm_bw=2765e9, ici_bw=90e9)      # the JAX tests' second target
+
+
+def _state_err(a, b) -> float:
+    """Largest |difference| over the leaves of two agent states."""
+    from repro_torch.core.ddpg import state_leaves
+    return max(float((x.double() - y.double()).abs().max())
+               for x, y in zip(state_leaves(a), state_leaves(b)))
+
+
+def check_shared_updates(pop) -> list:
+    """Hold every shared update chunk of ``pop`` (one graph replay of the
+    megabatched chunk) against the per-member path on the same indices:
+    the chunk is run again eagerly one megabatched step at a time from a
+    copy of the stacked state taken just before the replay, and each step
+    is held against the P solo ``update_step``s from the same state
+    (``population_update_chunk_vmap`` of one step) within 1e-5 (the JAX
+    tests' bound between the megabatched and the vmapped path); the
+    replay must equal the eager steps bit for bit. The whole chunk's
+    trajectory is also run the per-member way and its distance from the
+    replay reported, not held: over tens of Adam steps an ulp of
+    difference in a near-zero gradient flips that element's normalized
+    step (a jump of ~lr), and the two trajectories part (``PERF.md``).
+    The comparison's own launches are taken back out of the counts.
+    Returns per chunk (steps, worst step error, trajectory distance),
+    filled as the population runs."""
+    import torch
+    from repro_torch.core.ddpg import (_tree_map,
+                                       population_update_chunk_megabatched,
+                                       population_update_chunk_vmap)
+    from repro_torch.kernels import build
+    real, rows = pop._update_graph, []
+    clone = lambda st: _tree_map(torch.clone, st)
+
+    def update_graph(n):
+        graph, idx = real(n)
+
+        def checked():
+            cfg = pop.members[0].agent.cfg
+            before = clone(pop.state)
+            out = graph()
+            launches = dict(build.LAUNCHES)
+            eager, step_err = clone(before), 0.0
+            for i in range(n):
+                one = clone(eager)
+                ii = idx[:, i:i + 1].clone()
+                population_update_chunk_megabatched(cfg, eager, pop.ring, 1,
+                                                    ii)
+                population_update_chunk_vmap(cfg, one, pop.ring, 1, ii)
+                step_err = max(step_err, _state_err(eager, one))
+            replay_err = _state_err(pop.state, eager)
+            population_update_chunk_vmap(cfg, before, pop.ring, n,
+                                         idx.clone())
+            traj = _state_err(pop.state, before)
+            build.LAUNCHES.update(launches)
+            rows.append((n, step_err, traj))
+            if step_err > 1e-5 or replay_err != 0.0:
+                raise AssertionError(
+                    f"shared update chunk of {n} steps: a megabatched step "
+                    f"differs from the per-member step by {step_err} (tol "
+                    f"1e-5), the replay from the eager steps by "
+                    f"{replay_err} (tol 0)")
+            return out
+
+        checked.label = graph.label
+        return checked, idx
+
+    pop._update_graph = update_graph
+    return rows
+
+
+def pop_steady(pop, first: int, alone=None) -> dict:
+    """A chunk of every member after a run (every episode live, every
+    graph captured), timed on the host clock ended by a sync (ms per
+    member-episode; its launch counts, graph counts, readbacks and
+    records returned), then one more profiled for the device's busy
+    share. With ``alone`` (engines of the population's configs, each with
+    its run behind it) those engines run the timed chunk one after
+    another, each with its own dispatches, and nothing is profiled (the
+    trace of their eager or per-member updates takes tens of seconds to
+    sum; ``PERF.md`` §5 has those engines' busy shares)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import graphs
+    from repro_torch.kernels import build
+    ms = alone or pop.members
+    k = ms[0]._chunk_size()
+
+    def chunk(c):
+        if alone:
+            return [m._run_chunk(first + c * k, k) for m in ms]
+        if pop.fuse_rollouts and pop._epochs_fusable():
+            recs = pop._run_epoch_chunk(first + c * k, k)
+        else:
+            recs = [m._run_chunk(first + c * k, k) for m in ms]
+        pop._dispatch_updates()
+        return recs
+
+    saved = [m._defer_updates for m in ms]
+    for m in ms:
+        m._defer_updates = not alone
+    try:
+        _sync(pop.device)
+        build.reset_launches()
+        graphs.reset_counts()
+        reads = pop.readbacks
+        t0 = time.perf_counter()
+        recs = chunk(0)
+        _sync(pop.device)
+        wall = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+        counts = {key: dict(v) for key, v in graphs.COUNTS.items()}
+        reads = pop.readbacks - reads
+        busy, t0 = 0.0, time.perf_counter()
+        if pop.device.type == "cuda" and not alone:   # the CPU has none
+            # device activity alone: the busy share needs only the
+            # kernels, and the host ops of an eager update multiply the
+            # trace (its summary took tens of seconds)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                chunk(1)
+                _sync(pop.device)
+            busy = sum(getattr(ev, "self_device_time_total", 0.0)
+                       for ev in prof.key_averages()
+                       if getattr(ev, "device_type", None) is not None
+                       and "CUDA" in str(ev.device_type)) * 1e-6
+        profiled = time.perf_counter() - t0
+    finally:
+        for m, flag in zip(ms, saved):
+            m._defer_updates = flag
+    build.reset_launches()
+    eps = k * len(ms)
+    return {"member_episode_s": wall / eps, "device_busy_s": busy / eps,
+            "member_episodes": eps, "launches": launches, "records": recs,
+            "graphs": counts, "readbacks": reads, "profiled_s": profiled}
+
+
+def log_pop_speed(name: str, shared: dict, alone: dict) -> None:
+    for what, r in (("population", shared), ("members alone", alone)):
+        busy = r["device_busy_s"]
+        log(f"  [time] {name} {what}, steady state: "
+            f"{1 / r['member_episode_s']:.3f} member-episodes/s "
+            f"({r['member_episode_s'] * 1e3:.2f} ms each), device busy "
+            + (f"{busy * 1e3:.2f} ms a member-episode "
+               f"({busy / r['member_episode_s']:.1%}; the profiled chunk "
+               f"{r['profiled_s']:.1f} s)" if busy else "not measured")
+            + f"; {CARD}")
+    log(f"    population / alone: "
+        f"{alone['member_episode_s'] / shared['member_episode_s']:.3f}x")
+
+
+def check_fused_sensitivity(name, cm, batch, activation_bound: bool) -> dict:
+    """The fused analysis (``run_sensitivity``, chunks of 8 probe policies)
+    against the per-probe path on the card: seconds each (host clock,
+    ended by the analysis' readback) and the worst KL difference; every
+    probe within 1e-6, the activation probes of a ResNet's convs behind a
+    GroupNorm (``activation_bound``) within 1e-6 + 10% of the KL (the
+    bound the CPU tests hold the port to against XLA)."""
+    from repro_torch.core.sensitivity import (run_sensitivity,
+                                              run_sensitivity_sequential)
+    from repro_torch.kernels import build
+    launches = dict(build.LAUNCHES)
+    t0 = time.perf_counter()
+    fused = run_sensitivity(cm, batch, memo=False)
+    t_fused = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    seq = run_sensitivity_sequential(cm, batch)
+    t_seq = time.perf_counter() - t0
+    build.LAUNCHES.update(launches)
+    worst, worst_rel, over = 0.0, 0.0, []
+    for layer, row in seq.table.items():
+        for tag, kl in row.items():
+            d = abs(fused.table[layer][tag] - kl)
+            tol = 1e-6
+            if activation_bound and tag.startswith("a") and \
+                    layer not in ("stem", "head"):
+                tol += 0.1 * kl
+                worst_rel = max(worst_rel, d / max(kl, 1e-30))
+            else:
+                worst = max(worst, d)
+            if d > tol:
+                over.append((layer, tag, kl, d))
+    n = sum(len(r) for r in seq.table.values())
+    log(f"  fused sensitivity, {name}: {t_fused:.3f} s fused (chunks of 8) "
+        f"vs {t_seq:.3f} s per probe ({n} probes); worst |KL diff| "
+        f"{worst:.3g} (tol 1e-6)" + (f", activation probes behind a "
+                                      f"GroupNorm {worst_rel:.2%} of the KL"
+                                      f" (tol 10%)" if activation_bound
+                                      else "") + f"; {CARD}")
+    if over:
+        raise AssertionError(f"fused sensitivity off the per-probe path: "
+                             f"{over[:5]}")
+    return {"fused_s": t_fused, "per_probe_s": t_seq, "probes": n,
+            "max_kl_diff": worst, "max_activation_rel": worst_rel}
+
+
+def pop_device_cspecs(members, histories) -> list:
+    """The device cspec of each batch of a shared epoch's validation: the
+    P*K policies of the members' batch, member by member, as the epoch
+    graph stacks them (``cspec_builder`` on device int tensors)."""
+    import torch
+    from repro_torch.core.policy import stack_policies
+    m0, k = members[0], members[0].batch_size
+    out = []
+    for i in range(0, len(histories[0]), k):
+        pb = stack_policies(m0.specs, [r.policy for h in histories
+                                       for r in h[i:i + k]])
+        out.append(m0.cmodel.cspec_builder()(*(
+            torch.as_tensor(x, dtype=torch.int32, device=m0.device)
+            for x in (pb.keep, pb.w_bits, pb.a_bits))))
+    return out
+
+
+def population_phase(device, lm_sens, resnet_sens, batch_size: int, *,
+                     lm_cfg=None, resnet_cfg=None, val_batch=None,
+                     val_seq=None, images=None, episodes: int = 16,
+                     warmup: int = 4, updates: int = 16) -> dict:
+    """Phase 8, ``[population path]``: ``PopulationSearch`` on ResNet18 at
+    CIFAR-10 widths (the paper's p / q / pq agents as batched members,
+    action_dim padded to 3, sharing megabatched updates, each step of
+    every shared chunk held to the per-member steps from the same state,
+    ``check_shared_updates``) and on the LM testbed (two
+    fused members in epoch mode, V5E and tpu-v5p, sharing rollouts and
+    whole epochs: held to the same population run eagerly, bit for bit,
+    and to each member run alone); steady-state member-episodes/s beside
+    the members run alone in turn; the fused sensitivity against the
+    per-probe path. Returns the launch counts of each population run. The
+    keywords cut the configs and sizes for a rehearsal on the CPU."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs.testbed import (IMG_CTX, IMG_VAL_BATCH,
+                                             LM_CFG, RESNET18_CIFAR,
+                                             SERVE_CTX, VAL_BATCH, VAL_SEQ)
+    from repro_torch.core import graphs
+    from repro_torch.core.latency import V5E, HardwareTarget
+    from repro_torch.core.search import (BatchedCompressionSearch,
+                                         FusedCompressionSearch,
+                                         PopulationSearch)
+    from repro_torch.kernels import build
+    LM_CFG = lm_cfg or LM_CFG
+    VAL_BATCH, VAL_SEQ = val_batch or VAL_BATCH, val_seq or VAL_SEQ
+    IMG_VAL_BATCH = images or IMG_VAL_BATCH
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    t_phase = time.perf_counter()
+    out = {}
+
+    # ResNet18: the paper's three agents as batched members
+    cfg = resnet_cfg or RESNET18_CIFAR
+    log(f"[population path] PopulationSearch on {cfg.name}: batched "
+        f"members p, q and pq (action_dim padded to 3), K {SLOTS}, "
+        f"{episodes} episodes, warmup {warmup}, {updates} updates per live "
+        f"episode, DDPG batch {batch_size}; updates shared (megabatched, "
+        f"one replay per update count); the ResNet path's seeds and "
+        f"sensitivity table; {CARD}")
+    cm, val, scfg = resnet_inputs(cfg, device, episodes=episodes,
+                                  warmup=warmup, updates=updates,
+                                  batch_size=batch_size,
+                                  val_batch=IMG_VAL_BATCH)
+    ddpg3 = dataclasses.replace(scfg.ddpg, action_dim=3)
+    members = [BatchedCompressionSearch(
+        cm, val, dataclasses.replace(scfg, methods=m, ddpg=ddpg3), IMG_CTX,
+        sens=resnet_sens, batch_size=SLOTS) for m in ("p", "q", "pq")]
+    pop = PopulationSearch(members)
+    worst = check_shared_updates(pop)
+    _sync(device)
+    build.reset_launches()
+    graphs.reset_counts()
+    t0 = time.perf_counter()
+    res = pop.run()
+    _sync(device)
+    secs = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    counts = {k: dict(v) for k, v in graphs.COUNTS.items()}
+    for m, r in zip(members, res):
+        check_batch_records(m, r.history, episodes)
+    steps = updates * (episodes - warmup)
+    log(f"  {episodes} episodes x 3 members in {secs:.3f} s (captures and "
+        f"the chunk checks included); graphs {counts}; launches {launches}")
+    for n, step_err, traj in worst:
+        log(f"  shared update chunk of {n} steps: replay equal to the eager "
+            f"megabatched steps; each step vs the per-member steps from the "
+            f"same state: max |difference| {step_err:.3g} (tol 1e-5); the "
+            f"whole chunk run the per-member way ends {traj:.3g} away "
+            f"(reported, not held)")
+    # every update count is captured at its first use, and the capture's
+    # warm-up runs the chunk once more: 2 launches a step, twice
+    want = {"adam_polyak": 4 * steps, "mlp3_members": 0, "mlp3": 0,
+            "polyak": 0, "fake_quant": 0}
+    check_fused_launches(launches, want, "ResNet population")
+    live = sum(b + SLOTS > warmup for b in range(0, episodes, SLOTS))
+    if len(worst) != live or on_card and counts.get("update", {}).get(
+            "replays") != live:
+        raise AssertionError(f"ResNet population: {counts}, {len(worst)} "
+                             f"checked chunks; wanted one update replay "
+                             f"a batch after warmup")
+    out["resnet"] = {"launches": launches, "seconds": secs,
+                     "chunk_errs": worst}
+    del pop._update_graph
+    shared = pop_steady(pop, episodes)
+    sites = sum(len(resnet_k1_calls(cfg, cs, IMG_VAL_BATCH))
+                for m, recs in zip(members, shared["records"])
+                for cs in batch_cspecs(m, recs))
+    log(f"  steady chunk, shared: graphs {shared['graphs']}")
+    check_fused_launches(shared["launches"], {
+        "adam_polyak": 2 * SLOTS * updates, "fake_quant_slots": sites,
+        "mlp3": 0, "mlp3_members": 0, "polyak": 0, "fake_quant": 0},
+        "ResNet population, steady chunk")
+    if on_card and shared["graphs"] != {"update": {"captures": 0,
+                                                    "replays": 1}}:
+        raise AssertionError("ResNet population: a steady chunk is not one "
+                             "update replay")
+    alone = pop_steady(pop, episodes + 2 * SLOTS, alone=members)
+    log_pop_speed(cfg.name, shared, alone)
+    out["resnet"].update(shared=shared, alone=alone)
+    out["resnet_sens"] = check_fused_sensitivity(cfg.name, cm, val, True)
+    del pop, members, cm, val
+    release_cached_memory(device)
+
+    # LM testbed: two targets, shared epochs
+    log(f"  {time.perf_counter() - t_phase:.1f} s for the ResNet population")
+    t_lm = time.perf_counter()
+    E, lm_eps = FUSED_E, 2 * episodes
+    log(f"  [population path] {LM_CFG.name}: two FusedCompressionSearch "
+        f"members in epoch mode (E {E}), targets V5E and tpu-v5p, K "
+        f"{SLOTS}, {lm_eps} episodes, fuse_rollouts=True; the batched "
+        f"path's seeds and sensitivity table")
+    v5p = HardwareTarget(**V5P)
+
+    def lm_pop(eager=False, alone=False):
+        cm, val, scfg = search_inputs(
+            LM_CFG, device, episodes=lm_eps, warmup=warmup,
+            updates=updates, batch_size=batch_size, val_batch=VAL_BATCH,
+            val_seq=VAL_SEQ)
+        ms = [FusedCompressionSearch(cm, val, scfg, SERVE_CTX, hw=hw,
+                                     sens=lm_sens, batch_size=SLOTS,
+                                     epoch_batches=E) for hw in (V5E, v5p)]
+        _sync(device)
+        build.reset_launches()
+        graphs.reset_counts()
+        t0 = time.perf_counter()
+        with eager_graphs() if eager else contextlib.nullcontext():
+            if alone:
+                hist = [m.run().history for m in ms]
+                p = None
+            else:
+                p = PopulationSearch(ms, fuse_rollouts=True)
+                hist = [r.history for r in p.run()]
+        _sync(device)
+        return (p, ms, hist, time.perf_counter() - t0, dict(build.LAUNCHES),
+                {k: dict(v) for k, v in graphs.COUNTS.items()})
+
+    pop, ms, hist, secs, launches, counts = lm_pop()
+    for m, h in zip(ms, hist):
+        check_batch_records(m, h, lm_eps)
+        if m.dispatch_log != ["epoch"] * (lm_eps // (E * SLOTS)):
+            raise AssertionError(f"dispatch log {m.dispatch_log}")
+    log(f"  {lm_eps} episodes x 2 members in {secs:.3f} s (captures "
+        f"included); graphs {counts}; readbacks {pop.readbacks}; launches "
+        f"{launches}; dispatch logs {[m.dispatch_log for m in ms]}")
+    if pop.readbacks != lm_eps // (E * SLOTS) or on_card and counts.get(
+            "epoch", {}).get("replays") != lm_eps // (E * SLOTS):
+        raise AssertionError("LM population: not one epoch replay and one "
+                             "readback per shared epoch")
+    if on_card and (launches["mlp3_members"] == 0
+                    or launches["adam_polyak"] != 0):
+        raise AssertionError(f"LM population launches {launches}")
+    ref = lm_pop(eager=True)
+    for a, b, ma, mb in zip(hist, ref[2], ms, ref[1]):
+        check_fused_equal(a, b, ma, mb, f"population graphs vs the same "
+                          f"functions eager ({ref[3]:.3f} s)")
+    del ref
+    solo = lm_pop(alone=True)
+    log(f"  the members alone, same seeds, in turn: {solo[3]:.3f} s "
+        f"(captures included); launches {solo[4]}")
+    for i, (a, b) in enumerate(zip(hist, solo[2])):
+        same = [_cmps(x.policy) == _cmps(y.policy) and x.reward == y.reward
+                and x.accuracy == y.accuracy for x, y in zip(a, b)]
+        first = same.index(False) if not all(same) else None
+        log(f"  member {i} vs run alone on the same seed: {sum(same)}/"
+            f"{len(same)} records equal (policy, accuracy, reward)" + (
+                "" if first is None else
+                f"; first difference at episode {first}: accuracy "
+                f"{a[first].accuracy} vs {b[first].accuracy}, reward "
+                f"{a[first].reward} vs {b[first].reward}"))
+        if not all(same[:SLOTS]):
+            raise AssertionError("the shared rollout of the first batch "
+                                 "differs from the member's own")
+    out["lm"] = {"launches": launches, "seconds": secs}
+    rows, P = VAL_BATCH * VAL_SEQ, len(ms)
+    # the sites of the run's last shared validation (every fake-quant site
+    # of one forward over the P*K policies)
+    calls = k1_calls(LM_CFG, pop_device_cspecs(ms, [
+        h[-SLOTS:] for h in hist])[0], rows)
+    gen = torch.Generator(device=device).manual_seed(16)
+
+    def lm_input(call, dtype):
+        (R, C), bits = call
+        x = torch.randn((len(bits), R, C) if R == rows else (R, C),
+                        generator=gen, device=device).to(dtype)
+        return x if R == rows else x.expand(len(bits), R, C)
+
+    t0 = time.perf_counter()
+    err = check_fake_quant_dev_calls(calls, lm_input, lambda c: {
+        k1_call_dtype(LM_CFG, c[0], rows)}, device)
+    log(f"  K1 device bits over the P*K = {P * SLOTS} slots at the "
+        f"{err['pairs']} (shape, bits vector) sites of the last shared "
+        f"validation, in the path's dtypes: max |kernel - plain| "
+        f"{err['max_abs_err']:.3g} (tol "
+        f"0), equal to the host-bits form ({time.perf_counter() - t0:.1f} "
+        f"s)")
+    shared = pop_steady(pop, lm_eps)
+    T = len(ms[0].steps)
+    sites = sum(len(k1_calls(LM_CFG, cs, rows))
+                for cs in pop_device_cspecs(ms, shared["records"]))
+    log(f"  steady chunk, shared: graphs {shared['graphs']}, "
+        f"{shared['readbacks']} readback(s)")
+    check_fused_launches(shared["launches"], {
+        "mlp3_members": E * T, "mlp3": 5 * P * E * SLOTS * updates,
+        "polyak": P * E * SLOTS * updates, "fake_quant_slots_dev": sites,
+        "adam_polyak": 0, "fake_quant_slots": 0, "fake_quant": 0},
+        "LM population, steady chunk")
+    if on_card and shared["graphs"] != {"epoch": {"captures": 0,
+                                                   "replays": 1}} or \
+            shared["readbacks"] != 1:
+        raise AssertionError("LM population: a steady chunk is not one "
+                             "epoch replay and one readback")
+    alone = pop_steady(pop, lm_eps, alone=solo[1])
+    log_pop_speed(LM_CFG.name, shared, alone)
+    out["lm"].update(shared=shared, alone=alone, dev_check=err)
+    out["lm_sens"] = check_fused_sensitivity(LM_CFG.name, ms[0].cmodel,
+                                             ms[0].val_batch, False)
+    del pop, ms, solo
+    release_cached_memory(device)
+    log(f"  {time.perf_counter() - t_lm:.1f} s for the LM population")
+    log(f"  {time.perf_counter() - t_phase:.1f} s for the population phase")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phases 9 and 10: the calibration path and the measured search
 # ---------------------------------------------------------------------------
 
 def _positive(x) -> bool:
@@ -3687,8 +4385,13 @@ def main() -> int:
                            device),
         "polyak": check_polyak(ddpg_leaf_shapes(S, A, ddpg.hidden),
                                ddpg.tau, device),
+        "mlp3_members": check_mlp3_members(S, A, ddpg.hidden, SLOTS,
+                                           (1, 2, 3), 2, device),
+        "adam_polyak": check_adam_polyak(S, A, ddpg.hidden, ddpg.critic_lr,
+                                         ddpg.tau, (1, 3, 8), device),
         **check_quant_matmul(LM_CFG, device),
     }
+    check_fake_quant_slot_split(device)
     k6_4096 = check_flash_attention(device)
     k8_4096 = check_ssd_scan(device)
     k7_4096 = check_rglru_scan(device)
@@ -3769,6 +4472,15 @@ def main() -> int:
     if launches["fake_quant_slots_dev"] == 0:
         raise AssertionError("K1's device-bits entry never launched on the "
                              "fused path")
+
+    pop = population_phase(device, search.sens, resnet["sens"], batch)
+    launches["mlp3_members"] = pop["lm"]["launches"]["mlp3_members"]
+    launches["adam_polyak"] = pop["resnet"]["launches"]["adam_polyak"]
+    for name in ("mlp3_members", "adam_polyak"):
+        if launches[name] == 0:
+            raise AssertionError(f"{name} never launched on the population "
+                                 f"path")
+    del pop
 
     log(f"[calibration path] launch.calibrate.run on {LM_CFG.name} at full "
         f"width (deploy-path units, K4/K5 kernel rows, raw/int8/int4 "

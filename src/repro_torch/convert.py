@@ -12,6 +12,7 @@ import torch
 
 from .configs.base import ArchConfig
 from .core.ddpg import AgentState
+from .core.replay import DeviceReplayData
 
 
 def _to_torch(tree, device):
@@ -50,17 +51,20 @@ def resnet_params(params, device="cuda") -> dict:
 def agent_state(st, device="cuda") -> AgentState:
     """A whole JAX ``AgentState`` (numpy leaves) -> the port's: actor,
     critic, both targets, both Adam states (``m``, ``v``, ``t``), the
-    running-norm statistics and the reward moving average. The JAX PRNG
-    key has no counterpart (the port samples from a ``torch.Generator``;
-    parity tests feed the JAX replay indices instead)."""
+    running-norm statistics and the reward moving average. A population's
+    stacked state (``tree_stack``: a leading member axis on every leaf,
+    ``t`` (P,)) gives the port's stacked state (``ddpg.stack_states``'s
+    layout). The JAX PRNG key has no counterpart (the port samples from a
+    ``torch.Generator``; parity tests feed the JAX replay indices
+    instead)."""
     def net(x):
         return [{k: torch.as_tensor(np.array(v, np.float32), device=device)
                  for k, v in layer.items()} for layer in x]
 
     def opt(o):
         return {"m": net(o["m"]), "v": net(o["v"]),
-                "t": torch.tensor(int(o["t"]), dtype=torch.int32,
-                                  device=device)}
+                "t": torch.as_tensor(np.array(o["t"], np.int32),
+                                     device=device)}
 
     def scalar(x):
         return torch.as_tensor(np.array(x, np.float32), device=device)
@@ -73,3 +77,15 @@ def agent_state(st, device="cuda") -> AgentState:
         norm_count=scalar(st.norm_count), norm_mean=scalar(st.norm_mean),
         norm_var=scalar(st.norm_var), reward_ma=scalar(st.reward_ma),
         reward_ma_init=scalar(st.reward_ma_init))
+
+
+def replay_data(data, device="cuda") -> DeviceReplayData:
+    """A JAX ``DeviceReplayData`` ring (numpy leaves) -> the port's: the
+    five f32 columns and ``ptr`` / ``size`` as int64, one ring or a
+    population's stacked rings ((P, capacity, ·), ``ptr`` / ``size``
+    (P,))."""
+    f32 = [torch.as_tensor(np.array(x, np.float32), device=device)
+           for x in data[:5]]
+    i64 = [torch.as_tensor(np.array(x, np.int64), device=device)
+           for x in (data.ptr, data.size)]
+    return DeviceReplayData(*f32, *i64)

@@ -19,6 +19,8 @@ device form: each site's bits a [K] int32 tensor that K1 reads
 kept counts; a site that no spec makes quantizable keeps static 32-bit
 tuples and launches nothing. ``accuracy_policy_fn`` is that validator,
 (K, L) int32 tensors -> (K,) accuracies, read without a sync.
+``log_probs_batch`` gives a batched cspec's [K, ...] log-probs (the fused
+sensitivity analysis's probe chunks).
 """
 from __future__ import annotations
 
@@ -510,6 +512,14 @@ class CompressibleLM(_BatchedAccuracyMixin):
     def log_probs(self, batch: dict, cspec=None) -> torch.Tensor:
         return torch.log_softmax(self.logits(batch, cspec), -1)
 
+    @torch.no_grad()
+    def log_probs_batch(self, batch: dict, stacked_cspec) -> torch.Tensor:
+        """[C, B, S, V] log-probs of the C policies of a batched cspec,
+        from one forward over all of them (the fused sensitivity's probe
+        chunk)."""
+        return torch.log_softmax(M.forward(
+            self.cfg, self.params, batch["tokens"], stacked_cspec), -1)
+
     def accuracy(self, batch: dict, cspec=None) -> torch.Tensor:
         """Next-token top-1 accuracy (a 0-d tensor on the device)."""
         lg = self.logits(batch, cspec)[:, :-1]
@@ -571,6 +581,12 @@ class CompressibleResNet(_BatchedAccuracyMixin):
 
     def log_probs(self, batch: dict, cspec=None) -> torch.Tensor:
         return torch.log_softmax(self.logits(batch, cspec), -1)
+
+    def log_probs_batch(self, batch: dict, stacked_cspec) -> torch.Tensor:
+        """[C, B, classes] log-probs of the C policies of a batched cspec,
+        from one forward over all of them (the fused sensitivity's probe
+        chunk)."""
+        return torch.log_softmax(self.logits(batch, stacked_cspec), -1)
 
     def accuracy(self, batch: dict, cspec=None) -> torch.Tensor:
         """Top-1 accuracy (a 0-d tensor on the device)."""

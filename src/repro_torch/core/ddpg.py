@@ -22,7 +22,17 @@ soft target update of both networks through one K3 launch
 (``kernels.ops.fused_polyak_nets``). The scalar and batched engines act
 in host numpy with ``np.random.default_rng(seed)``, as in the JAX
 package, so exploration draws match it bit for bit; the fused engine
-acts on the device (``agent_act_batch``, K2) with its draws fed in.
+acts on the device (``agent_act_batch``, K2) with its draws fed in, a
+population's shared rollout through K2's member form.
+
+Populations: ``stack_states`` / ``index_state`` stack P agent states (or
+replay rings) along a leading member axis and give each member views of
+the stack. ``population_update_chunk`` advances the stacked states in
+place: the megabatched step (``_mega_update_step``: every product
+batched over the members with ``torch.bmm``, a hand-written backward,
+Adam and the soft target update as one fused kernel launch per network,
+``kernels.adam_polyak``) for the paper's trunk, P solo ``update_chunk``s
+(``population_update_chunk_vmap``, its parity reference) otherwise.
 """
 from __future__ import annotations
 
@@ -34,6 +44,7 @@ import numpy as np
 import torch
 
 from ..kernels import ops
+from ..kernels.adam_polyak import adam_polyak_
 from .replay import device_replay_sample
 
 
@@ -65,11 +76,13 @@ def _mlp_init(gen: torch.Generator, dims, device, final_scale=3e-3):
 
 
 def _mlp(params, x: torch.Tensor, final: Optional[str] = None):
-    """The paper's 3-layer trunk on a 2-D batch, through K2 (the plain
-    version on a CPU tensor)."""
+    """The paper's 3-layer trunk on a 2-D batch through K2, on a
+    population's [P, B, D0] block through K2's member form (the plain
+    versions on a CPU tensor)."""
     if len(params) != 3:
         raise ValueError(f"the DDPG trunk has 3 layers, got {len(params)}")
-    return ops.fused_mlp3(params, x, final="sigmoid" if final else "linear")
+    fn = ops.fused_mlp3_members if x.dim() == 3 else ops.fused_mlp3
+    return fn(params, x, final="sigmoid" if final else "linear")
 
 
 def actor_forward(params, state):
@@ -213,18 +226,21 @@ def agent_act_batch(cfg: DDPGConfig, st: AgentState, states, sigmas,
     in-bounds candidate wins, else ``clip(cand[0], 0, 1)``, and sigma 0
     acts greedily. The JAX package's ``agent_act_batch`` given the same
     draws (not ``DDPGAgent.act_batch``, whose fallback draws a 17th
-    normal)."""
-    s = (states - st.norm_mean) / torch.sqrt(st.norm_var + 1e-8)
+    normal). A population acts with its stacked state on (P, K, ·)
+    blocks (every argument with the leading member axis): one launch of
+    K2's member form, the same arithmetic per member."""
+    s = (states - st.norm_mean.unsqueeze(-2)) / torch.sqrt(
+        st.norm_var.unsqueeze(-2) + 1e-8)
     mu = actor_forward(st.actor, s)
-    cand = mu[:, None, :] + sigmas[:, None, None] * normals
-    ok = torch.all((cand >= 0.0) & (cand <= 1.0), dim=-1)       # [K, 16]
-    first = torch.argmax(ok.to(torch.int32), dim=1)
-    pick = torch.gather(cand, 1, first[:, None, None].expand(
-        -1, 1, cand.shape[-1]))[:, 0]
-    noisy = torch.where(ok.any(dim=1, keepdim=True), pick,
-                        torch.clamp(cand[:, 0], 0.0, 1.0))
-    acted = torch.where(sigmas[:, None] > 0.0, noisy, mu)
-    return torch.where(warmup[:, None], uniforms, acted)
+    cand = mu.unsqueeze(-2) + sigmas[..., None, None] * normals
+    ok = torch.all((cand >= 0.0) & (cand <= 1.0), dim=-1)    # [..., K, 16]
+    first = torch.argmax(ok.to(torch.int32), dim=-1)
+    pick = torch.gather(cand, -2, first[..., None, None].expand(
+        *first.shape, 1, cand.shape[-1])).squeeze(-2)
+    noisy = torch.where(ok.any(dim=-1, keepdim=True), pick,
+                        torch.clamp(cand[..., 0, :], 0.0, 1.0))
+    acted = torch.where(sigmas[..., None] > 0.0, noisy, mu)
+    return torch.where(warmup[..., None], uniforms, acted)
 
 
 def observe_states_pure(st: AgentState, states: torch.Tensor) -> AgentState:
@@ -468,3 +484,198 @@ def copy_state(dst: AgentState, src: AgentState) -> None:
     for d, s in zip(state_leaves(dst), state_leaves(src)):
         if d is not s:
             d.copy_(s)
+
+
+# ===========================================================================
+# Populations: stacked states and the megabatched update
+# ===========================================================================
+
+def _tree_map(fn, *trees):
+    """``fn`` over the tensors of identically shaped agent states or ring
+    data (named tuples, lists and dicts of tensors)."""
+    t0 = trees[0]
+    if isinstance(t0, torch.Tensor):
+        return fn(*trees)
+    if isinstance(t0, dict):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in t0}
+    if isinstance(t0, tuple) and hasattr(t0, "_fields"):
+        return type(t0)(*(_tree_map(fn, *xs) for xs in zip(*trees)))
+    if isinstance(t0, list):
+        return [_tree_map(fn, *xs) for xs in zip(*trees)]
+    raise TypeError(f"cannot map over {type(t0).__name__}")
+
+
+def stack_states(trees):
+    """P ``AgentState``s (or ``DeviceReplayData`` rings) of one shape as
+    one whose every tensor has a leading member axis, in new memory (the
+    JAX package's ``tree_stack``)."""
+    return _tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+def index_state(tree, i: int):
+    """Member i of a stacked state or ring: views of the stacked tensors,
+    so what is written through them lands in the stack (the JAX
+    package's ``tree_index``, which copies)."""
+    return _tree_map(lambda x: x[i], tree)
+
+
+def population_update_chunk_vmap(cfg: DDPGConfig, states: AgentState,
+                                 replays, n: int, indices: torch.Tensor):
+    """The parity reference of the megabatched chunk (the JAX package's
+    ``jit(vmap(update_chunk))``): each member's solo ``update_chunk`` on
+    its own ring and its own (n, batch_size) indices (``indices`` (P, n,
+    batch_size)), its result copied into the stacked ``states`` in place.
+    Returns ``states`` and the (P, n) critic and actor losses."""
+    lcs, las = [], []
+    for i in range(indices.shape[0]):
+        st = index_state(states, i)
+        new, (lc, la) = update_chunk(cfg, st, index_state(replays, i), n,
+                                     indices=indices[i])
+        copy_state(st, new)
+        lcs.append(lc)
+        las.append(la)
+    return states, (torch.stack(lcs), torch.stack(las))
+
+
+def _fused_adam_polyak(params, grads, opt: dict, target, lr: float,
+                       tau: float) -> None:
+    """Adam (bias correction folded into per-member ``lr_t`` / ``eps_t``)
+    and the soft target update of one network's stacked (P, ...) leaves
+    in place: one ``kernels.adam_polyak`` launch (its plain version on the
+    CPU); ``opt["t"]`` ((P,) int32) advances. An exact rewrite of
+    ``adam_step`` then the Polyak EMA (the JAX package's function of the
+    same name)."""
+    leaves = [(p_l[k], m_l[k], v_l[k], g_l[k], t_l[k])
+              for p_l, g_l, m_l, v_l, t_l in zip(params, grads, opt["m"],
+                                                 opt["v"], target)
+              for k in sorted(p_l)]
+    adam_polyak_(leaves, opt["t"], lr, tau)
+
+
+def _bwd_dw(h, dz):
+    """Weight cotangent (P, B, i), (P, B, o) -> (P, i, o)."""
+    return torch.bmm(h.transpose(1, 2), dz)
+
+
+def _bwd_dx(dz, w):
+    """Input cotangent (P, B, o), (P, i, o) -> (P, B, i)."""
+    return torch.bmm(dz, w.transpose(1, 2))
+
+
+@torch.no_grad()
+def _mega_update_step(cfg: DDPGConfig, st: AgentState, batch):
+    """One update of every member of a stacked state, in place: the same
+    member-wise semantics as ``update_step`` (reward-MA advance, frozen-
+    norm standardization, critic then actor Adam against the updated
+    critic, Polyak), with every product batched over the members
+    (``torch.bmm``), a hand-written backward that forms only the
+    cotangents DDPG needs (the actor loss's first critic layer split
+    ``[s, pi] @ W1 = s @ W1[:S] + pi @ W1[S:]``, so only the action
+    columns get an input gradient) and one fused Adam + Polyak launch per
+    network. ``batch``: (s, a, r, s2, done), each (P, B, ...). Returns
+    ``st`` and the (P,) critic and actor losses (the JAX package's
+    ``_mega_update_step``)."""
+    s, a, r, s2, done = batch
+    S = cfg.state_dim
+
+    def lin(x, layer):
+        return torch.bmm(x, layer["w"]) + layer["b"][:, None, :]
+
+    batch_mean = torch.mean(r, dim=1)
+    d = cfg.reward_ma_decay
+    ma = torch.where(st.reward_ma_init > 0.0,
+                     d * st.reward_ma + (1.0 - d) * batch_mean, batch_mean)
+    r = r - ma[:, None]
+    inv = 1.0 / torch.sqrt(st.norm_var + 1e-8)
+    s = (s - st.norm_mean[:, None, :]) * inv[:, None, :]
+    s2 = (s2 - st.norm_mean[:, None, :]) * inv[:, None, :]
+    TA, TC, CR, AC = st.target_actor, st.target_critic, st.critic, st.actor
+
+    # q_target through the target networks (forward only)
+    x = torch.relu(lin(s2, TA[0]))
+    x = torch.relu(lin(x, TA[1]))
+    a2 = torch.sigmoid(lin(x, TA[2]))
+    x = torch.relu(lin(torch.cat([s2, a2], -1), TC[0]))
+    x = torch.relu(lin(x, TC[1]))
+    q_next = lin(x, TC[2])[..., 0]
+    q_target = r + cfg.gamma * (1.0 - done) * q_next
+
+    # critic loss, its backward, and the fused Adam + Polyak of the critic
+    xc = torch.cat([s, a], -1)
+    z1 = lin(xc, CR[0])
+    h1 = torch.relu(z1)
+    z2 = lin(h1, CR[1])
+    h2 = torch.relu(z2)
+    e = lin(h2, CR[2])[..., 0] - q_target
+    lc = torch.mean(e * e, dim=1)
+    dz3 = ((2.0 / e.shape[1]) * e)[..., None]
+    dz2 = _bwd_dx(dz3, CR[2]["w"]) * (z2 > 0)
+    dz1 = _bwd_dx(dz2, CR[1]["w"]) * (z1 > 0)
+    gc = [{"w": _bwd_dw(xc, dz1), "b": dz1.sum(1)},
+          {"w": _bwd_dw(h1, dz2), "b": dz2.sum(1)},
+          {"w": _bwd_dw(h2, dz3), "b": dz3.sum(1)}]
+    _fused_adam_polyak(CR, gc, st.opt_c, st.target_critic, cfg.critic_lr,
+                       cfg.tau)
+
+    # actor loss against the updated critic
+    w1s, w1a = CR[0]["w"][:, :S, :], CR[0]["w"][:, S:, :]
+    z1a = lin(s, AC[0])
+    h1a = torch.relu(z1a)
+    z2a = lin(h1a, AC[1])
+    h2a = torch.relu(z2a)
+    pi = torch.sigmoid(lin(h2a, AC[2]))
+    zq1 = torch.bmm(s, w1s) + torch.bmm(pi, w1a) + CR[0]["b"][:, None, :]
+    hq1 = torch.relu(zq1)
+    zq2 = lin(hq1, CR[1])
+    hq2 = torch.relu(zq2)
+    qpi = lin(hq2, CR[2])[..., 0]
+    la = -torch.mean(qpi, dim=1)
+    dz3q = torch.full_like(hq2[..., :1], -1.0 / qpi.shape[1])
+    dzq2 = _bwd_dx(dz3q, CR[2]["w"]) * (zq2 > 0)
+    dzq1 = _bwd_dx(dzq2, CR[1]["w"]) * (zq1 > 0)
+    dz3a = _bwd_dx(dzq1, w1a) * pi * (1.0 - pi)
+    dz2a = _bwd_dx(dz3a, AC[2]["w"]) * (z2a > 0)
+    dz1a = _bwd_dx(dz2a, AC[1]["w"]) * (z1a > 0)
+    ga = [{"w": _bwd_dw(s, dz1a), "b": dz1a.sum(1)},
+          {"w": _bwd_dw(h1a, dz2a), "b": dz2a.sum(1)},
+          {"w": _bwd_dw(h2a, dz3a), "b": dz3a.sum(1)}]
+    _fused_adam_polyak(AC, ga, st.opt_a, st.target_actor, cfg.actor_lr,
+                       cfg.tau)
+    st.reward_ma.copy_(ma)
+    st.reward_ma_init.fill_(1.0)
+    return st, (lc, la)
+
+
+def population_update_chunk_megabatched(cfg: DDPGConfig, states: AgentState,
+                                        replays, n: int,
+                                        indices: torch.Tensor):
+    """n megabatched steps (``_mega_update_step``) of every member of the
+    stacked ``states`` in place, step i on the transitions of each
+    member's ring at ``indices[:, i]`` ((P, n, batch_size)). Returns
+    ``states`` and the (P, n) critic and actor losses (the JAX package's
+    ``population_update_chunk_megabatched``; its donation is the in-place
+    update here)."""
+    rows = torch.arange(indices.shape[0], device=indices.device)[:, None]
+    lcs, las = [], []
+    for i in range(n):
+        idx = indices[:, i]
+        batch = tuple(x[rows, idx] for x in replays[:5])
+        _, (lc, la) = _mega_update_step(cfg, states, batch)
+        lcs.append(lc)
+        las.append(la)
+    return states, (torch.stack(lcs, 1), torch.stack(las, 1))
+
+
+def population_update_chunk(cfg: DDPGConfig, states: AgentState, replays,
+                            n: int, indices: torch.Tensor):
+    """Route a population's update chunk: the megabatched path for the
+    paper's trunk (two hidden layers), P solo chunks otherwise (the JAX
+    package's router; here the solo chunks refuse any other depth, which
+    K2 does not compute). Both update the stacked states in place,
+    member-wise within 1e-5 of each other, and return them with the
+    (P, n) losses."""
+    if len(cfg.hidden) != 2:
+        return population_update_chunk_vmap(cfg, states, replays, n,
+                                            indices)
+    return population_update_chunk_megabatched(cfg, states, replays, n,
+                                               indices)

@@ -25,6 +25,7 @@ them.
 """
 from __future__ import annotations
 
+import gc
 from collections import defaultdict
 from typing import Callable, Optional, Sequence
 
@@ -76,8 +77,20 @@ class Graph:
         main.wait_stream(side)
         before = dict(build.LAUNCHES)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self.pool):
-            out = self.fn()
+        # The cyclic garbage collector is paused while capturing: run
+        # there, it can destroy an earlier engine's unreachable graphs
+        # (CUDAGraph reset is not permitted while a stream captures), and
+        # the capture then fails as invalidated (seen in
+        # tests/test_torch_gpu.py's epoch-graph test, run after the
+        # per-batch one in the same process).
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool):
+                out = self.fn()
+        finally:
+            if collecting:
+                gc.enable()
         self.launches = {k: v - before[k] for k, v in build.LAUNCHES.items()
                          if v != before[k]}
         build.LAUNCHES.update(before)

@@ -526,9 +526,11 @@ def policy_latency_batch(
 # ===========================================================================
 
 class HwParams(NamedTuple):
-    """The hardware rates the roofline divides by, as 0-d f32 tensors on
-    the engine's device (``mxu_align`` stays on the oracle: it shapes
-    the padding formula)."""
+    """The hardware rates the roofline divides by, as f32 tensors on the
+    engine's device (``mxu_align`` stays on the oracle: it shapes the
+    padding formula): 0-d for one target, or shaped (P, 1, 1) to
+    broadcast one target per member over (P, K, L) policy rows
+    (``stack_hw_params``)."""
     peak_bf16: torch.Tensor
     peak_int8: torch.Tensor
     hbm_bw: torch.Tensor
@@ -542,6 +544,19 @@ def hw_params(hw: HardwareTarget, device="cpu") -> HwParams:
                       for k in HwParams._fields))
 
 
+def stack_hw_params(hwps) -> HwParams:
+    """P targets' 0-d ``HwParams`` as one with (P, 1, 1) fields: member p's
+    rates broadcast over its (K, L) rows of a (P, K, L) policy block."""
+    return HwParams(*(torch.stack(xs).reshape(-1, 1, 1)
+                      for xs in zip(*hwps)))
+
+
+def _per_row(rate: torch.Tensor) -> torch.Tensor:
+    """A rate of ``HwParams`` shaped for per-policy totals: (P, 1) from a
+    member-stacked (P, 1, 1), a 0-d one as it is."""
+    return rate[..., 0] if rate.dim() else rate
+
+
 class DeviceBatchOracle:
     """``BatchOracle``'s roofline as f32 tensor ops on ``device``: the
     counterpart of the JAX package's ``JaxBatchOracle``, the oracle the
@@ -549,7 +564,9 @@ class DeviceBatchOracle:
     the (cached) ``BatchOracle``, calibration factors included, and live
     on the device, so a captured rollout reads them in place. Matches
     the float64 oracle up to f32 rounding, and the JAX one term for
-    term."""
+    term. The policy tensors may carry leading axes: (K, L), or a
+    population's (P, K, L) with member-stacked ``hwp`` (the JAX package's
+    ``vmap`` over members); sums run over the last axis."""
 
     def __init__(self, specs: Sequence[LayerSpec], hw: HardwareTarget,
                  ctx: LatencyContext, window: int = 0, calib=None,
@@ -600,15 +617,17 @@ class DeviceBatchOracle:
         return torch.ceil(torch.clamp_min(x, 1.0) / self.mxu_align) \
             * self.mxu_align
 
-    def unit_times(self, keep, wb, ab):
-        """(K, L) per-unit and (K, E) attention-extra times of the f32
-        (K, L) policy tensors: the terms of ``BatchOracle.__call__``."""
-        hwp = self.hwp
+    def unit_times(self, keep, wb, ab, hwp: Optional[HwParams] = None):
+        """(..., L) per-unit and (..., E) attention-extra times of the f32
+        (..., L) policy tensors: the terms of ``BatchOracle.__call__``.
+        ``hwp``: the rates to divide by (default this oracle's target's;
+        a population passes its members', stacked)."""
+        hwp = self.hwp if hwp is None else hwp
         T, chips = self.tokens, self.chips
         keep_frac = torch.where(
             self.prune_dim > 0, keep / torch.clamp_min(self.prune_dim, 1.0),
             torch.ones_like(keep))
-        in_frac = torch.where(self.has_owner, keep_frac[:, self.owner],
+        in_frac = torch.where(self.has_owner, keep_frac[..., self.owner],
                               torch.ones_like(keep))
         wbpe = torch.where(wb >= 9, 2.0, torch.where(wb >= 5, 1.0, 0.5))
         abpe = torch.where(ab <= 8, 1.0, 2.0)
@@ -651,7 +670,7 @@ class DeviceBatchOracle:
 
         if len(self.extra_idx):
             keep_heads = torch.where(self.extra_prunable,
-                                     keep[:, self.extra_idx], 0.0)
+                                     keep[..., self.extra_idx], 0.0)
             eflops = 4.0 * T * self.seq * self.extra_hd * keep_heads
             if self.causal:
                 eflops = eflops * 0.5
@@ -660,20 +679,22 @@ class DeviceBatchOracle:
                 self.extra_cache_bytes / (hwp.hbm_bw * chips)) \
                 * self.extra_f
         else:
-            extra = keep.new_zeros((keep.shape[0], 0))
+            extra = keep.new_zeros((*keep.shape[:-1], 0))
         return unit_time, extra
 
-    def totals(self, unit_time, extra_time):
-        return (unit_time.sum(dim=1) + extra_time.sum(dim=1)
-                + self.n_ops * self.hwp.op_overhead * self.overhead_f)
+    def totals(self, unit_time, extra_time,
+               hwp: Optional[HwParams] = None):
+        hwp = self.hwp if hwp is None else hwp
+        return (unit_time.sum(dim=-1) + extra_time.sum(dim=-1)
+                + self.n_ops * _per_row(hwp.op_overhead) * self.overhead_f)
 
     def decided_before(self, unit_time, extra_time, t: int):
         """Per-policy latency of units with spec index < t: the device
         form of ``BatchedPolicyLatency.decided_before`` (masked sums over
         the whole row, as the JAX oracle takes them)."""
-        out = (unit_time * (self.spec_idx < t)).sum(dim=1)
+        out = (unit_time * (self.spec_idx < t)).sum(dim=-1)
         if len(self.extra_idx):
-            out = out + (extra_time * (self.extra_idx < t)).sum(dim=1)
+            out = out + (extra_time * (self.extra_idx < t)).sum(dim=-1)
         return out
 
 

@@ -11,7 +11,9 @@ valid. ``ptr``/``size`` are mirrored on the host (``DeviceReplay.ptr`` /
 ``.size``) so the ``size >= batch_size`` update gate and the bound of a
 sample's indices never synchronize the device; an engine that pushes
 inside a graph advances the mirrors from its static schedule
-(``DeviceReplay.adopt``).
+(``DeviceReplay.adopt``). A population keeps its members' rings as one
+stack of (P, capacity, ·) tensors (``ddpg.stack_states``), each member's
+``DeviceReplay`` rebound to views of its slice (``DeviceReplay.rebind``).
 """
 from __future__ import annotations
 
@@ -95,12 +97,17 @@ class DeviceReplay:
                  device="cuda"):
         self.capacity = capacity
         self.device = torch.device(device)
-        self.data = device_replay_init(capacity, state_dim, action_dim,
-                                       self.device)
-        (self.states, self.actions, self.rewards, self.next_states,
-         self.dones) = self.data[:5]
+        self.rebind(device_replay_init(capacity, state_dim, action_dim,
+                                       self.device))
         self.ptr = 0
         self.size = 0
+
+    def rebind(self, data: DeviceReplayData):
+        """Take ``data`` (the same shapes, the same contents: views of a
+        population's stacked ring) as the ring's tensors."""
+        self.data = data
+        (self.states, self.actions, self.rewards, self.next_states,
+         self.dones) = data[:5]
 
     def push_batch(self, s, a, r, s_next, done):
         """Bulk insert N transitions (numpy or tensors) in one ring

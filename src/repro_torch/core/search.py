@@ -45,14 +45,22 @@ functions run eagerly through the kernels' plain versions.
 ``dispatch_log`` records "rollout" / "validate" / "push" / "update" per
 batch, or "epoch" per epoch; ``graphs.COUNTS`` the captures and
 replays; ``readbacks`` the epochs' device-to-host reads.
-``PopulationSearch``, the megabatched population update and the fleet
-engine wait for a later slice.
+
+``PopulationSearch`` runs P member searches side by side (the paper's
+p/q/pq agents, or one member per hardware target): their agent states
+and rings stacked once into (P, ·) tensors that the members' own
+tensors are views of, their update budgets run as one megabatched
+update replay (``ddpg.population_update_chunk``: the products batched
+over the members, a hand-written backward, the fused Adam + Polyak
+kernel), and, for fused members of one target family, their rollouts
+(K2's member form) or whole epochs as one replay. The fleet engine
+waits for a later slice.
 """
 from __future__ import annotations
 
 import copy
 from dataclasses import dataclass, field
-from typing import List, NamedTuple, Optional
+from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -60,10 +68,12 @@ import torch
 from . import graphs
 from .constraints import legal_tables
 from .ddpg import (DDPGAgent, DDPGConfig, agent_act_batch, copy_state,
-                   observe_states_pure, state_leaves, update_chunk)
+                   index_state, observe_states_pure,
+                   population_update_chunk, stack_states, state_leaves,
+                   update_chunk)
 from .latency import (V5E, HardwareTarget, LatencyContext, fifo_cached,
                       get_device_oracle, policy_latency,
-                      policy_latency_batch)
+                      policy_latency_batch, stack_hw_params)
 from .policy import (Policy, PolicyBatch, action_columns, map_actions,
                      map_actions_batch, n_actions, policies_from_batch,
                      stack_policies)
@@ -184,6 +194,7 @@ class CompressionSearch:
         self.steps = [i for i, s in enumerate(self.specs)
                       if _actionable(s, search_cfg.methods)]
         self._pending_updates = 0
+        self._defer_updates = False     # PopulationSearch batches flushes
 
     def _flush_updates(self):
         """Run the queued update budget as one chunk, once the ring holds
@@ -194,10 +205,20 @@ class CompressionSearch:
             self.agent.update_chunk(self.replay, n)
 
     def _queue_updates(self, n: int):
-        """Queue n updates and run them (a population of searches, a later
-        slice, defers the flush to batch the members' chunks)."""
+        """Queue n updates and run them, unless a population defers the
+        flush to run its members' chunks as one."""
         self._pending_updates += n
-        self._flush_updates()
+        if not self._defer_updates:
+            self._flush_updates()
+
+    def _fill_indices(self, indices: torch.Tensor, size: int):
+        """One update chunk's replay indices, (n, batch_size), uniform
+        over a filled prefix of ``size`` (the host mirror or an epoch
+        schedule's), from the agent's sampling stream: the draws of
+        ``DDPGAgent.update_chunk`` (a population fills its members' rows
+        of a shared chunk with them; the parity tests feed the JAX
+        package's)."""
+        indices.random_(0, max(size, 1), generator=self.agent.sample_gen)
 
     def run_episode(self, episode: int) -> EpisodeRecord:
         cfg = self.cfg
@@ -435,6 +456,7 @@ class BatchedCompressionSearch(CompressionSearch):
         return self.run_episode_batch(first_episode, k)
 
 
+
 # ===========================================================================
 # Fused engine: the rollout as one graph replay
 # ===========================================================================
@@ -454,52 +476,65 @@ def method_cols(methods: str) -> MethodCols:
                       "q" in methods)
 
 
-def make_rollout_fn(cfg: DDPGConfig, oracle, legal, tables, spec_steps,
+def make_rollout_fn(cfg: DDPGConfig, oracle, legal, static_tab, spec_steps,
                     cols: MethodCols):
     """The pure rollout the fused engine captures: ``rollout(st, keep0,
-    wb0, ab0, sigmas, warmup, ref_total, uniforms, normals) -> (keep, wb,
-    ab, states, actions, lats)``. Constants: the agent config, the
-    device oracle, the legality tables, ``tables`` = the (T, S) static
-    feature rows and (T, 2) shares on the device, the spec index of each
-    step, the method columns. Inputs: the agent state, the (L,) reference
-    policy rows, per-row sigmas (K,) and warmup flags (K,), the reference
-    total (0-d), the draws (T, K, A) uniforms and (T, K, 16, A) normals.
-    ``states`` / ``actions`` are (T, K, ·) in step order, ``lats`` the
-    final policies' oracle latency: the whole episode environment,
-    unrolled over the T steps (the JAX package's ``lax.scan``)."""
-    static_tab, shares = tables
+    wb0, ab0, sigmas, warmup, hwp, shares, ref_total, uniforms, normals)
+    -> (keep, wb, ab, states, actions, lats)``. Constants: the agent
+    config, the device oracle, the legality tables, the (T, S) static
+    feature rows on the device, the spec index of each step, the method
+    columns. Everything hardware- or member-specific is an input (the
+    JAX package's rollout), so one function serves a population:
 
-    def rollout(st, keep0, wb0, ab0, sigmas, warmup, ref_total, uniforms,
-                normals):
-        K, L = sigmas.shape[0], keep0.shape[-1]
-        keep, wb, ab = (x.expand(K, L).clone() for x in (keep0, wb0, ab0))
-        prev_a = sigmas.new_zeros((K, cfg.action_dim))
+    * one engine: its agent state, the (L,) reference policy rows, per-
+      row sigmas (K,) and warmup flags (K,), its target's rates ``hwp``
+      (0-d), its (T, 2) reference-latency shares and 0-d reference
+      total, the draws (T, K, A) uniforms and (T, K, 16, A) normals;
+      ``states`` / ``actions`` (T, K, ·), ``lats`` (K,);
+    * P members (the population's shared rollout): their stacked state,
+      sigmas / warmup (P, K), ``hwp`` with (P, 1, 1) fields, shares (P,
+      T, 2), ref_total (P, 1), draws (P, T, K, ·); every output with the
+      leading member axis. The oracle runs on (P, K, L) rows, the actor
+      is one launch of K2's member form, ``map_actions_batch`` takes the
+      P·K rows flattened.
+
+    The whole episode environment, unrolled over the T steps (the JAX
+    package's ``lax.scan``)."""
+
+    def rollout(st, keep0, wb0, ab0, sigmas, warmup, hwp, shares,
+                ref_total, uniforms, normals):
+        lead, L = sigmas.shape, keep0.shape[-1]
+        keep, wb, ab = (x.expand(*lead, L).clone()
+                        for x in (keep0, wb0, ab0))
+        prev_a = sigmas.new_zeros((*lead, cfg.action_dim))
         states, actions = [], []
         for i, t in enumerate(spec_steps):
-            unit_t, extra_t = oracle.unit_times(keep, wb, ab)
+            unit_t, extra_t = oracle.unit_times(keep, wb, ab, hwp)
             decided = oracle.decided_before(unit_t, extra_t, t) / ref_total
-            S = fused_state_block(static_tab[i], shares[i], decided, prev_a)
-            A = agent_act_batch(cfg, st, S, sigmas, warmup, uniforms[i],
-                                normals[i])
-            new_keep, new_wb, new_ab = map_actions_batch(
-                A, prune_dim=legal.prune_dim[t],
+            S = fused_state_block(static_tab[i], shares.select(-2, i),
+                                  decided, prev_a)
+            A = agent_act_batch(cfg, st, S, sigmas, warmup,
+                                uniforms.select(-3, i), normals.select(-4, i))
+            new_keep, new_wb, new_ab = (x.reshape(lead) for x in
+                                        map_actions_batch(
+                A.reshape(-1, A.shape[-1]), prune_dim=legal.prune_dim[t],
                 granularity=legal.granularity[t],
                 prunable=legal.prunable[t], quantizable=legal.quantizable[t],
-                mix_ok=legal.mix_ok[t], ip=cols.ip, iw=cols.iw, ia=cols.ia)
+                mix_ok=legal.mix_ok[t], ip=cols.ip, iw=cols.iw, ia=cols.ia))
             # single-method agents keep the other method's reference
             # parameters (the host engines' rule)
             if cols.do_p:
-                keep[:, t] = new_keep
+                keep[..., t] = new_keep
             if cols.do_q:
-                wb[:, t] = new_wb
-                ab[:, t] = new_ab
+                wb[..., t] = new_wb
+                ab[..., t] = new_ab
             states.append(S)
             actions.append(A)
             prev_a = A
-        unit_t, extra_t = oracle.unit_times(keep, wb, ab)
-        lats = oracle.totals(unit_t, extra_t)
-        return (keep, wb, ab, torch.stack(states), torch.stack(actions),
-                lats)
+        unit_t, extra_t = oracle.unit_times(keep, wb, ab, hwp)
+        lats = oracle.totals(unit_t, extra_t, hwp)
+        return (keep, wb, ab, torch.stack(states, -3),
+                torch.stack(actions, -3), lats)
 
     return rollout
 
@@ -526,61 +561,92 @@ def make_epoch_fn(cfg: DDPGConfig, reward_cfg: RewardConfig, rollout_fn,
                   acc_fn, T: int, K: int, schedule: tuple):
     """The pure epoch: E = len(schedule) episode batches, each the fused
     rollout, ``observe_states_pure``, the device validation (``acc_fn``:
-    (K, L) int32 tensors -> (K,) accuracies), the reward, the ring write
+    (N, L) int32 tensors -> (N,) accuracies), the reward, the ring write
     and its ``schedule[e]`` updates, then the running best — the agent
-    state and the ring updated in place from batch to batch.
+    states and the rings updated in place from batch to batch.
 
-    ``epoch(st, ring, keep0, wb0, ab0, sigmas, warmup, ref_total,
-    ref_total_s, uniforms, normals, indices) -> (ys, best)`` with
-    sigmas / warmup (E, K), the draws (E, T, K, ·), ``indices`` the
-    (n, batch_size) replay indices of each batch (None where n is 0),
-    ``ys = (accs, lats, rewards, keep, wb, ab)`` stacked (E, ...) and
-    ``best = (reward, episode offset, (3, L) policy rows)``: the first
-    strict maximum over the epoch's E*K episodes, the rule of ``run``'s
-    host loop."""
+    ``epoch(st, members, keep0, wb0, ab0, sigmas, warmup, hwp, shares,
+    ref_total, uniforms, normals, indices) -> [(ys, best)]``, one entry
+    per member. ``st`` is what the rollout acts with; ``members`` a list
+    of (agent state, ring data, 0-d reference total seconds). One engine:
+    ``st`` its state, ``members`` itself, sigmas / warmup (E, K), the
+    rollout's ``hwp`` / ``shares`` / ``ref_total`` (``make_rollout_fn``),
+    the draws (E, T, K, ·), ``indices`` the (n, batch_size) replay
+    indices of each batch (None where n is 0). A population (the JAX
+    package's ``vmap`` of the epoch): ``st`` the stacked state whose
+    member views the ``members`` hold, every input with the leading
+    member axis ((P, E, K), (P, E, T, K, ·), indices (P, n, batch_size)):
+    one rollout and one validation of the P·K policies per batch, then
+    each member's reward, ring write and solo ``update_chunk``s. ``ys =
+    (accs, lats, rewards, keep, wb, ab)`` stacked (E, ...) and ``best =
+    (reward, episode offset, (3, L) policy rows)``: the first strict
+    maximum over the member's E*K episodes, the rule of ``run``'s host
+    loop."""
 
-    def epoch(st, ring, keep0, wb0, ab0, sigmas, warmup, ref_total,
-              ref_total_s, uniforms, normals, indices):
+    def epoch(st, members, keep0, wb0, ab0, sigmas, warmup, hwp, shares,
+              ref_total, uniforms, normals, indices):
+        stacked = sigmas.dim() == 3
         L = keep0.shape[-1]
-        best_r = sigmas.new_full((), float("-inf"))
-        best_e = torch.zeros((), dtype=torch.int64, device=sigmas.device)
-        best_p = sigmas.new_zeros((3, L))
-        ys = []
+        f32 = dict(dtype=torch.float32, device=sigmas.device)
+        best = [(torch.full((), float("-inf"), **f32),
+                 torch.zeros((), dtype=torch.int64, device=sigmas.device),
+                 torch.zeros((3, L), **f32)) for _ in members]
+        ys = [[] for _ in members]
         for e, n in enumerate(schedule):
-            keep, wb, ab, states, actions, lats = rollout_fn(
-                st, keep0, wb0, ab0, sigmas[e], warmup[e], ref_total,
-                uniforms[e], normals[e])
-            # the normalizer advances at the batch boundary, as the host
-            # engines' observe_states does
-            observe_states_pure(st, states.reshape(T * K, -1))
-            accs = acc_fn(*(x.to(torch.int32) for x in (keep, wb, ab)))
-            rewards = compute_reward_batch(reward_cfg, accs, lats,
-                                           ref_total_s)
+            out = rollout_fn(st, keep0, wb0, ab0, sigmas.select(-2, e),
+                             warmup.select(-2, e), hwp, shares, ref_total,
+                             uniforms.select(-4, e), normals.select(-5, e))
+            accs = acc_fn(*(x.reshape(-1, L).to(torch.int32)
+                            for x in out[:3])).reshape(out[5].shape)
+            for i, (sti, ring, ref_total_s) in enumerate(members):
+                keep, wb, ab, states, actions, lats, acc = (
+                    z[i] if stacked else z for z in (*out, accs))
+                # the normalizer advances at the batch boundary, as the
+                # host engines' observe_states does
+                observe_states_pure(sti, states.reshape(T * K, -1))
+                rewards = compute_reward_batch(reward_cfg, acc, lats,
+                                               ref_total_s)
 
-            def order(z):
-                return z.transpose(0, 1).reshape(T * K, *z.shape[2:])
+                def order(z):
+                    return z.transpose(0, 1).reshape(T * K, *z.shape[2:])
 
-            nxt = torch.cat([states[1:], states[-1:]])
-            done = states.new_zeros((T, K))
-            done[-1] = 1.0
-            device_replay_push(ring, order(states), order(actions),
-                               rewards[:, None].expand(K, T).reshape(-1),
-                               order(nxt), order(done))
-            if n > 0:
-                copy_state(st, update_chunk(cfg, st, ring, n,
-                                            indices=indices[e])[0])
-            # the first maximum; a 0-d index would read j on the host
-            r_j, j = torch.max(rewards, dim=0)
-            better = r_j > best_r
-            best_r = torch.where(better, r_j, best_r)
-            best_e = torch.where(better, e * K + j, best_e)
-            best_p = torch.where(better, torch.stack([keep, wb, ab], 1)
-                                 .index_select(0, j.reshape(1))[0], best_p)
-            ys.append((accs, lats, rewards, keep, wb, ab))
-        ys = tuple(torch.stack(z) for z in zip(*ys))
-        return ys, (best_r, best_e, best_p)
+                nxt = torch.cat([states[1:], states[-1:]])
+                done = states.new_zeros((T, K))
+                done[-1] = 1.0
+                device_replay_push(ring, order(states), order(actions),
+                                   rewards[:, None].expand(K, T).reshape(-1),
+                                   order(nxt), order(done))
+                if n > 0:
+                    idx = indices[e][i] if stacked else indices[e]
+                    copy_state(sti, update_chunk(cfg, sti, ring, n,
+                                                 indices=idx)[0])
+                # the first maximum; a 0-d index would read j on the host
+                best_r, best_e, best_p = best[i]
+                r_j, j = torch.max(rewards, dim=0)
+                better = r_j > best_r
+                best[i] = (torch.where(better, r_j, best_r),
+                           torch.where(better, e * K + j, best_e),
+                           torch.where(better, torch.stack([keep, wb, ab], 1)
+                                       .index_select(0, j.reshape(1))[0],
+                                       best_p))
+                ys[i].append((acc, lats, rewards, keep, wb, ab))
+        return [(tuple(torch.stack(z) for z in zip(*y)), b)
+                for y, b in zip(ys, best)]
 
     return epoch
+
+
+def _epoch_flat(results, members) -> torch.Tensor:
+    """An epoch's results as one flat f32 buffer, the epoch's one
+    readback: per member its metrics and policies, its norm statistics
+    and its best (``FusedCompressionSearch._finish_epoch`` reads one
+    member's segment)."""
+    flat = []
+    for (ys, best), (st, _, _) in zip(results, members):
+        flat += [z.reshape(-1).float() for z in ys]
+        flat += [st.norm_count.reshape(1), st.norm_mean, st.norm_var,
+                 best[0].reshape(1), best[1].reshape(1).float()]
+    return torch.cat(flat)
 
 
 _EPOCH_CACHE_MAX = 16
@@ -597,6 +663,71 @@ def _read(*tensors) -> list:
     return out
 
 
+def _draw_inputs(lead: tuple, T: int, K: int, A: int, device) -> dict:
+    """Static tensors for a batch's schedule and draws, with the leading
+    axes ``lead`` (an epoch's E, a population's P): sigmas and warmup
+    flags (*lead, K), uniforms (*lead, T, K, A), normals (*lead, T, K, 16,
+    A)."""
+    f32 = dict(dtype=torch.float32, device=device)
+    return {"sigmas": torch.empty((*lead, K), **f32),
+            "warmup": torch.empty((*lead, K), dtype=torch.bool,
+                                  device=device),
+            "uniforms": torch.empty((*lead, T, K, A), **f32),
+            "normals": torch.empty((*lead, T, K, 16, A), **f32)}
+
+
+def _rollout_graph(owner, m0, k: int, state, tables: tuple,
+                   P: Optional[int] = None):
+    """The rollout graph of ``k`` episodes a batch, cached on ``owner`` (an
+    engine, or a population of ``P`` engines like ``m0``): ``m0``'s
+    rollout function over ``state()`` (the agent state, or the stacked
+    one) and ``tables`` (``hwp``, shares, reference total), its static
+    draw tensors with a leading P for a population. Returns (graph,
+    static inputs)."""
+    hit = owner._rollouts.get(k)
+    if hit is None:
+        x = _draw_inputs(() if P is None else (P,), len(m0.steps), k,
+                         m0.agent.cfg.action_dim, owner.device)
+        keep0, wb0, ab0 = m0._ref_rows
+        fn = lambda: m0._rollout_fn(state(), keep0, wb0, ab0, x["sigmas"],
+                                    x["warmup"], *tables, x["uniforms"],
+                                    x["normals"])
+        hit = owner._rollouts[k] = (graphs.Graph(
+            "rollout", fn, owner.device, pool=owner._pool), x)
+    return hit
+
+
+def _epoch_graph(owner, m0, schedule: tuple, st, ring, members,
+                 tables: tuple, P: Optional[int] = None):
+    """The epoch graph of a schedule, FIFO-cached on ``owner`` (an engine,
+    or a population of ``P`` engines like ``m0``; steady-state epochs
+    share one schedule, hence one capture), keyed by the params object
+    too: new weights capture anew. ``st`` / ``ring``: what the epoch
+    updates in place (the engine's, or the stacked ones), ``members``:
+    ``make_epoch_fn``'s. Returns (params, graph, static inputs)."""
+    params = m0.cmodel.params
+
+    def make():
+        x = m0._epoch_inputs(schedule, P)
+        epoch = m0._make_epoch_fn(schedule)
+        keep0, wb0, ab0 = m0._ref_rows
+
+        def fn():
+            return _epoch_flat(epoch(
+                st, members, keep0, wb0, ab0, x["sigmas"], x["warmup"],
+                *tables, x["uniforms"], x["normals"], x["indices"]),
+                members)
+
+        g = graphs.Graph("epoch", fn, owner.device,
+                         writes=state_leaves(st) + list(ring),
+                         pool=owner._pool)
+        return params, g, x
+
+    return fifo_cached(owner._epoch_cache, _EPOCH_CACHE_MAX,
+                       (m0.batch_size, schedule, id(params)),
+                       lambda hit: hit[0] is params, make)
+
+
 class FusedCompressionSearch(BatchedCompressionSearch):
     """K episodes per rollout, the rollout one graph replay; with
     ``epoch_batches=E > 0``, E batches per replay (the module
@@ -609,7 +740,9 @@ class FusedCompressionSearch(BatchedCompressionSearch):
     as are the replay indices (``_fill_indices``), each bounded by the
     ring size the static schedule gives. The parity tests replace both
     with the JAX engine's draws. A per-batch engine and an epoch engine
-    of the same seed draw the same numbers in the same order.
+    of the same seed draw the same numbers in the same order. In a
+    population, each member fills its slice of the shared static
+    tensors from its own generators, in its solo order.
     """
 
     def __init__(self, cmodel, val_batch, search_cfg: SearchConfig,
@@ -626,7 +759,7 @@ class FusedCompressionSearch(BatchedCompressionSearch):
                                         device=device)
         self.tables = StateTables(self.specs, self.steps, self.sens,
                                   self.ref_lat)
-        static, shares, self._ref_total = self.tables.to(device)
+        static, self._shares, self._ref_total = self.tables.to(device)
         ref_pb = stack_policies(self.specs, [self.ref_policy])
         self._ref_rows = tuple(
             torch.as_tensor(x[0], dtype=torch.float32, device=device)
@@ -636,19 +769,21 @@ class FusedCompressionSearch(BatchedCompressionSearch):
         self._cols = method_cols(search_cfg.methods)
         self._rollout_fn = make_rollout_fn(
             self.agent.cfg, self.oracle, legal_tables(self.specs, device),
-            (static, shares), [int(t) for t in self.tables.spec_idx],
-            self._cols)
+            static, [int(t) for t in self.tables.spec_idx], self._cols)
         self._rollout_gen = torch.Generator(device=device).manual_seed(
             search_cfg.seed + 0x5EED)
-        self._pool = torch.cuda.graph_pool_handle() \
-            if device.type == "cuda" else None
-        self._rollouts: dict = {}      # K -> (graph, static inputs)
-        self._updates: dict = {}       # n -> (graph, indices)
-        self._epoch_cache: dict = {}   # (K, schedule, id(params)) -> ...
         self.dispatch_log: List[str] = []
         self.readbacks = 0
         self.epoch_batches = max(0, epoch_batches)
         self.last_epoch_best: Optional[tuple] = None
+        self._reset_graphs()
+
+    def _reset_graphs(self):
+        self._pool = torch.cuda.graph_pool_handle() \
+            if self.device.type == "cuda" else None
+        self._rollouts: dict = {}      # K -> (graph, static inputs)
+        self._updates: dict = {}       # n -> (graph, indices)
+        self._epoch_cache: dict = {}   # (K, schedule, id(params)) -> ...
 
     # ------------------------------------------------------------- draws
     def _fill_draws(self, uniforms: torch.Tensor, normals: torch.Tensor):
@@ -657,31 +792,14 @@ class FusedCompressionSearch(BatchedCompressionSearch):
         uniforms.uniform_(generator=self._rollout_gen)
         normals.normal_(generator=self._rollout_gen)
 
-    def _fill_indices(self, indices: torch.Tensor, size: int):
-        """One batch's replay indices, (n, batch_size), uniform over a
-        filled prefix of ``size`` (the host mirror or the schedule's)."""
-        indices.random_(0, max(size, 1), generator=self.agent.sample_gen)
-
-    def _rollout_inputs(self, k: int) -> dict:
-        T, A = len(self.steps), self.agent.cfg.action_dim
-        f32 = dict(dtype=torch.float32, device=self.device)
-        return {"sigmas": torch.empty((k,), **f32),
-                "warmup": torch.empty((k,), dtype=torch.bool,
-                                      device=self.device),
-                "uniforms": torch.empty((T, k, A), **f32),
-                "normals": torch.empty((T, k, 16, A), **f32)}
-
     def _rollout_graph(self, k: int):
-        hit = self._rollouts.get(k)
-        if hit is None:
-            x = self._rollout_inputs(k)
-            keep0, wb0, ab0 = self._ref_rows
-            fn = lambda: self._rollout_fn(
-                self.agent.state, keep0, wb0, ab0, x["sigmas"],
-                x["warmup"], self._ref_total, x["uniforms"], x["normals"])
-            hit = self._rollouts[k] = (graphs.Graph(
-                "rollout", fn, self.device, pool=self._pool), x)
-        return hit
+        return _rollout_graph(self, self, k, lambda: self.agent.state,
+                              self._tables())
+
+    def _tables(self) -> tuple:
+        """This engine's rollout inputs that a population stacks: its
+        target's rates, its (T, 2) shares, its reference total."""
+        return self.oracle.hwp, self._shares, self._ref_total
 
     def _set_schedule(self, sigmas, warmup, first_episode: int, k: int):
         """A batch's sigmas and warmup flags into their static tensors."""
@@ -692,16 +810,24 @@ class FusedCompressionSearch(BatchedCompressionSearch):
     # --------------------------------------------------------- per batch
     def run_episode_batch(self, first_episode: int,
                           k: int) -> List[EpisodeRecord]:
-        """The rollout as one replay, then the batch tail: the norm
-        advanced on the device (``observe_states_pure``, as the epoch
-        does, so the two modes agree), one read of the policies, states,
-        actions and norm statistics, the validation on host bits, the
-        reward on the device, the ring write and the update replay."""
+        """The rollout as one replay, then the batch tail
+        (``_finish_batch``)."""
         graph, x = self._rollout_graph(k)
         self._set_schedule(x["sigmas"], x["warmup"], first_episode, k)
         self._fill_draws(x["uniforms"], x["normals"])
-        keep, wb, ab, states, actions, lats = graph()
+        out = graph()
         self.dispatch_log.append("rollout")
+        return self._finish_batch(first_episode, k, out)
+
+    def _finish_batch(self, first_episode: int, k: int,
+                      out: tuple) -> List[EpisodeRecord]:
+        """Everything after a batch's rollout (``out``, the rollout's
+        outputs for this engine, its own or its slice of a population's):
+        the norm advanced on the device (``observe_states_pure``, as the
+        epoch does, so the two modes agree), one read of the policies,
+        states, actions and norm statistics, the validation on host bits,
+        the reward on the device, the ring write and the queued updates."""
+        keep, wb, ab, states, actions, lats = out
         st = self.agent.state
         observe_states_pure(st, states.reshape(-1, states.shape[-1]))
         keep, wb, ab, states, actions, count, mean, var = _read(
@@ -749,11 +875,12 @@ class FusedCompressionSearch(BatchedCompressionSearch):
     def _update_graph(self, n: int):
         hit = self._updates.get(n)
         if hit is None:
-            agent, data = self.agent, self.replay.data
+            agent = self.agent
             idx = torch.zeros((n, agent.cfg.batch_size), dtype=torch.int64,
                               device=self.device)
             fn = lambda: agent.adopt_state(update_chunk(
-                agent.cfg, agent.state, data, n, indices=idx)[0])
+                agent.cfg, agent.state, self.replay.data, n,
+                indices=idx)[0])
             hit = self._updates[n] = (graphs.Graph(
                 "update", fn, self.device, writes=state_leaves(agent.state),
                 pool=self._pool), idx)
@@ -785,18 +912,35 @@ class FusedCompressionSearch(BatchedCompressionSearch):
                         size))
         return out
 
-    def _epoch_inputs(self, schedule: tuple) -> dict:
-        E, K, T = len(schedule), self.batch_size, len(self.steps)
-        A, B = self.agent.cfg.action_dim, self.agent.cfg.batch_size
-        f32 = dict(dtype=torch.float32, device=self.device)
-        return {"sigmas": torch.empty((E, K), **f32),
-                "warmup": torch.empty((E, K), dtype=torch.bool,
-                                      device=self.device),
-                "uniforms": torch.empty((E, T, K, A), **f32),
-                "normals": torch.empty((E, T, K, 16, A), **f32),
-                "indices": [torch.zeros((n, B), dtype=torch.int64,
-                                        device=self.device) if n else None
-                            for n in schedule]}
+    def _epoch_inputs(self, schedule: tuple, P: Optional[int] = None) -> dict:
+        """Static tensors of an epoch: ``_draw_inputs`` with a leading E
+        (after the population's P) and the replay indices of each batch,
+        (n, batch_size) (P, n, batch_size), or None where n is 0."""
+        lead = (len(schedule),) if P is None else (P, len(schedule))
+        x = _draw_inputs(lead, len(self.steps), self.batch_size,
+                         self.agent.cfg.action_dim, self.device)
+        B, per = self.agent.cfg.batch_size, () if P is None else (P,)
+        x["indices"] = [torch.zeros((*per, n, B), dtype=torch.int64,
+                                    device=self.device) if n else None
+                        for n in schedule]
+        return x
+
+    def _fill_epoch(self, x: dict, first_episode: int, sizes: list):
+        """An epoch's schedule, draws and replay indices into this
+        engine's static tensors (``x``: its own, or its slices of a
+        population's), batch by batch in the per-batch engine's order."""
+        K = self.batch_size
+        for e, (n, size) in enumerate(sizes):
+            self._set_schedule(x["sigmas"][e], x["warmup"][e],
+                               first_episode + e * K, K)
+            self._fill_draws(x["uniforms"][e], x["normals"][e])
+            if n:
+                self._fill_indices(x["indices"][e], size)
+
+    def _epoch_member(self) -> tuple:
+        """What the epoch updates and reads of this engine: (agent state,
+        ring data, 0-d reference total seconds)."""
+        return self.agent.state, self.replay.data, self._ref_total_s
 
     def _make_epoch_fn(self, schedule: tuple):
         return make_epoch_fn(
@@ -805,37 +949,9 @@ class FusedCompressionSearch(BatchedCompressionSearch):
             len(self.steps), self.batch_size, schedule)
 
     def _epoch_graph(self, schedule: tuple):
-        """The epoch graph of a schedule, FIFO-cached (steady-state epochs
-        share one schedule, hence one capture), keyed by the params
-        object too: new weights capture anew."""
-        params = self.cmodel.params
-
-        def make():
-            x = self._epoch_inputs(schedule)
-            epoch = self._make_epoch_fn(schedule)
-            keep0, wb0, ab0 = self._ref_rows
-            st, ring = self.agent.state, self.replay.data
-
-            def fn():
-                ys, best = epoch(st, ring, keep0, wb0, ab0, x["sigmas"],
-                                 x["warmup"], self._ref_total,
-                                 self._ref_total_s, x["uniforms"],
-                                 x["normals"], x["indices"])
-                # one flat f32 buffer: the epoch's one readback
-                flat = [z.reshape(-1).float() for z in ys]
-                flat += [st.norm_count.reshape(1), st.norm_mean,
-                         st.norm_var, best[0].reshape(1),
-                         best[1].reshape(1).float()]
-                return torch.cat(flat)
-
-            g = graphs.Graph("epoch", fn, self.device,
-                             writes=state_leaves(st) + list(ring),
-                             pool=self._pool)
-            return params, g, x
-
-        return fifo_cached(self._epoch_cache, _EPOCH_CACHE_MAX,
-                           (self.batch_size, schedule, id(params)),
-                           lambda hit: hit[0] is params, make)
+        return _epoch_graph(self, self, schedule, self.agent.state,
+                            self.replay.data, [self._epoch_member()],
+                            self._tables())
 
     def run_epoch(self, first_episode: int,
                   n_batches: int) -> List[EpisodeRecord]:
@@ -846,25 +962,24 @@ class FusedCompressionSearch(BatchedCompressionSearch):
             return []
         self._flush_updates()           # epoch budgets are computed fresh
         sizes = self._schedule_sizes(first_episode, n_batches)
-        schedule = tuple(n for n, _ in sizes)
-        _, graph, x = self._epoch_graph(schedule)
-        K = self.batch_size
-        for e in range(n_batches):
-            self._set_schedule(x["sigmas"][e], x["warmup"][e],
-                               first_episode + e * K, K)
-            self._fill_draws(x["uniforms"][e], x["normals"][e])
-            if schedule[e]:
-                self._fill_indices(x["indices"][e], sizes[e][1])
+        _, graph, x = self._epoch_graph(tuple(n for n, _ in sizes))
+        self._fill_epoch(x, first_episode, sizes)
         flat = graph()
         self.dispatch_log.append("epoch")
         host = flat.cpu().numpy()
         self.readbacks += 1
         return self._finish_epoch(first_episode, n_batches, host)
 
+    def _epoch_flat_size(self, n_batches: int) -> int:
+        """Floats of this engine's segment of an epoch's readback."""
+        EK, L = n_batches * self.batch_size, len(self.specs)
+        return 3 * EK + 3 * EK * L + 3 + 2 * self.agent.cfg.state_dim
+
     def _finish_epoch(self, first_episode: int, n_batches: int,
                       host: np.ndarray) -> List[EpisodeRecord]:
         """Advance the ring's host mirrors, take the norm statistics, and
-        build the records from the epoch's readback."""
+        build the records from the epoch's readback (this engine's
+        segment)."""
         cfg = self.cfg
         E, K, T = n_batches, self.batch_size, len(self.steps)
         L, S = len(self.specs), self.agent.cfg.state_dim
@@ -916,3 +1031,290 @@ class FusedCompressionSearch(BatchedCompressionSearch):
                     first_episode + nb * self.batch_size, rem)
             return recs
         return self.run_episode_batch(first_episode, k)
+
+
+# ===========================================================================
+# Population: P member searches sharing their dispatches
+# ===========================================================================
+
+class PopulationSearch:
+    """P member searches whose agents share every update dispatch.
+
+    The paper's workload shape: the p/q/pq agents, and for hardware-
+    specific policies one member per target, search side by side. At
+    construction the population moves its members' agent states and
+    replay rings into stacked (P, ·) tensors (``_stack_for_dispatch``)
+    and rebinds each member's leaves to views of its slice, so the
+    population's graphs and a member's own graphs read the same memory
+    and nothing is copied per dispatch (a member's graphs captured
+    before are dropped).
+
+    Members roll out on their own (each already batched over K episodes)
+    and queue their update budgets; when the budgets agree the
+    population runs them as ONE megabatched update
+    (``ddpg.population_update_chunk``: every product batched over the
+    members, the fused Adam + Polyak kernel), one graph replay per update
+    count, each member's replay indices drawn from its own generator in
+    its solo order; budgets that diverge fall back to per-member
+    flushes. Members must share one ``DDPGConfig`` (pad ``action_dim``
+    to the population's maximum for mixed methods), one chunk size and
+    one device.
+
+    With ``fuse_rollouts=True``, ``FusedCompressionSearch`` members over
+    the same specs / sensitivity table / context / window / methods /
+    MXU alignment / calibration (the multi-target scenario, or several
+    seeds) also share the rollout: one replay of the rollout over their
+    stacked states, each member's hardware rates, latency shares and
+    reference total as inputs (``make_rollout_fn``). Members that also
+    share the model, the validation batch and the reward config, all in
+    epoch mode, share whole epochs: one replay and one readback for all
+    members per epoch, the validation of the P·K policies one forward
+    (K1's device-bits entry once per site), each member's updates solo
+    ``update_chunk``s inside it (K2, K3), as the JAX package's
+    ``vmap(update_step)`` runs them. Incompatible members silently keep
+    their own (still fused) dispatches. Every member logs each shared
+    dispatch in its ``dispatch_log``; ``readbacks`` counts the shared
+    epochs' device-to-host reads.
+    """
+
+    def __init__(self, members: Sequence[CompressionSearch],
+                 fuse_rollouts: bool = False):
+        if not members:
+            raise ValueError("PopulationSearch needs at least one member")
+        self.members = list(members)
+        cfg0 = self.members[0].agent.cfg
+        for m in self.members[1:]:
+            if m.agent.cfg != cfg0:
+                raise ValueError(
+                    "population members must share a DDPGConfig (pad "
+                    f"action_dim): {m.agent.cfg} != {cfg0}")
+        if len({m._chunk_size() for m in self.members}) != 1:
+            raise ValueError("population members must share a chunk size")
+        devices = {m.agent.device for m in self.members}
+        if len(devices) != 1:
+            raise ValueError(f"population members must share one device, "
+                             f"got {sorted(map(str, devices))}")
+        self.device = devices.pop()
+        self.fuse_rollouts = fuse_rollouts
+        self.readbacks = 0
+        self._fusable = None
+        self._epoch_fusable = None
+        self._pool = torch.cuda.graph_pool_handle() \
+            if self.device.type == "cuda" else None
+        self._rollouts: dict = {}      # k -> (graph, static inputs)
+        self._updates: dict = {}       # n -> (graph, indices)
+        self._epoch_cache: dict = {}   # (K, schedule, id(params)) -> ...
+        self._stacked_tables = None
+        self.state = self._stack_for_dispatch(
+            [m.agent.state for m in self.members])
+        self.ring = self._stack_for_dispatch(
+            [m.replay.data for m in self.members])
+        for i, m in enumerate(self.members):
+            m.agent.state = index_state(self.state, i)
+            m.replay.rebind(index_state(self.ring, i))
+            if isinstance(m, FusedCompressionSearch):
+                m._reset_graphs()      # their addresses are the old ones
+
+    def _stack_for_dispatch(self, trees):
+        """Stack per-member trees (agent states, rings, per-target
+        tensors) along a new leading member axis, in new memory that the
+        shared dispatches read. ``FleetSearch`` (a later slice) overrides
+        it to place the members across devices."""
+        return stack_states(trees)
+
+    # ----------------------------------------------------------- fusion
+    def _rollouts_fusable(self) -> bool:
+        """One shared rollout needs one rollout function: the same spec
+        list (identity: the oracle, legality and static tables are its
+        constants), sensitivity table, context, window, methods (the step
+        lists coincide), MXU alignment and calibration. Hardware rates
+        and latency shares are inputs, so targets may differ."""
+        if self._fusable is None:
+            ms = self.members
+            m0 = ms[0]
+            self._fusable = all(isinstance(m, FusedCompressionSearch)
+                                for m in ms) and \
+                all(m.specs is m0.specs and m.sens is m0.sens
+                    and m.ctx == m0.ctx
+                    and m.cfg.window == m0.cfg.window
+                    and m.cfg.methods == m0.cfg.methods
+                    and m.hw.mxu_align == m0.hw.mxu_align
+                    and m.calib is m0.calib
+                    for m in ms[1:])
+        return self._fusable
+
+    def _epochs_fusable(self) -> bool:
+        """A shared epoch also runs one validator and one reward: members
+        must share the compressible model, the validation batch and the
+        reward config (the per-target reference latency stays an input)
+        and all run in epoch mode."""
+        if self._epoch_fusable is None:
+            ms = self.members
+            m0 = ms[0]
+            self._epoch_fusable = self._rollouts_fusable() and \
+                all(getattr(m, "epoch_batches", 0) > 0 for m in ms) and \
+                all(m.cmodel is m0.cmodel
+                    and m.val_batch is m0.val_batch
+                    and m.cfg.reward == m0.cfg.reward for m in ms[1:])
+        return self._epoch_fusable
+
+    def _member_tables(self) -> tuple:
+        """The members' rollout inputs that differ by target (each
+        engine's ``_tables``), stacked once: ``hwp`` with (P, 1, 1)
+        fields, shares (P, T, 2), reference totals (P, 1)."""
+        if self._stacked_tables is None:
+            ms = self.members
+            shares, ref_total = self._stack_for_dispatch(
+                [list(m._tables()[1:]) for m in ms])
+            self._stacked_tables = (
+                stack_hw_params([m._tables()[0] for m in ms]), shares,
+                ref_total.reshape(-1, 1))
+        return self._stacked_tables
+
+    def _run_fused_chunk(self, first_episode: int,
+                         k: int) -> List[List[EpisodeRecord]]:
+        """All members' rollouts as ONE replay, then each member's
+        validation / ring write / records tail (``_finish_batch``)."""
+        graph, x = self._rollout_graph(k)
+        for i, m in enumerate(self.members):
+            m._set_schedule(x["sigmas"][i], x["warmup"][i], first_episode,
+                            k)
+            m._fill_draws(x["uniforms"][i], x["normals"][i])
+        outs = graph()
+        for m in self.members:          # one shared dispatch, logged on each
+            m.dispatch_log.append("rollout")
+        return [m._finish_batch(first_episode, k, tuple(z[i] for z in outs))
+                for i, m in enumerate(self.members)]
+
+    def _rollout_graph(self, k: int):
+        return _rollout_graph(self, self.members[0], k, lambda: self.state,
+                              self._member_tables(), P=len(self.members))
+
+    # ------------------------------------------------------- epoch mode
+    def _epoch_graph(self, schedule: tuple):
+        return _epoch_graph(self, self.members[0], schedule, self.state,
+                            self.ring,
+                            [m._epoch_member() for m in self.members],
+                            self._member_tables(), P=len(self.members))
+
+    def run_epoch(self, first_episode: int,
+                  n_batches: int) -> List[List[EpisodeRecord]]:
+        """All members' epochs — E batches x P members of rollout,
+        validation, reward, ring write and updates — as ONE replay and ONE
+        readback. Members whose update schedules diverge (they ran
+        different histories) fall back to their own epoch replays."""
+        if n_batches <= 0:
+            return [[] for _ in self.members]
+        for m in self.members:
+            m._flush_updates()
+        sizes = [m._schedule_sizes(first_episode, n_batches)
+                 for m in self.members]
+        scheds = {tuple(n for n, _ in s) for s in sizes}
+        if len(scheds) != 1 or not self._epochs_fusable():
+            return [m.run_epoch(first_episode, n_batches)
+                    for m in self.members]
+        _, graph, x = self._epoch_graph(scheds.pop())
+        for i, (m, s) in enumerate(zip(self.members, sizes)):
+            m._fill_epoch({key: [ix[i] if ix is not None else None
+                                 for ix in v] if key == "indices" else v[i]
+                           for key, v in x.items()}, first_episode, s)
+        host = graph().cpu().numpy()
+        self.readbacks += 1
+        out, o = [], 0
+        for m in self.members:          # one shared dispatch, logged on each
+            m.dispatch_log.append("epoch")
+            n = m._epoch_flat_size(n_batches)
+            out.append(m._finish_epoch(first_episode, n_batches,
+                                       host[o:o + n]))
+            o += n
+        return out
+
+    def _run_epoch_chunk(self, first_episode: int,
+                         k: int) -> List[List[EpisodeRecord]]:
+        K = self.members[0].batch_size
+        nb, rem = divmod(k, K)
+        chunks = self.run_epoch(first_episode, nb) if nb \
+            else [[] for _ in self.members]
+        if rem:           # trailing partial batch: the per-batch fused path
+            tail = self._run_fused_chunk(first_episode + nb * K, rem)
+            chunks = [c + t for c, t in zip(chunks, tail)]
+        return chunks
+
+    def run(self, episodes: Optional[int] = None,
+            verbose: bool = False) -> List[SearchResult]:
+        """Run all members for the same episode count; returns one
+        ``SearchResult`` per member, aligned with ``self.members``."""
+        n = episodes or min(m.cfg.episodes for m in self.members)
+        histories = [[] for _ in self.members]
+        bests = [None for _ in self.members]
+        saved = [m._defer_updates for m in self.members]
+        try:
+            for m in self.members:
+                m._defer_updates = True
+            e = 0
+            while e < n:
+                k = min(self.members[0]._chunk_size(), n - e)
+                if self.fuse_rollouts and self._epochs_fusable():
+                    chunks = self._run_epoch_chunk(e, k)
+                elif self.fuse_rollouts and self._rollouts_fusable() \
+                        and k <= self.members[0].batch_size:
+                    chunks = self._run_fused_chunk(e, k)
+                else:
+                    # epoch members whose epochs can't be shared keep
+                    # their own per-member epoch decomposition
+                    chunks = [m._run_chunk(e, k) for m in self.members]
+                for i, recs in enumerate(chunks):
+                    for rec in recs:
+                        histories[i].append(rec)
+                        if bests[i] is None or rec.reward > bests[i].reward:
+                            bests[i] = rec
+                self._dispatch_updates()
+                if verbose:
+                    row = " ".join(
+                        f"{m.cfg.methods}:{histories[i][-1].reward:+.3f}"
+                        for i, m in enumerate(self.members))
+                    print(f"  ep {e + k - 1:4d} rewards [{row}]")
+                e += k
+        finally:
+            for m, flag in zip(self.members, saved):
+                m._defer_updates = flag
+        return [SearchResult(history=histories[i], best=bests[i],
+                             ref_latency_s=m.ref_lat.total_s,
+                             ref_accuracy=m.ref_acc)
+                for i, m in enumerate(self.members)]
+
+    # ---------------------------------------------------------- updates
+    def _update_graph(self, n: int):
+        hit = self._updates.get(n)
+        if hit is None:
+            cfg = self.members[0].agent.cfg
+            idx = torch.zeros((len(self.members), n, cfg.batch_size),
+                              dtype=torch.int64, device=self.device)
+            fn = lambda: population_update_chunk(cfg, self.state, self.ring,
+                                                 n, idx)
+            hit = self._updates[n] = (graphs.Graph(
+                "update", fn, self.device, writes=state_leaves(self.state),
+                pool=self._pool), idx)
+        return hit
+
+    def _dispatch_updates(self):
+        """One megabatched update replay for the whole population when the
+        members' budgets agree and every ring holds a DDPG batch;
+        per-member flushes otherwise."""
+        ns = [m._pending_updates for m in self.members]
+        ready = all(len(m.replay) >= m.agent.cfg.batch_size
+                    for m in self.members)
+        if len(set(ns)) == 1 and ns[0] > 0 and ready:
+            graph, idx = self._update_graph(ns[0])
+            for i, m in enumerate(self.members):
+                m.agent.state_for_dispatch()
+                m._fill_indices(idx[i], m.replay.size)
+            graph()
+            for m in self.members:
+                m._pending_updates = 0
+                m.agent._actor_host = None
+                if isinstance(m, FusedCompressionSearch):
+                    m.dispatch_log.append("update")   # shared dispatch
+        else:
+            for m in self.members:
+                m._flush_updates()

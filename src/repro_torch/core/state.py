@@ -111,12 +111,15 @@ class StateTables:
 def fused_state_block(static_row, shares_row, decided, prev_actions):
     """One rollout step's (K, state_dim) block: the device twin of
     ``build_state_batch`` given ``StateTables`` rows and the decided-
-    latency share of each of the K partial policies."""
-    K = prev_actions.shape[0]
-    static = static_row.expand(K, static_row.shape[0])
-    tail = torch.stack([shares_row[0].expand(K), decided,
-                        shares_row[1].expand(K)], dim=1)
-    return torch.cat([static, prev_actions, tail], dim=1)
+    latency share of each of the K partial policies. A population's step
+    is the (P, K, state_dim) block of P members: ``shares_row`` (P, 2),
+    one row per member (its own reference latency), ``decided`` (P, K)
+    and ``prev_actions`` (P, K, A); the static row is shared."""
+    lead = prev_actions.shape[:-1]
+    static = static_row.expand(*lead, static_row.shape[-1])
+    tail = torch.stack([shares_row[..., 0, None].expand(lead), decided,
+                        shares_row[..., 1, None].expand(lead)], dim=-1)
+    return torch.cat([static, prev_actions, tail], dim=-1)
 
 
 _static_cache: dict = {}

@@ -25,7 +25,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = ("fake_quant", "mlp3", "polyak", "quant_matmul",
+SOURCES = ("fake_quant", "mlp3", "polyak", "adam_polyak", "quant_matmul",
            "flash_attention", "ssd_scan", "rglru_scan")
 
 _P = ctypes.c_void_p
@@ -40,7 +40,11 @@ _SIGNATURES = {
                    "fake_quant_slots_dev_launch":
                    [_P, _P, _P, ctypes.c_longlong, ctypes.c_longlong]
                    + [_I] * 3 + [_P] + [_I] * 6 + [_P]},
-    "mlp3": {"mlp3_launch": [_P] * 10 + [_I] * 8 + [_P]},
+    "mlp3": {"mlp3_launch": [_P] * 10 + [_I] * 8 + [_P],
+             "mlp3_members_launch": [_P] * 10 + [_I] * 9 + [_P]},
+    "adam_polyak": {"adam_polyak_launch":
+                    [ctypes.POINTER(ctypes.c_longlong)] * 6 + [_I, _I, _P]
+                    + [ctypes.c_float] * 8 + [_P]},
     "polyak": {"polyak_launch":
                [ctypes.POINTER(ctypes.c_longlong)] * 4
                + [_I, ctypes.c_float, ctypes.c_float, _P]},
@@ -70,10 +74,14 @@ _SIGNATURES = {
 # "quant_matmul_int8" / "_int4" count every K4 / K5 launch and
 # "quant_matmul_tc" those of either on its tensor-core route.
 # "polyak" counts K3 launches, each over all the leaves it is given.
+# "mlp3_members" counts K2's member form (P networks a launch), apart from
+# "mlp3"; "adam_polyak" the fused Adam + Polyak pass (one network's
+# stacked leaves a launch).
 # "fake_quant_slots" counts K1's launches over K policy slots, apart from
 # "fake_quant" (one tensor).
 LAUNCHES = {"fake_quant": 0, "fake_quant_slots": 0,
-            "fake_quant_slots_dev": 0, "mlp3": 0, "polyak": 0,
+            "fake_quant_slots_dev": 0, "mlp3": 0, "mlp3_members": 0,
+            "polyak": 0, "adam_polyak": 0,
             "quant_matmul_int8": 0, "quant_matmul_int4": 0,
             "quant_matmul_tc": 0, "flash_attention": 0,
             "flash_attention_tc": 0, "ssd_scan": 0, "ssd_scan_tc": 0,

@@ -8,6 +8,16 @@
 // all f32 and contiguous.  On the search's path: actor 33 -> 400 -> 300 -> 3
 // (sigmoid), critic 36 -> 400 -> 300 -> 1 (linear), B = the DDPG batch.
 //
+// Member form (mlp3_members_launch): P networks in one launch, every
+// operand with a leading member axis (x [P, B, D0], Wi [P, D(i-1), Di],
+// bi [P, Di], outputs [P, B, .]), what the JAX package's vmap over a
+// population makes of the TPU kernel in the population's rollout.  The
+// grid gains a y axis over the members; a block of member p offsets every
+// pointer to member p's slices and then runs exactly the arithmetic of a
+// one-network launch on them (the same column split, summation order and
+// cluster), so each member's outputs are bit-equal to a launch of its own.
+// The one-network launch is the case P = 1.
+//
 // Bound on the H100 at B = 64: operations.  The ~17 MFLOP take 0.26 us at
 // the 67 TFLOP/s f32 (non-tensor-core) peak, the ~0.54 MB of weights
 // 0.16 us at 3.35 TB/s; a launch with three cluster barriers cannot come
@@ -204,6 +214,18 @@ mlp3_kernel(const float* __restrict__ x, const float* __restrict__ w1,
             float* __restrict__ h1, float* __restrict__ h2, int B, int D0,
             int D1, int D2, int D3, int n1, int n2, int sigmoid) {
     extern __shared__ __align__(16) float smem[];
+    // member blockIdx.y's slices (0 for a one-network launch)
+    const long long pm = blockIdx.y;
+    x += pm * B * D0;
+    w1 += pm * D0 * D1;
+    b1 += pm * D1;
+    w2 += pm * D1 * D2;
+    b2 += pm * D2;
+    w3 += pm * D2 * D3;
+    b3 += pm * D3;
+    y += pm * B * D3;
+    h1 += pm * B * D1;
+    h2 += pm * B * D2;
     cg::cluster_group cluster = cg::this_cluster();
     const int rank = (int)cluster.block_rank();
     const Layout L(D0, D1, D3, n1, n2);
@@ -290,20 +312,23 @@ mlp3_kernel(const float* __restrict__ x, const float* __restrict__ w1,
 }
 
 // n1, n2: each CTA's columns of h1 and h2 (kernels/mlp_fused.py::
-// mlp3_plan).
-extern "C" int mlp3_launch(const float* x, const float* w1, const float* b1,
-                           const float* w2, const float* b2, const float* w3,
-                           const float* b3, float* y, float* h1, float* h2,
-                           int B, int D0, int D1, int D2, int D3,
-                           int sigmoid, int n1, int n2, void* stream) {
+// mlp3_plan); P: the members (1 for one network), the grid's y extent.
+static int mlp3_launch_members(const float* x, const float* w1,
+                               const float* b1, const float* w2,
+                               const float* b2, const float* w3,
+                               const float* b3, float* y, float* h1,
+                               float* h2, int B, int D0, int D1, int D2,
+                               int D3, int sigmoid, int n1, int n2, int P,
+                               void* stream) {
     // Above 48 KB of dynamic shared memory a kernel must opt in; the
     // opt-in and the check that the cluster can be scheduled are kept for
     // the largest size asked so far.  Past the 227 KB a CTA may hold the
     // opt-in fails, and its error is returned.
     static size_t smem_ready = 0;
+    if (P < 1 || P > 65535) return (int)cudaErrorInvalidValue;
     const size_t smem = sizeof(float) * Layout(D0, D1, D3, n1, n2).total;
     cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(MLP_CLUSTER * ((B + MLP_BM - 1) / MLP_BM));
+    cfg.gridDim = dim3(MLP_CLUSTER * ((B + MLP_BM - 1) / MLP_BM), P);
     cfg.blockDim = dim3(MLP_THREADS);
     cfg.dynamicSmemBytes = smem;
     cfg.stream = (cudaStream_t)stream;
@@ -334,4 +359,24 @@ extern "C" int mlp3_launch(const float* x, const float* w1, const float* b1,
                                          w2, b2, w3, b3, y, h1, h2, B, D0,
                                          D1, D2, D3, n1, n2, sigmoid);
     return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+extern "C" int mlp3_launch(const float* x, const float* w1, const float* b1,
+                           const float* w2, const float* b2, const float* w3,
+                           const float* b3, float* y, float* h1, float* h2,
+                           int B, int D0, int D1, int D2, int D3,
+                           int sigmoid, int n1, int n2, void* stream) {
+    return mlp3_launch_members(x, w1, b1, w2, b2, w3, b3, y, h1, h2, B, D0,
+                               D1, D2, D3, sigmoid, n1, n2, 1, stream);
+}
+
+extern "C" int mlp3_members_launch(const float* x, const float* w1,
+                                   const float* b1, const float* w2,
+                                   const float* b2, const float* w3,
+                                   const float* b3, float* y, float* h1,
+                                   float* h2, int B, int D0, int D1, int D2,
+                                   int D3, int sigmoid, int n1, int n2,
+                                   int P, void* stream) {
+    return mlp3_launch_members(x, w1, b1, w2, b2, w3, b3, y, h1, h2, B, D0,
+                               D1, D2, D3, sigmoid, n1, n2, P, stream);
 }

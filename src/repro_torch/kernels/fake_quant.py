@@ -109,8 +109,10 @@ def fake_quant_slots(x: torch.Tensor, bits, ste: bool = False
     tensor, a weight, shared by every slot: its range is reduced once.
     Rows need unit channel stride (a row-sliced view is read in place).
     One launch of the grid ``plan(R, C, itemsize, K)`` per call,
-    whatever the bits. A CPU tensor takes the plain version; a CUDA
-    tensor launches the kernel or raises."""
+    whatever the bits, for up to ``MAX_SLOTS`` slots; more slots are cut
+    into launches of at most ``MAX_SLOTS`` each (``launches``). A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel or
+    raises."""
     bits = tuple(int(b) for b in bits)
     K = len(bits)
     if x.dim() != 3 or x.shape[0] != K:
@@ -118,8 +120,6 @@ def fake_quant_slots(x: torch.Tensor, bits, ste: bool = False
                          f"{tuple(x.shape)}")
     if x.device.type == "cpu":
         return fake_quant_slots_ref(x, bits, ste)
-    if K > MAX_SLOTS:
-        raise ValueError(f"{K} slots: K1 takes at most {MAX_SLOTS} a launch")
     if x.dtype not in DTYPES:
         raise TypeError(f"x: expected float32, bfloat16 or float16, got "
                         f"{x.dtype}")
@@ -131,6 +131,22 @@ def fake_quant_slots(x: torch.Tensor, bits, ste: bool = False
     out = torch.empty((K, R, C), dtype=x.dtype, device=x.device)
     if x.numel() == 0:
         return out
+    for k0, k1 in launches(K):
+        _slots_launch(x[k0:k1], out[k0:k1], bits[k0:k1], ste)
+    return out
+
+
+def launches(K: int) -> list:
+    """The (first, end) slots of each K1 launch over K policy slots: one
+    launch for up to ``MAX_SLOTS``, else runs of ``MAX_SLOTS`` and the
+    rest (a population's validation of P·K policies)."""
+    return [(k, min(K, k + MAX_SLOTS)) for k in range(0, K, MAX_SLOTS)]
+
+
+def _slots_launch(x, out, bits: tuple, ste: bool) -> None:
+    """One launch of ``fake_quant_slots`` over at most ``MAX_SLOTS`` slots
+    of x into ``out`` (contiguous)."""
+    K, R, C = x.shape
     sld = x.stride(0) if K > 1 else 0
     p = plan(R, C, x.element_size(), K)
     part = torch.empty(
@@ -145,7 +161,6 @@ def fake_quant_slots(x: torch.Tensor, bits, ste: bool = False
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "fake_quant_slots")
     build.LAUNCHES["fake_quant_slots"] += 1
-    return out
 
 
 def fake_quant_slots_dev(x: torch.Tensor, bits: torch.Tensor,
@@ -155,9 +170,10 @@ def fake_quant_slots_dev(x: torch.Tensor, bits: torch.Tensor,
     values, so the call can sit in a captured CUDA graph whose policies
     never leave the card. The grid is ``plan(R, C, itemsize, K)``'s, as
     for host bits; the scratch is sized for every slot quantizing; a
-    slot at >= 32 bits is copied by the kernel. Bit-equal to
-    ``fake_quant_slots`` at the same bits. A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel or raises."""
+    slot at >= 32 bits is copied by the kernel; more than ``MAX_SLOTS``
+    slots are cut into launches as ``fake_quant_slots`` cuts them. Bit-
+    equal to ``fake_quant_slots`` at the same bits. A CPU tensor takes the
+    plain version; a CUDA tensor launches the kernel or raises."""
     K = bits.shape[0] if bits.dim() == 1 else -1
     if x.dim() != 3 or x.shape[0] != K:
         raise ValueError(f"x: expected [K, R, C] and bits [K], got "
@@ -180,16 +196,20 @@ def fake_quant_slots_dev(x: torch.Tensor, bits: torch.Tensor,
     out = torch.empty((K, R, C), dtype=x.dtype, device=x.device)
     if x.numel() == 0:
         return out
-    sld = x.stride(0) if K > 1 else 0
-    p = plan(R, C, x.element_size(), K)
-    part = torch.empty(0 if p.fused else (K if sld else 1) * 2 * p.n_slabs
-                       * C, dtype=torch.float32, device=x.device)
-    err = build.lib("fake_quant").fake_quant_slots_dev_launch(
-        x.data_ptr(), out.data_ptr(), part.data_ptr() or None,
-        x.stride(1) if R > 1 else C, sld, K, R, C, bits.data_ptr(),
-        DTYPES[x.dtype], int(ste), p.n_slabs, p.slab_rows,
-        int(vector_ok(x)), int(p.fused),
-        torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(err, "fake_quant_slots_dev")
-    build.LAUNCHES["fake_quant_slots_dev"] += 1
+    for k0, k1 in launches(K):
+        xs, os_ = x[k0:k1], out[k0:k1]
+        n = k1 - k0
+        sld = xs.stride(0) if n > 1 else 0
+        p = plan(R, C, x.element_size(), n)
+        part = torch.empty(0 if p.fused else (n if sld else 1) * 2
+                           * p.n_slabs * C, dtype=torch.float32,
+                           device=x.device)
+        err = build.lib("fake_quant").fake_quant_slots_dev_launch(
+            xs.data_ptr(), os_.data_ptr(), part.data_ptr() or None,
+            x.stride(1) if R > 1 else C, sld, n, R, C,
+            bits[k0:k1].data_ptr(), DTYPES[x.dtype], int(ste), p.n_slabs,
+            p.slab_rows, int(vector_ok(xs)), int(p.fused),
+            torch.cuda.current_stream(x.device).cuda_stream)
+        build.check(err, "fake_quant_slots_dev")
+        build.LAUNCHES["fake_quant_slots_dev"] += 1
     return out

@@ -1,7 +1,8 @@
-"""K2 and K3 wrappers: the fused 3-layer MLP forward (``csrc/mlp3.cu``)
-and the Polyak update over a list of leaves (``csrc/polyak.cu``), which
-replace the JAX package's ``kernels/mlp_fused.py::_mlp3_kernel`` and
-``_polyak_kernel``."""
+"""K2 and K3 wrappers: the fused 3-layer MLP forward (``csrc/mlp3.cu``),
+also over P member networks in one launch (``mlp3_members``: the JAX
+package's vmapped kernel in a population's rollout), and the Polyak
+update over a list of leaves (``csrc/polyak.cu``), which replace the JAX
+package's ``kernels/mlp_fused.py::_mlp3_kernel`` and ``_polyak_kernel``."""
 from __future__ import annotations
 
 import ctypes
@@ -9,7 +10,7 @@ import ctypes
 import torch
 
 from . import build
-from .ref import mlp3_ref, polyak_ref
+from .ref import mlp3_members_ref, mlp3_ref, polyak_ref
 
 MAX_LEAVES = 32     # the kernel's table of leaves (POLYAK_MAX_LEAVES)
 CLUSTER = 8         # K2's CTAs per thread-block cluster (MLP_CLUSTER)
@@ -58,6 +59,41 @@ def mlp3(x, w1, b1, w2, b2, w3, b3, *, sigmoid: bool = False):
     build.check(err, f"mlp3 with widths {(D0, D1, D2)} (shared memory "
                 f"is capped at 227 KB per block)")
     build.LAUNCHES["mlp3"] += 1
+    return y, h1, h2
+
+
+def mlp3_members(x, w1, b1, w2, b2, w3, b3, *, sigmoid: bool = False):
+    """K2's member form: x [P, B, D0]; wi [P, D(i-1), Di]; bi [P, Di], all
+    contiguous. Returns ``(y, h1, h2)``, each [P, B, ·]: member p's rows
+    are what ``mlp3`` gives on member p's slices, bit for bit on the card
+    (one launch for all P). A CPU tensor takes the plain version; a CUDA
+    tensor launches the kernel or raises."""
+    if x.device.type == "cpu":
+        return mlp3_members_ref(x, w1, b1, w2, b2, w3, b3, sigmoid)
+    P, B, D0 = x.shape
+    D1, D2, D3 = w1.shape[2], w2.shape[2], w3.shape[2]
+    for t, name, shape in ((x, "x", (P, B, D0)), (w1, "w1", (P, D0, D1)),
+                           (b1, "b1", (P, D1)), (w2, "w2", (P, D1, D2)),
+                           (b2, "b2", (P, D2)), (w3, "w3", (P, D2, D3)),
+                           (b3, "b3", (P, D3))):
+        build.check_operand(t, name, len(shape))
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected {shape}, got "
+                             f"{tuple(t.shape)}")
+    y = torch.empty((P, B, D3), device=x.device, dtype=x.dtype)
+    h1 = torch.empty((P, B, D1), device=x.device, dtype=x.dtype)
+    h2 = torch.empty((P, B, D2), device=x.device, dtype=x.dtype)
+    if B == 0 or P == 0:
+        return y, h1, h2
+    n1, n2 = mlp3_plan(D1, D2)
+    err = build.lib("mlp3").mlp3_members_launch(
+        x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+        b2.data_ptr(), w3.data_ptr(), b3.data_ptr(), y.data_ptr(),
+        h1.data_ptr(), h2.data_ptr(), B, D0, D1, D2, D3, int(sigmoid),
+        n1, n2, P, torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, f"mlp3_members with widths {(D0, D1, D2)} over {P} "
+                f"members (shared memory is capped at 227 KB per block)")
+    build.LAUNCHES["mlp3_members"] += 1
     return y, h1, h2
 
 

@@ -143,6 +143,17 @@ def fused_mlp3(params, x: torch.Tensor, final: str = "linear"):
                        l3["w"], l3["b"], final == "sigmoid")
 
 
+def fused_mlp3_members(params, x: torch.Tensor, final: str = "linear"):
+    """The trunk of P member networks on x [P, B, D0] in one K2 launch
+    (its member form), no gradient: ``params`` the DDPG layout with a
+    leading member axis on every leaf (a population's stacked agent
+    state)."""
+    (l1, l2, l3) = params
+    return _mlp.mlp3_members(x.contiguous(), l1["w"], l1["b"], l2["w"],
+                             l2["b"], l3["w"], l3["b"],
+                             sigmoid=final == "sigmoid")[0]
+
+
 def fused_polyak_nets(targets, onlines, tau: float):
     """Soft-target update of several networks (each a list of ``{"w",
     "b"}`` layers) as one kernel launch over all their leaves, read where

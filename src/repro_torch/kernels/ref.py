@@ -56,11 +56,48 @@ def mlp3_ref(x, w1, b1, w2, b2, w3, b3, sigmoid: bool):
     return (torch.sigmoid(y) if sigmoid else y), h1, h2
 
 
+def mlp3_members_ref(x, w1, b1, w2, b2, w3, b3, sigmoid: bool):
+    """K2's member form: P networks at once, x [P, B, D0] and every weight
+    and bias with the leading member axis; member p is ``mlp3_ref`` on
+    its own slices. Returns (y, h1, h2), each [P, B, ·]."""
+    outs = [mlp3_ref(x[p], w1[p], b1[p], w2[p], b2[p], w3[p], b3[p],
+                     sigmoid) for p in range(x.shape[0])]
+    return tuple(torch.stack(z) for z in zip(*outs))
+
+
 def polyak_ref(target: torch.Tensor, online: torch.Tensor,
                tau: float) -> torch.Tensor:
     """K3's function: ``(1 - tau) * target + tau * online``, the tree-map
     soft update of the JAX package's ``ddpg.polyak_update``."""
     return (1 - tau) * target + tau * online
+
+
+def fused_adam_polyak_ref(leaves, t: torch.Tensor, lr: float, tau: float,
+                          b1: float = 0.9, b2: float = 0.999,
+                          eps: float = 1e-8):
+    """The fused Adam + Polyak pass of one network over stacked leaves
+    (the JAX package's ``ddpg._fused_adam_polyak``): ``leaves`` is a list
+    of (p, m, v, g, target) tensors with a leading member axis P, ``t``
+    the (P,) int32 Adam step counts. The bias correction is folded into
+    per-member ``lr_t = lr * sqrt(1 - b2^t) / (1 - b1^t)`` and ``eps_t =
+    eps * sqrt(1 - b2^t)`` at the new step t + 1 (an exact rewrite of
+    ``adam_step``), then per element Adam and the soft target update on
+    the new parameters. Returns ([(p, m, v, target)] new, t + 1)."""
+    t = t + 1
+    tf = t.float()
+    c1 = 1 - torch.pow(b1, tf)
+    c2 = 1 - torch.pow(b2, tf)
+    lr_t = lr * torch.sqrt(c2) / c1
+    eps_t = eps * torch.sqrt(c2)
+    out = []
+    for p, m, v, g, tg in leaves:
+        nd = (1,) * (p.dim() - 1)
+        m2 = b1 * m + (1 - b1) * g
+        v2 = b2 * v + (1 - b2) * g * g
+        p2 = p - lr_t.reshape(-1, *nd) * m2 / (
+            torch.sqrt(v2) + eps_t.reshape(-1, *nd))
+        out.append((p2, m2, v2, (1 - tau) * tg + tau * p2))
+    return out, t
 
 
 # --- quantized matmul (K4, K5) ----------------------------------------------

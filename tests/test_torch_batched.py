@@ -19,6 +19,12 @@ version exact (the same numpy or f32 operations); accuracy ≤1e-6 (a mean
 of 0/1 values: in effect exact, as ``test_batched.py`` holds the JAX
 engine); reward ≤1e-5 and the replay ring exact up to the first update,
 then ≤1e-5 (the agent-parity bound: the updated actor acts).
+
+These exact equalities (CMPs and accuracy on the same policies) rest on
+this test's draws: under a quantized policy a last-bit range difference
+can move a whole fake-quant step and flip an argmax, so over many draws
+the port's f32 accuracy is only within one token of JAX's
+(``tests/test_torch_flips.py`` states the bound).
 """
 import jax
 import jax.numpy as jnp

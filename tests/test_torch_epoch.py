@@ -16,6 +16,12 @@ indices: records as ``tests/test_fused.py`` holds them (policies equal,
 accuracy 1e-6, latency 1e-5 relative, reward 1e-5), ring ≤1e-5 and the
 agent state ≤1e-3 (the f32 products of ~30 updates sum in other orders
 than XLA's and carry the ulps on).
+
+The JAX-parity records' exact policies and accuracies rest on this
+test's draws: under a quantized policy a last-bit range difference can
+move a whole fake-quant step and flip an argmax, so over many draws the
+port's f32 accuracy is only within one token of JAX's
+(``tests/test_torch_flips.py`` states the bound).
 """
 import jax
 import jax.numpy as jnp

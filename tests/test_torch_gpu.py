@@ -10,8 +10,10 @@ machine that has only PyTorch. There, skip the repo's ``conftest.py``
 
 Tolerances: K1 (fake-quant, f32 and bf16, plain and straight-through;
 one tensor or K policy slots, each slot against the plain version of
-its own slice) and K3 (Polyak) exact — the plain versions run the same correctly
-rounded f32 operations, one PyTorch kernel each;
+its own slice), K3 (Polyak) and the fused Adam + Polyak pass exact — the
+plain versions run the same correctly rounded f32 operations, one
+PyTorch kernel each; K2's member form bit-equal to one-network launches
+on each member's slices;
 K2 (3-layer MLP) forward and backward ≤1e-5 at the DDPG init's scales
 (f32 sums in another order; no TF32); K4/K5 (quantized matmul) exact —
 integer products are exact on both sides and the epilogue is the same
@@ -259,7 +261,8 @@ def test_gpu_fake_quant_slots_reads_views_in_place(cuda, dtype):
     strides allow, the scalar path where its start is off 16 bytes), and
     the tied head's ``embed.T`` expanded over the slots through
     ``ops.fake_quant_slots`` (copied once): all exact. Every slot at 32
-    copies; more than 64 slots are refused."""
+    copies; more than 64 slots (a population's P·K policies) are cut into
+    launches of at most 64, exact."""
     dt = getattr(torch, dtype)
     wide = torch.from_numpy(_normal(5, (4, 300, 136))).to(cuda).to(dt)
     bits = (4, 32, 2, 8)
@@ -273,8 +276,12 @@ def test_gpu_fake_quant_slots_reads_views_in_place(cuda, dtype):
     assert torch.equal(tops.fake_quant_slots(head, bits),
                        fake_quant_slots_ref(head, bits, True))
     assert torch.equal(fake_quant_slots(wide, (32,) * 4), wide)
-    with pytest.raises(ValueError, match="at most 64"):
-        fake_quant_slots(emb.expand(65, 256, 256), (4,) * 65)
+    before = build.LAUNCHES["fake_quant_slots"]
+    many = tuple(range(2, 9)) * 9 + (32, 4)
+    got = fake_quant_slots(emb.expand(65, 256, 256), many, ste=True)
+    assert build.LAUNCHES["fake_quant_slots"] == before + 2
+    assert torch.equal(got, fake_quant_slots_ref(emb.expand(65, 256, 256),
+                                                 many, True))
 
 
 @pytest.mark.gpu
@@ -1194,3 +1201,152 @@ def test_gpu_fused_graphs_equal_eager(cuda, epoch_batches):
         assert dict(graphs.COUNTS) == {
             "rollout": {"captures": 0, "replays": 1},
             "update": {"captures": 0, "replays": 1}}
+
+
+# ---------------------------------------------------------------------------
+# The population engine: K2's member form, the fused Adam + Polyak pass,
+# the population's graphs
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("P", [1, 3])
+@pytest.mark.parametrize("rows", [8, 64])
+@pytest.mark.parametrize("dims,final", [((33, 400, 300, 3), "sigmoid"),
+                                        ((36, 400, 300, 1), "linear")])
+def test_gpu_mlp3_members_equals_solo_launches(cuda, P, rows, dims, final):
+    """Each member's (y, h1, h2) bit-equal to the one-network K2 on its
+    slices, one launch for all; within 1e-5 of the plain version."""
+    from repro_torch.kernels.mlp_fused import mlp3_members
+    nets = [_mlp_params(10 * P + i, dims) for i in range(P)]
+    flat = [torch.from_numpy(np.stack([net[i // 2]["wb"[i % 2]]
+                                       for net in nets])).to(cuda)
+            for i in range(6)]
+    x = torch.from_numpy(_normal(rows, (P, rows, dims[0]))).to(cuda)
+    sig = final == "sigmoid"
+    before = build.LAUNCHES["mlp3_members"]
+    got = mlp3_members(x, *flat, sigmoid=sig)
+    assert build.LAUNCHES["mlp3_members"] == before + 1
+    for p in range(P):
+        solo = mlp3(x[p], *(t[p] for t in flat), sigmoid=sig)
+        for g, w in zip(got, solo):
+            assert torch.equal(g[p], w)
+    for g, w in zip(got, ref.mlp3_members_ref(x, *flat, sig)):
+        torch.testing.assert_close(g, w, atol=1e-5, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("P", [1, 3, 8])
+def test_gpu_adam_polyak_exact(cuda, P):
+    """The fused Adam + Polyak pass over the critic's stacked leaves (step
+    counts 0 to ~10^3): one launch, p, m, v and the target bit-equal to
+    the plain version in place, the step counts advanced."""
+    from repro_torch.kernels.adam_polyak import adam_polyak_
+    rng = np.random.default_rng(P)
+    dims = (36, 400, 300, 1)
+    leaves = []
+    for a, b in zip(dims[:-1], dims[1:]):
+        for sh in ((b,), (a, b)):
+            p, m, v, g, tg = (rng.standard_normal((P, *sh)) * s
+                              for s in (0.05, 1e-3, 1e-3, 1e-2, 0.05))
+            leaves.append(tuple(torch.from_numpy(x.astype(np.float32))
+                                .to(cuda) for x in (p, m, v * v, g, tg)))
+    t = torch.from_numpy(rng.integers(0, 1000, P).astype(np.int32)).to(cuda)
+    want, t_want = ref.fused_adam_polyak_ref(leaves, t, 1e-3, 0.01)
+    before = build.LAUNCHES["adam_polyak"]
+    adam_polyak_(leaves, t, 1e-3, 0.01)
+    assert build.LAUNCHES["adam_polyak"] == before + 1
+    assert torch.equal(t, t_want)
+    for leaf, upd in zip(leaves, want):
+        for a, b in zip(leaf[:3] + leaf[4:], upd):
+            assert torch.equal(a, b)
+
+
+def _small_population(cuda, kind):
+    """A population on the 2-layer f32 testbed: p / q / pq batched
+    members, or two fused members (V5E and tpu-v5p) in epoch mode."""
+    from repro_torch.configs.testbed import LM_CFG, SERVE_CTX
+    from repro_torch.core.compress import CompressibleLM
+    from repro_torch.core.ddpg import DDPGConfig
+    from repro_torch.core.latency import V5E, HardwareTarget
+    from repro_torch.core.reward import RewardConfig
+    from repro_torch.core.search import (BatchedCompressionSearch,
+                                         FusedCompressionSearch,
+                                         PopulationSearch, SearchConfig)
+    from repro_torch.core.sensitivity import SensitivityResult
+    from repro_torch.data.pipeline import make_bigram_table, sample_bigram
+    from repro_torch.models import model as M
+    cfg = LM_CFG.replace(num_layers=2, compute_dtype="float32")
+    cm = CompressibleLM(cfg, M.init(cfg, seed=0, device=cuda))
+    val = {"tokens": torch.as_tensor(sample_bigram(
+        make_bigram_table(cfg.vocab_size, 0), 8, 32, 7), device=cuda)}
+    table = {s.name: {"w4": 0.1 * i, "a4": 0.05 * i}
+             for i, s in enumerate(cm.specs)}
+    sens = SensitivityResult(table)
+
+    def scfg(methods):
+        return SearchConfig(methods=methods, episodes=16, seed=0,
+                            reward=RewardConfig(target_ratio=0.5),
+                            ddpg=DDPGConfig(warmup_episodes=2,
+                                            updates_per_episode=4,
+                                            batch_size=32, buffer_size=512,
+                                            action_dim=3))
+
+    if kind == "batched":
+        return PopulationSearch([BatchedCompressionSearch(
+            cm, val, scfg(m), SERVE_CTX, sens=sens, batch_size=4)
+            for m in ("p", "q", "pq")])
+    v5p = HardwareTarget(name="tpu-v5p", peak_bf16=459e12, peak_int8=918e12,
+                         hbm_bw=2765e9, ici_bw=90e9)
+    return PopulationSearch([FusedCompressionSearch(
+        cm, val, scfg("pq"), SERVE_CTX, hw=hw, sens=sens, batch_size=4,
+        epoch_batches=2) for hw in (V5E, v5p)], fuse_rollouts=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["batched", "epoch"])
+def test_gpu_population_graphs_equal_eager(cuda, kind):
+    """The population's replayed graphs (shared megabatched updates, or
+    shared epochs) give, bit for bit, the records, agent states and rings
+    of the same functions run eagerly on the card; the members' tensors
+    stay views of the stack; a steady chunk replays without capturing:
+    one update replay a batch, or one epoch replay and one readback."""
+    from repro_torch.core import graphs
+    from repro_torch.core.ddpg import state_leaves
+    graphs.reset_counts()
+    a = _small_population(cuda, kind)
+    ra = a.run()
+    b = _small_population(cuda, kind)
+    call = graphs.Graph.__call__
+    graphs.Graph.__call__ = lambda self: self.fn()
+    try:
+        rb = b.run()
+    finally:
+        graphs.Graph.__call__ = call
+    for x, y in zip(ra, rb):
+        assert [(r.reward, r.accuracy, r.latency_s) for r in x.history] == \
+            [(r.reward, r.accuracy, r.latency_s) for r in y.history]
+    for x, y in zip(state_leaves(a.state) + list(a.ring),
+                    state_leaves(b.state) + list(b.ring)):
+        assert torch.equal(x, y)
+    for i, m in enumerate(a.members):
+        assert m.agent.state.actor[0]["w"].data_ptr() == \
+            a.state.actor[0]["w"][i].data_ptr()
+        assert m.replay.states.data_ptr() == a.ring.states[i].data_ptr()
+    assert sum(c["captures"] for c in graphs.COUNTS.values()) > 0
+    graphs.reset_counts()
+    reads = a.readbacks
+    for m in a.members:
+        m._defer_updates = True
+    k = a.members[0]._chunk_size()
+    if kind == "epoch":
+        a._run_epoch_chunk(16, k)
+        assert dict(graphs.COUNTS) == {"epoch": {"captures": 0,
+                                                 "replays": 1}}
+        assert a.readbacks == reads + 1
+    else:
+        for m in a.members:
+            m._run_chunk(16, k)
+        a._dispatch_updates()
+        assert dict(graphs.COUNTS) == {"update": {"captures": 0,
+                                                  "replays": 1}}
+

@@ -460,7 +460,8 @@ def test_wrappers_route_cpu_to_plain_without_launching():
                        rglru_scan_ref(a, bc[:, :, :4].expand(2, 8, 4), h0))
     assert build.LAUNCHES == {"fake_quant": 0, "fake_quant_slots": 0,
                               "fake_quant_slots_dev": 0,
-                              "mlp3": 0, "polyak": 0,
+                              "mlp3": 0, "mlp3_members": 0, "polyak": 0,
+                              "adam_polyak": 0,
                               "quant_matmul_int8": 0,
                               "quant_matmul_int4": 0, "quant_matmul_tc": 0,
                               "flash_attention": 0,
@@ -503,9 +504,16 @@ def test_flash_attention_takes_head_dims_up_to_256():
 
 
 def test_kernel_sources_carry_their_notes():
+    # the fused Adam + Polyak pass has no Pallas counterpart (the JAX
+    # package computes it with jnp); its note says so and names the pass
+    no_pallas = {"adam_polyak": "src/repro/core/ddpg.py: _fused_adam_polyak"}
     for name in build.SOURCES:
         src = (build.CSRC / f"{name}.cu").read_text()
-        assert "Replaces: src/repro/kernels/" in src, name
+        if name in no_pallas:
+            assert "Replaces: no Pallas kernel" in src, name
+            assert no_pallas[name] in src, name
+        else:
+            assert "Replaces: src/repro/kernels/" in src, name
         assert "Bound on the H100" in src, name
         assert "Design:" in src, name
         assert 'extern "C" int' in src, name

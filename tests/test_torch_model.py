@@ -4,11 +4,14 @@ weights (carried over with ``repro_torch.convert``).
 Tolerances:
   * ℓ1 scores ≤1e-6; keep masks exact, ties included (duplicated
     columns force tied scores; both sides keep the lower index).
-  * f32 compute: accuracy exact. Log-probs ≤1e-5 uncompressed (matmuls
-    sum in other orders) and ≤0.1 under compressed policies (found
-    0.043): a last-bit difference in a channel's range shifts s·x − z,
-    and the floor turns that into whole quantization steps for the
-    elements near a boundary.
+  * f32 compute: accuracy exact on this test's draws (five policies on
+    one batch). Over many draws the f32 argmaxes flip on a few positions
+    under quantized policies and the accuracy is within one token of
+    JAX's, not equal (``tests/test_torch_flips.py`` states the bound).
+    Log-probs ≤1e-5 uncompressed (matmuls sum in other orders) and ≤0.1
+    under compressed policies (found 0.043): a last-bit difference in a
+    channel's range shifts s·x − z, and the floor turns that into whole
+    quantization steps for the elements near a boundary.
   * bf16 compute: at most 3% of the 256 next-token argmaxes flip under
     the uncompressed and the all-INT8 policies (found 2 and 3), at most
     25% under the random mixed low-bit policies (found 47, 20 and 10 of

@@ -27,7 +27,9 @@ Tolerances:
     flipped fake-quant step moves (at most 1%).
   * f32 forward: logits ≤1e-4 (as ``tests/test_torch_model.py`` and
     ``test_torch_ssm.py``); under seeded policies the next-token accuracy
-    equal.
+    equal on this test's draws (seeds 5 and 6). Over many draws up to
+    ~3% of the argmaxes flip and the accuracy is within one token
+    (``tests/test_torch_flips.py`` states the bound).
   * bf16 compute: at most 3% of the next-token argmaxes flip.
   * decode: logits ≤1e-4 and caches ≤1e-5 against JAX every step, past
     the window (the ring wraps); against the port's own prefill max

@@ -11,6 +11,12 @@ its own sensitivity analysis.
 Tolerances: CMPs and accuracy exact; ``latency_s`` ≤1e-6 relative;
 reward ≤1e-5; sensitivity KLs ≤1e-6 (the bound the JAX package holds its
 fused analysis to against its sequential one).
+
+These exact equalities (CMPs and accuracy on the same policies) rest on
+this test's draws: under a quantized policy a last-bit range difference
+can move a whole fake-quant step and flip an argmax, so over many draws
+the port's f32 accuracy is only within one token of JAX's
+(``tests/test_torch_flips.py`` states the bound).
 """
 import os
 import subprocess

@@ -12,9 +12,11 @@ KV heads of 16, qkv bias, tied embeddings, vocab 256), JAX weights from
 Tolerances:
   * f32 compute: logits ≤1e-4 (prefill and decode; matmuls sum in other
     orders). Under the seeded policy, accuracy equal (as in
-    ``tests/test_torch_model.py``): the fake-quant floor turns last-bit
-    range differences into whole steps, so compressed logits are not
-    held elementwise.
+    ``tests/test_torch_model.py``) on this test's draw: the fake-quant
+    floor turns last-bit range differences into whole steps, so
+    compressed logits are not held elementwise, and over many draws the
+    accuracy is within one token, not equal
+    (``tests/test_torch_flips.py`` states the bound).
   * bf16 compute: at most 3% of the next-token argmaxes flip (bf16
     rounds at other points in the two frameworks).
   * int8 KV cache: on the same K/V values, codes and scales exact
