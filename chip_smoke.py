@@ -149,7 +149,42 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ``oracle_mode="measured"`` on the fitted table; its top-K rows
    (predicted vs measured ratio) must be finite and its reference
    latency the calibrated oracle's.
-11. Prefill: ``make_prefill_step`` on qwen2-0.5b at full width (24
+11. Training path (``[training path]``, before the serving phases while
+   the card's memory is free; the LM testbed's trainer also runs on the
+   CPU's plain route in a child process from here until after phase 12,
+   where its accuracy is checked):
+   a. K1 under autograd (``core.quantization.fake_quant`` on a card
+      tensor, as every QAT forward calls it) at the testbed's [3072,
+      256] and qwen2's [4096, 896] bf16, 2 / 4 / 8 bits: the forward
+      exact against the plain chain, ``x.grad`` equal to the upstream
+      gradient bit for bit, one launch per call.
+   b. qwen2-0.5b at its SMOKE widths in f32, the same seeded params and
+      batch on the card and on the CPU: loss within 1e-5, every gradient
+      leaf within 1e-6, one train step's loss and updated leaves within
+      1e-5; one QAT step under a seeded pq policy with exactly
+      ``k1_calls``' count of K1 launches, its loss within
+      ``QAT_LOSS_TOL``.
+   c. ``train_testbed_lm(LM_CFG, steps=220, batch=16, seq=48)`` and
+      ``train_testbed_resnet(RESNET18_CIFAR, steps=250, batch=64)`` on
+      the card from seeded weights: ms per step, the device's busy share
+      (a profiled window of the same step), the validation loss before
+      and after (it must fall) and the accuracy (gates ``LM_ACC_MIN``,
+      ``RESNET_ACC_MIN``); the LM's within ``LM_CPU_MARGIN`` of the same
+      trainer on the CPU.
+   d. The paper's pipeline on the trained LM: the fused sensitivity, the
+      fused engine in epoch mode (K 8, E 2, 32 episodes), then a 60-step
+      QAT retrain under the best policy (``benchmarks/
+      agent_comparison.py``'s: lr 1e-3, warmup 5, no weight decay, 16 x
+      48 bigram batches, seeds 777,000 + s); the accuracy clean and
+      under the policy before and after QAT; K1 launched on every QAT
+      step, exactly ``k1_calls``' count.
+   e. ``make_train_step`` on qwen2-0.5b at full width (seeded weights)
+      at B 8 x S 512 (the dense attention block), raw and under a seeded
+      pq policy: every gradient leaf finite and not all zero, 2 warm-up
+      and 5 timed steps (ms, tokens/s, MFU against 989 TFLOP/s, peak
+      memory), K1 launches per QAT step equal to ``k1_calls``' count,
+      the loss after the steps below its first value.
+12. Prefill: ``make_prefill_step`` on qwen2-0.5b at full width (24
    layers, d 896, vocab 151,936; seeded random weights) over 1 x 32,768
    seeded tokens, uncompressed and under a seeded pq policy. First K6 on
    one layer's q/k/v at that shape against the chunked plain branch
@@ -161,13 +196,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
    kernels and the oracle's predicted compressed/reference ratio beside
    the measured one. The whole prefill at the SMOKE widths and 1,100
    tokens (f32) must agree with the plain CPU path.
-12. Decode: ``decode_loop`` and ``sustained_throughput`` on the same
+13. Decode: ``decode_loop`` and ``sustained_throughput`` on the same
    model, batch 8, 64 steps, max_len 256, KV cache 16 and 8 bits, raw
    and under the policy; tok/s per variant, then one profiled 8-step
    decode each (device busy share, kernels per step). At the SMOKE
    widths (f32) the greedy tokens must be the prefill forward's
    argmaxes.
-13. Mamba-2 prefill: ``make_prefill_step`` on mamba2-780m at full width
+14. Mamba-2 prefill: ``make_prefill_step`` on mamba2-780m at full width
    (48 SSD layers, d 1536, d_inner 3072, 48 heads of 64, state 128,
    vocab 50,280; seeded random weights) over 1 x 32,768 tokens, raw and
    under a seeded pq policy (SSD heads pruned at ``ssm_in``). First K8
@@ -175,17 +210,17 @@ Phases, each fatal on failure (non-zero exit, no result line):
    plain branch (each (token, head) row within ``K8_ROW_TOL``, the final
    state within 2e-4), timed beside it and its bounds (f32 on the CUDA
    cores, split TF32 on the tensor cores), its route and its four
-   kernels' times (profiler); then, as in phase 11, a warm-up and one
+   kernels' times (profiler); then, as in phase 12, a warm-up and one
    timed forward each, with exactly 48 K8 launches, all 48 on the
    tensor-core route, and ``k1_calls``' count of K1 launches per
    forward. At the SMOKE
    widths (f32, 2 x 1,100 tokens, chunk 32: a ragged last chunk) the
    device forward's argmaxes equal the plain CPU path's.
-14. Mamba-2 decode: ``decode_loop`` and ``sustained_throughput``, batch 8,
+15. Mamba-2 decode: ``decode_loop`` and ``sustained_throughput``, batch 8,
    64 steps, the conv and state cache (no KV cache, so no int8 variant),
    raw and under the policy; one profiled 8-step decode each. At the
    SMOKE widths (f32) the greedy tokens are the prefill's argmaxes.
-15. RecurrentGemma prefill: ``make_prefill_step`` on recurrentgemma-2b at
+16. RecurrentGemma prefill: ``make_prefill_step`` on recurrentgemma-2b at
    full width (26 layers in a (rglru, rglru, attn) pattern: 18 RG-LRU
    layers of width 2,560 and 8 local-attention layers, 10 / 1 heads of
    256, window 2,048; d 2,560, GeGLU d_ff 7,680, vocab 256,000; seeded
@@ -197,19 +232,19 @@ Phases, each fatal on failure (non-zero exit, no result line):
    against the former three-launch kernel (``tools/k7_three_pass.cu``)
    at the same chunk, and K6 on layer 2's
    q/k/v (window 2,048) against the chunked plain branch and the dense
-   tail rows, each timed beside its bound; then, as in phase 11, a warm-up
+   tail rows, each timed beside its bound; then, as in phase 12, a warm-up
    and one timed forward each, with exactly 18 K7, 8 K6 (all 8 on the
    tensor-core route) and ``k1_calls``' count of K1 launches per
    forward; a profiled raw forward, with the device ms of layer 0's
    RG-LRU block split into its gate passes, K7, the GEMMs and the rest;
    the phase's peak device memory; at the SMOKE widths (f32, 2 x 1,100
    tokens) the device forward's argmaxes equal the plain CPU path's.
-16. RecurrentGemma decode: ``decode_loop`` and ``sustained_throughput``,
+17. RecurrentGemma decode: ``decode_loop`` and ``sustained_throughput``,
    batch 8, 64 steps, the RG-LRU state and the ring KV cache (16 and 8
    bits), raw and under the policy; one profiled 8-step decode each. At
    the SMOKE widths (f32, window 16) 24 greedy steps (the ring wraps) are
    the prefill's argmaxes.
-17. Lines before the last: the kernels as JSON, then ``nvidia-smi``'s name
+18. Lines before the last: the kernels as JSON, then ``nvidia-smi``'s name
    and power limit. Last line: ``{"ok": true, "device": {...}}``.
 
 K8 (SSD scan) joins phase 3: against the sequential ``ssd_scan_ref`` and
@@ -3616,7 +3651,569 @@ def run_measured_search(cfg, device, table_dict: dict, *, episodes: int,
 
 
 # ---------------------------------------------------------------------------
-# Phases 10 and 11: prefill and decode of qwen2-0.5b
+# Phase 11: the training path (train and QAT steps, the testbed trainers)
+# ---------------------------------------------------------------------------
+
+K1_GRAD_SHAPES = ((3072, 256), (4096, 896))  # testbed; qwen2 at 8 x 512
+LM_TRAIN = dict(steps=220, batch=16, seq=48)     # benchmarks/common.py:52
+RESNET_TRAIN = dict(steps=250, batch=64)
+QAT_RETRAIN = dict(steps=60, lr=1e-3, warmup=5, batch=16, seq=48,
+                   seed=777_000)             # benchmarks/agent_comparison.py
+QWEN_TRAIN = dict(batch=8, seq=512, warmup=2, timed=5)
+# Gates of the phase. The QAT loss on the card against the CPU: the two
+# forwards agree to ~1e-6 before the quantizers, and a last-bit
+# difference in a fake-quant range moves whole quantization steps
+# (ROADMAP.md, Queue 3: log-probs up to 0.043 apart under f32); the
+# loss, a mean over 504 positions, moves far less (the CPU tests hold
+# the same QAT loss against the JAX package at 1e-3).
+QAT_LOSS_TOL = 1e-3
+# The testbeds must beat chance (1/256 tokens, 1/10 classes) by far:
+# the trained LM's next-token accuracy at least 0.25 and ResNet18's at
+# least 0.5; the LM trained on the card within 0.05 of the same trainer
+# on the CPU's plain route (bf16 rounds at other points on the two, so
+# the runs part after the first steps).
+LM_ACC_MIN, RESNET_ACC_MIN, LM_CPU_MARGIN = 0.25, 0.5, 0.05
+
+# The CPU run of the LM testbed's trainer: a child process (at a low
+# priority, on the cores this process does not use) that runs while the
+# card trains and serves qwen2-0.5b's prefill, and prints its result as
+# one JSON line. On an H100 machine whose CPU has no bf16 instructions
+# it takes ~90 s, longer than the training phase itself.
+CPU_LM_CHILD = """
+import json, os, sys, time
+os.nice(10)
+import torch
+torch.set_num_threads(int(sys.argv[1]))
+from repro_torch.configs.testbed import LM_CFG
+from repro_torch.train.trainer import train_testbed_lm
+t0 = time.perf_counter()
+_, _, acc = train_testbed_lm(LM_CFG, steps=int(sys.argv[2]),
+                             batch=int(sys.argv[3]), seq=int(sys.argv[4]),
+                             device="cpu")
+print(json.dumps({"acc": acc, "seconds": time.perf_counter() - t0}))
+"""
+
+
+def _stop(proc: subprocess.Popen) -> None:
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def start_cpu_lm_trainer() -> subprocess.Popen:
+    """The LM testbed's trainer on the CPU (plain route), in a child
+    process that sees no card, on all but two of the cores this process
+    may use; stopped at exit whatever happens in between."""
+    import atexit
+    import tempfile
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.path.join(ROOT, "src"))
+    threads = max(1, len(os.sched_getaffinity(0)) - 2)
+    err = tempfile.TemporaryFile(mode="w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", CPU_LM_CHILD, str(threads),
+         *(str(LM_TRAIN[k]) for k in ("steps", "batch", "seq"))],
+        stdout=subprocess.PIPE, stderr=err, text=True, env=env)
+    proc.err_log = err
+    atexit.register(_stop, proc)
+    log(f"  the LM trainer on the CPU: a child process, {threads} threads")
+    return proc
+
+
+def finish_cpu_lm_trainer(proc: subprocess.Popen, card_acc: float) -> dict:
+    """Wait for the CPU trainer; its accuracy must be within
+    ``LM_CPU_MARGIN`` of the card's."""
+    t0 = time.perf_counter()
+    try:
+        out, _ = proc.communicate(timeout=600)
+    finally:
+        _stop(proc)
+    if proc.returncode != 0:
+        proc.err_log.seek(0)
+        raise AssertionError(f"the CPU trainer failed: "
+                             f"{proc.err_log.read()[-2000:]}")
+    cpu = json.loads(out.strip().splitlines()[-1])
+    log(f"[training path, c, continued] the same LM trainer on the CPU's "
+        f"plain route ({cpu['seconds']:.1f} s, waited "
+        f"{time.perf_counter() - t0:.1f} s for it here): accuracy "
+        f"{cpu['acc']:.4f}, the card's {card_acc:.4f} (gate: within "
+        f"{LM_CPU_MARGIN})")
+    if abs(cpu["acc"] - card_acc) > LM_CPU_MARGIN:
+        raise AssertionError("the LM trained on the card is not within "
+                             f"{LM_CPU_MARGIN} of the CPU's accuracy")
+    return cpu
+
+
+def check_k1_autograd(device) -> dict:
+    """K1's straight-through route under autograd, as every QAT forward
+    runs it (``core.quantization.fake_quant`` on a card tensor): at the
+    testbed's activation [3072, 256] and qwen2's [4096, 896] (8 x 512
+    rows), bf16, 2 / 4 / 8 bits, the forward equals the plain chain
+    ``(xf + (xq - xf)).to(bf16)`` exactly and ``x.grad`` equals the
+    upstream gradient bit for bit; one K1 launch per call."""
+    import torch
+    from repro_torch.core.quantization import fake_quant
+    from repro_torch.kernels import build
+    from repro_torch.kernels.ref import fake_quant_ref
+    gen = torch.Generator(device=device).manual_seed(11)
+    err, calls = 0.0, 0
+    build.reset_launches()
+    for shape in K1_GRAD_SHAPES:
+        for bits in (2, 4, 8):
+            x = torch.randn(shape, generator=gen, device=device).to(
+                torch.bfloat16).requires_grad_(True)
+            y = fake_quant(x, bits)
+            calls += 1
+            xf = x.detach().float()
+            chain = (xf + (fake_quant_ref(xf, bits) - xf)).to(x.dtype)
+            err = max(err, float((y.detach().float() - chain.float())
+                                 .abs().max()))
+            gy = torch.randn(shape, generator=gen, device=device).to(
+                torch.bfloat16)
+            y.backward(gy)
+            if y.grad_fn is None or not torch.equal(x.grad, gy):
+                raise AssertionError(f"K1's straight-through gradient at "
+                                     f"{shape}, {bits} bits is not the "
+                                     f"upstream gradient")
+    if err > 0.0:
+        raise AssertionError(f"K1 under autograd disagrees with the plain "
+                             f"chain: {err}")
+    if build.LAUNCHES["fake_quant"] != calls:
+        raise AssertionError(f"K1 launched {build.LAUNCHES['fake_quant']} "
+                             f"times for {calls} calls under autograd")
+    log(f"  a. K1 under autograd at {list(K1_GRAD_SHAPES)} bf16, 2/4/8 "
+        f"bits: forward exact against the plain chain, x.grad equal to "
+        f"the upstream gradient bit for bit, {calls} launches")
+    return {"max_abs_err": err, "calls": calls}
+
+
+def _max_leaf_diff(a, b) -> float:
+    from repro_torch.optim.optimizer import tree_leaves
+    return max(float((x.detach().cpu().float() - y.detach().cpu().float())
+                     .abs().max()) for x, y in zip(tree_leaves(a),
+                                                   tree_leaves(b)))
+
+
+def check_train_device_vs_cpu(device, seq: int = 64, batch: int = 4
+                              ) -> dict:
+    """qwen2-0.5b at its SMOKE widths in f32, the same seeded params and
+    batch on the card and on the CPU's plain route: the loss within
+    1e-5 and every gradient leaf within 1e-6 (f32 sums in other orders;
+    the largest gradients are ~0.1); one plain train step, the loss and
+    every updated leaf within 1e-5 (the QAT retrain's optimizer: lr
+    2e-4 at step 1); then one QAT step under a seeded pq policy: K1
+    launched exactly ``k1_calls``' count for the forward, the loss within
+    ``QAT_LOSS_TOL``."""
+    import torch
+    from repro_torch.core.compress import CompressibleLM
+    from repro_torch.kernels import build
+    from repro_torch.models import model as M
+    from repro_torch.models.registry import get_config
+    from repro_torch.optim.optimizer import OptimizerConfig, adamw_init
+    from repro_torch.train.train_step import (lm_loss, make_train_step,
+                                              value_and_grad)
+    cfg = get_config("qwen2-0.5b", smoke=True).replace(
+        compute_dtype="float32")
+    host = M.init(cfg, 0, "cpu")
+    toks = prefill_tokens(cfg, batch, seq, 3, "cpu")
+    on = {"cpu": (host, {"tokens": toks}),
+          "card": (_to(host, device), {"tokens": toks.to(device)})}
+    grads = {}
+    for name, (p, b) in on.items():
+        grads[name] = value_and_grad(lambda q: lm_loss(cfg, q, b), p)
+    d_loss = abs(float(grads["cpu"][0]) - float(grads["card"][0]))
+    d_grad = _max_leaf_diff(grads["cpu"][1], grads["card"][1])
+    ocfg = OptimizerConfig(lr=1e-3, warmup_steps=5, total_steps=60,
+                           weight_decay=0.0)
+    out = {}
+    for name, (p, b) in on.items():
+        q = _to(p, p["embed"].device)
+        st = adamw_init(q, ocfg)
+        q, st, m = make_train_step(cfg, ocfg)(q, st, b)
+        out[name] = (q, float(m["loss"]), float(m["lr"]))
+    d_step = _max_leaf_diff(out["cpu"][0], out["card"][0])
+    log(f"  b. {cfg.name} f32, {batch} x {seq} tokens, card against the "
+        f"CPU: loss {d_loss:.3g} apart, gradients {d_grad:.3g} (tol 1e-6);"
+        f" one train step at lr {out['card'][2]:.3g}: loss "
+        f"{abs(out['cpu'][1] - out['card'][1]):.3g}, updated leaves "
+        f"{d_step:.3g} (tol 1e-5)")
+    if d_loss > 1e-5 or d_grad > 1e-6 or d_step > 1e-5 \
+            or abs(out["cpu"][1] - out["card"][1]) > 1e-5:
+        raise AssertionError("the train step on the card disagrees with "
+                             "the CPU's plain route")
+    cms = {name: CompressibleLM(cfg, p) for name, (p, _) in on.items()}
+    policy = seeded_policy(cms["cpu"], 4)
+    losses, k1 = {}, None
+    for name, (p, b) in on.items():
+        cspec = cms[name].build_cspec(policy)
+        q = _to(p, p["embed"].device)
+        step = make_train_step(cfg, ocfg, cspec=cspec)
+        build.reset_launches()
+        _, _, m = step(q, adamw_init(q, ocfg), b)
+        losses[name] = float(m["loss"])
+        if name == "card":
+            k1 = (build.LAUNCHES["fake_quant"],
+                  len(k1_calls(cfg, cspec, batch * seq)))
+    d_qat = abs(losses["cpu"] - losses["card"])
+    log(f"  b. one QAT step under a seeded pq policy: K1 {k1[0]} launches "
+        f"(k1_calls: {k1[1]}), loss {d_qat:.3g} apart (tol "
+        f"{QAT_LOSS_TOL})")
+    if k1[0] != k1[1] or k1[1] == 0 or d_qat > QAT_LOSS_TOL:
+        raise AssertionError(f"QAT step on the card: K1 {k1}, loss "
+                             f"{losses}")
+    return {"loss": d_loss, "grad": d_grad, "step": d_step, "qat": d_qat}
+
+
+def profiled_steps(step, n: int) -> dict:
+    """``n`` calls of ``step`` (one train step each, warm) timed on the
+    host clock (ended by a sync), then ``n`` more under
+    ``torch.profiler`` (device activity only: recording the host's ops
+    too cost seconds a window on an H100 machine): ms per step, the
+    device's busy share (kernel time over the unprofiled wall time) and
+    the top kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / n
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+    rows = [(getattr(ev, "self_device_time_total", 0.0) * 1e-3 / n, ev.key,
+             ev.count / n) for ev in prof.key_averages()
+            if getattr(ev, "device_type", None) is not None
+            and "CUDA" in str(ev.device_type)]
+    busy = sum(t for t, _, _ in rows) * 1e-3
+    return {"step_ms": wall * 1e3, "busy_ms": busy * 1e3,
+            "busy_share": busy / wall, "kernels": sum(c for *_, c in rows),
+            "top": sorted(rows, reverse=True)[:6]}
+
+
+def log_top(prof: dict) -> None:
+    log(f"     {prof['kernels']:.0f} kernels a step; top device time "
+        f"(ms a step):")
+    for t, key, n in prof["top"]:
+        log(f"     {t:9.3f}  x{n:<5g} {key[:90]}")
+
+
+def train_lm_testbed(device) -> dict:
+    """``train_testbed_lm(LM_CFG, steps=220, batch=16, seq=48)`` on the
+    card from the port's seeded init: ms per step, the validation loss
+    before and after, the accuracy; a profiled window of the same step
+    on a copy for the device's busy share."""
+    import torch
+    from repro_torch.configs.testbed import LM_CFG
+    from repro_torch.data.pipeline import make_bigram_table, sample_bigram
+    from repro_torch.models import model as M
+    from repro_torch.optim.optimizer import OptimizerConfig, adamw_init
+    from repro_torch.train.train_step import make_eval_step, make_train_step
+    from repro_torch.train.trainer import train_testbed_lm
+    steps = LM_TRAIN["steps"]
+    table = make_bigram_table(LM_CFG.vocab_size, 0)
+    val = {"tokens": torch.as_tensor(sample_bigram(
+        table, 64, LM_TRAIN["seq"], steps + 7), device=device).long()}
+    init = M.init(LM_CFG, 0, device)
+    evaluate = make_eval_step(LM_CFG)
+    before = float(evaluate(init, val))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, tval, acc = train_testbed_lm(LM_CFG, **LM_TRAIN, params=init,
+                                         device=device)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if not torch.equal(tval["tokens"], val["tokens"]):
+        raise AssertionError("the trainer's validation batch moved")
+    after = float(evaluate(params, val))
+    copy = _to(params, device)
+    ocfg = OptimizerConfig(lr=3e-3, warmup_steps=20, total_steps=steps,
+                           weight_decay=0.0)
+    st = [adamw_init(copy, ocfg)]
+    step = make_train_step(LM_CFG, ocfg)
+    batch = {"tokens": torch.as_tensor(sample_bigram(
+        table, LM_TRAIN["batch"], LM_TRAIN["seq"], 10 ** 6),
+        device=device).long()}
+
+    def one():
+        st[0] = step(copy, st[0], batch)[1]
+    one()
+    prof = profiled_steps(one, 3)
+    log(f"  c. {LM_CFG.name} trained {steps} steps of "
+        f"{LM_TRAIN['batch']} x {LM_TRAIN['seq']}: "
+        f"{seconds / steps * 1e3:.2f} ms per step over the run (batches "
+        f"drawn on the host included), {prof['step_ms']:.2f} ms per step "
+        f"alone, device busy {prof['busy_ms']:.2f} ms "
+        f"({prof['busy_share']:.1%}); validation loss {before:.4f} -> "
+        f"{after:.4f}, accuracy {acc:.4f} (gate >= {LM_ACC_MIN}); {CARD}")
+    log_top(prof)
+    if not after < before or acc < LM_ACC_MIN:
+        raise AssertionError(f"the LM testbed did not train: loss {before}"
+                             f" -> {after}, accuracy {acc}")
+    return {"params": params, "val": val, "acc": acc, "loss": (before, after),
+            "ms_per_step": seconds / steps * 1e3, **prof}
+
+
+def train_resnet_testbed(device) -> dict:
+    """``train_testbed_resnet(RESNET18_CIFAR, steps=250, batch=64)`` on
+    the card from the port's seeded init: as ``train_lm_testbed``."""
+    import torch
+    from repro_torch.configs.testbed import RESNET18_CIFAR as cfg
+    from repro_torch.data.pipeline import blob_images
+    from repro_torch.models import model as M
+    from repro_torch.models import resnet as R
+    from repro_torch.optim.optimizer import (OptimizerConfig, adamw_init,
+                                             adamw_update)
+    from repro_torch.train.train_step import value_and_grad
+    from repro_torch.train.trainer import resnet_loss, train_testbed_resnet
+    steps = RESNET_TRAIN["steps"]
+    val = blob_images(cfg.num_classes, 256, cfg.img_size, seed=steps + 7,
+                      device=device)
+    init = R.init(cfg, 0, device)
+    with torch.no_grad():
+        before = float(resnet_loss(cfg, init, val))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, tval, acc = train_testbed_resnet(cfg, **RESNET_TRAIN,
+                                             params=init, device=device)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if not torch.equal(tval["labels"], val["labels"]):
+        raise AssertionError("the trainer's validation batch moved")
+    with torch.no_grad():
+        after = float(resnet_loss(cfg, params, val))
+    copy = _to(params, device)
+    ocfg = OptimizerConfig(lr=1e-2, warmup_steps=10, total_steps=steps,
+                           weight_decay=1e-4)
+    st = [adamw_init(copy, ocfg)]
+    batch = blob_images(cfg.num_classes, RESNET_TRAIN["batch"],
+                        cfg.img_size, seed=10 ** 6, device=device)
+
+    def one():
+        _, g = value_and_grad(lambda p: resnet_loss(cfg, p, batch), copy)
+        st[0] = adamw_update(copy, g, st[0], ocfg)[1]
+    one()
+    prof = profiled_steps(one, 3)
+    log(f"  c. {cfg.name} ({M.param_count(params) / 1e6:.2f} M params) "
+        f"trained {steps} steps of {RESNET_TRAIN['batch']} images: "
+        f"{seconds / steps * 1e3:.2f} ms per step over the run, "
+        f"{prof['step_ms']:.2f} ms per step alone, device busy "
+        f"{prof['busy_ms']:.2f} ms ({prof['busy_share']:.1%}); validation "
+        f"loss {before:.4f} -> {after:.4f}, accuracy {acc:.4f} (gate >= "
+        f"{RESNET_ACC_MIN}); {CARD}")
+    log_top(prof)
+    if not after < before or acc < RESNET_ACC_MIN:
+        raise AssertionError(f"ResNet18 did not train: loss {before} -> "
+                             f"{after}, accuracy {acc}")
+    return {"acc": acc, "loss": (before, after),
+            "ms_per_step": seconds / steps * 1e3, **prof}
+
+
+def qat_pipeline(device, params, val) -> dict:
+    """The paper's pipeline on the trained LM testbed: the fused
+    sensitivity analysis, the fused engine in epoch mode (K 8, E 2, 32
+    episodes, the fused path's agent settings), then a 60-step QAT
+    retrain under the best policy as ``benchmarks/agent_comparison.py``
+    retrains (lr 1e-3, warmup 5, no weight decay, bigram batches of 16 x
+    48 drawn with seeds 777,000 + s); the policy's accuracy before and
+    after beside the clean one. K1 must launch on every QAT step, exactly
+    ``k1_calls``' count of the forward."""
+    import torch
+    from repro_torch.configs.testbed import LM_CFG, SERVE_CTX
+    from repro_torch.core.compress import CompressibleLM
+    from repro_torch.core.ddpg import DDPGConfig
+    from repro_torch.core.reward import RewardConfig
+    from repro_torch.core.search import FusedCompressionSearch, SearchConfig
+    from repro_torch.core.sensitivity import run_sensitivity
+    from repro_torch.data.pipeline import make_bigram_table, sample_bigram
+    from repro_torch.kernels import build
+    from repro_torch.optim.optimizer import OptimizerConfig, adamw_init
+    from repro_torch.train.train_step import make_train_step
+    cm = CompressibleLM(LM_CFG, params)
+    t0 = time.perf_counter()
+    sens = run_sensitivity(cm, val)
+    scfg = SearchConfig(
+        methods="pq", episodes=32, seed=0,
+        reward=RewardConfig(target_ratio=0.5, beta=-3.0),
+        ddpg=DDPGConfig(warmup_episodes=4, updates_per_episode=16,
+                        batch_size=64, buffer_size=2000))
+    search = FusedCompressionSearch(cm, val, scfg, SERVE_CTX, sens=sens,
+                                    batch_size=SLOTS,
+                                    epoch_batches=FUSED_E)
+    res = search.run()
+    torch.cuda.synchronize()
+    t_search = time.perf_counter() - t0
+    policy = res.best.policy
+    clean = float(cm.accuracy(val))
+    before = float(cm.accuracy(val, cm.build_cspec(policy)))
+    q = QAT_RETRAIN
+    cspec = cm.build_cspec(policy)
+    want = len(k1_calls(LM_CFG, cspec, q["batch"] * q["seq"]))
+    if want == 0:
+        raise AssertionError("the best policy quantizes nothing: no QAT "
+                             "path to check")
+    ocfg = OptimizerConfig(lr=q["lr"], warmup_steps=q["warmup"],
+                           total_steps=q["steps"], weight_decay=0.0)
+    trained = _to(params, device)
+    st = adamw_init(trained, ocfg)
+    step = make_train_step(LM_CFG, ocfg, cspec=cspec)
+    table = make_bigram_table(LM_CFG.vocab_size, 0)
+    per_step = []
+    t0 = time.perf_counter()
+    for s in range(q["steps"]):
+        batch = {"tokens": torch.as_tensor(sample_bigram(
+            table, q["batch"], q["seq"], q["seed"] + s),
+            device=device).long()}
+        build.reset_launches()
+        trained, st, _ = step(trained, st, batch)
+        per_step.append(build.LAUNCHES["fake_quant"])
+    torch.cuda.synchronize()
+    t_qat = time.perf_counter() - t0
+    retrained = CompressibleLM(LM_CFG, trained)
+    after = float(retrained.accuracy(val, retrained.build_cspec(policy)))
+    log(f"  d. the pipeline on the trained {LM_CFG.name}: sensitivity and "
+        f"{scfg.episodes} fused epoch-mode episodes in {t_search:.2f} s, "
+        f"best episode {res.best.episode} (reward {res.best.reward:+.4f}, "
+        f"latency ratio {res.best.latency_ratio:.4f}); QAT {q['steps']} "
+        f"steps in {t_qat:.2f} s ({t_qat / q['steps'] * 1e3:.2f} ms each),"
+        f" K1 {min(per_step)}-{max(per_step)} launches a step (k1_calls: "
+        f"{want}); accuracy clean {clean:.4f}, under the policy "
+        f"{before:.4f} before QAT, {after:.4f} after; {CARD}")
+    log("     policy (keep, w/a bits): " + " ".join(
+        f"{s.name}:{c.keep}/{c.w_bits}/{c.a_bits}"
+        for s, c in zip(cm.specs, policy.cmps)
+        if c.w_bits < 32 or (s.prune_dim and c.keep < s.prune_dim)))
+    if any(n != want for n in per_step):
+        raise AssertionError(f"K1 launches per QAT step {per_step}, not "
+                             f"{want} each")
+    return {"clean": clean, "before": before, "after": after,
+            "k1_per_step": want, "search_s": t_search,
+            "qat_ms": t_qat / q["steps"] * 1e3}
+
+
+def train_qwen2_full(device) -> dict:
+    """``make_train_step`` on qwen2-0.5b at full width (24 layers, d 896,
+    vocab 151,936; seeded random weights, f32 params, bf16 compute) at
+    B 8 x S 512 (the dense attention block, as the JAX model takes for
+    S <= 512), raw and under a seeded pq policy (QAT): every gradient
+    leaf finite and not all zero; 2 warm-up and 5 timed steps on one
+    batch (ms per step, tokens/s, MFU, peak memory), K1 launches per QAT
+    step equal to ``k1_calls``' count, the loss after the 5 steps below
+    its first value."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.compress import CompressibleLM
+    from repro_torch.kernels import build
+    from repro_torch.launch.inputs import model_flops
+    from repro_torch.models import model as M
+    from repro_torch.models.registry import get_config
+    from repro_torch.optim.optimizer import (OptimizerConfig, adamw_init,
+                                             tree_leaves)
+    from repro_torch.train.train_step import (lm_loss, make_eval_step,
+                                              make_train_step,
+                                              value_and_grad)
+    cfg = get_config("qwen2-0.5b")
+    B, S = QWEN_TRAIN["batch"], QWEN_TRAIN["seq"]
+    flops = model_flops(cfg, ShapeConfig("train_8x512", S, B, "train"))
+    ocfg = OptimizerConfig(lr=3e-4, warmup_steps=2, total_steps=1000)
+    out = {}
+    for name in ("raw", "qat"):
+        release_cached_memory(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        cm = CompressibleLM(cfg, M.init(cfg, seed=0, device=device))
+        params = cm.params
+        batch = {"tokens": prefill_tokens(cfg, B, S, 5, device)}
+        cspec = cm.build_cspec(seeded_policy(cm, 0)) if name == "qat" \
+            else None
+        del cm
+        _, grads = value_and_grad(lambda p: lm_loss(cfg, p, batch, cspec),
+                                  params)
+        leaves = tree_leaves(grads)
+        ok = torch.stack([torch.isfinite(g).all() & (g != 0).any()
+                          for g in leaves])
+        if not bool(ok.all()):
+            raise AssertionError(f"{name}: {int((~ok).sum())} of "
+                                 f"{len(leaves)} gradient leaves not finite "
+                                 f"or all zero")
+        del grads, leaves
+        state = adamw_init(params, ocfg)
+        step = make_train_step(cfg, ocfg, cspec=cspec)
+        first = None
+        for _ in range(QWEN_TRAIN["warmup"]):
+            params, state, m = step(params, state, batch)
+            first = float(m["loss"]) if first is None else first
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        for _ in range(QWEN_TRAIN["timed"]):
+            params, state, m = step(params, state, batch)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / QWEN_TRAIN["timed"]
+        k1 = build.LAUNCHES["fake_quant"] / QWEN_TRAIN["timed"]
+        want = len(k1_calls(cfg, cspec, B * S))
+        last = float(make_eval_step(cfg, cspec)(params, batch))
+        peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+        log(f"  e. {cfg.name} train step, {name}, {B} x {S} tokens: "
+            f"{dt * 1e3:.2f} ms per step, {B * S / dt:.0f} tokens/s, MFU "
+            f"{flops / dt / BF16_FLOPS:.1%} ({flops / 1e12:.2f} TFLOP a "
+            f"step: model_flops in train mode, 3 x the forward), peak "
+            f"{peak:.2f} GiB; loss {first:.4f} at step 1 -> {last:.4f} "
+            f"after {QWEN_TRAIN['warmup'] + QWEN_TRAIN['timed']}; K1 "
+            f"{k1:g} launches a step (k1_calls: {want}); {CARD}")
+        if k1 != want or (name == "qat") != (want > 0) or not last < first:
+            raise AssertionError(f"{name}: K1 {k1} a step for {want}, loss "
+                                 f"{first} -> {last}")
+        box = [params, state]
+
+        def one():
+            box[0], box[1], _ = step(box[0], box[1], batch)
+        prof = profiled_steps(one, 1)
+        log(f"     profiled: {prof['step_ms']:.2f} ms a step, device busy "
+            f"{prof['busy_ms']:.2f} ms ({prof['busy_share']:.1%})")
+        log_top(prof)
+        del box
+        out[name] = {"step_ms": dt * 1e3, "tokens_s": B * S / dt,
+                     "mfu": flops / dt / BF16_FLOPS, "peak_gib": peak,
+                     "loss": (first, last), "k1": k1}
+        del params, state, step, batch, cspec
+    release_cached_memory(device)
+    return out
+
+
+def training_phase(device) -> dict:
+    """Phase 11, ``[training path]``: a-e of the module docstring. The
+    CPU run of the LM trainer starts after b (the phase's own CPU work);
+    ``out["cpu_lm"]`` is its process, for ``finish_cpu_lm_trainer`` after
+    the qwen2 prefill."""
+    from repro_torch.configs.testbed import LM_CFG
+    t_phase = time.perf_counter()
+    log(f"[training path] K1 under autograd; {LM_CFG.name} and ResNet18 "
+        f"trained on the card; the search and a QAT retrain on the trained"
+        f" LM; qwen2-0.5b's full-width train and QAT steps; {CARD}")
+    out, seconds = {}, {}
+
+    def part(name, fn, *args):
+        t0 = time.perf_counter()
+        out[name] = fn(*args)
+        seconds[name] = round(time.perf_counter() - t0, 1)
+    part("k1", check_k1_autograd, device)
+    part("smoke", check_train_device_vs_cpu, device)
+    out["cpu_lm"] = start_cpu_lm_trainer()
+    part("lm", train_lm_testbed, device)
+    part("resnet", train_resnet_testbed, device)
+    part("pipeline", qat_pipeline, device, out["lm"].pop("params"),
+         out["lm"].pop("val"))
+    release_cached_memory(device)
+    part("qwen2", train_qwen2_full, device)
+    log(f"  {time.perf_counter() - t_phase:.1f} s for the training phase "
+        f"(by part: {seconds})")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phases 12 and 13: prefill and decode of qwen2-0.5b
 # ---------------------------------------------------------------------------
 
 def seeded_policy(cm, seed: int):
@@ -4233,17 +4830,19 @@ def _leaves(tree):
 
 
 def _to(tree, device):
+    """A copy of a tree of tensors on ``device`` (a copy on the same
+    device too: the train steps update their params in place)."""
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
     if isinstance(tree, list):
         return [_to(v, device) for v in tree]
-    return tree.to(device)
+    return tree.to(device, copy=True)
 
 
 # ---------------------------------------------------------------------------
 
 def recurrentgemma_phases(device, results: dict, launches: dict) -> None:
-    """Phases 14 and 15 on the card: recurrentgemma-2b's prefill and
+    """Phases 16 and 17 on the card: recurrentgemma-2b's prefill and
     decode (the earlier models freed first). Adds the K6 (D 256) and K7
     rows to ``results`` and their launch counts to ``launches``."""
     import torch
@@ -4519,6 +5118,9 @@ def main() -> int:
             f"{r['measured_ref_s'] * 1e3:.4f} ms (ratio "
             f"{r['measured_ratio']:.4f})")
 
+    release_cached_memory(device)
+    train = training_phase(device)
+
     from repro_torch.core.compress import CompressibleLM
     from repro_torch.models import blocks as MB
     from repro_torch.models import model as M
@@ -4561,6 +5163,7 @@ def main() -> int:
     check_prefill_numerics(get_config("qwen2-0.5b", smoke=True), device,
                            1100)
     log(f"  {time.perf_counter() - t0:.1f} s for the prefill phase")
+    finish_cpu_lm_trainer(train["cpu_lm"], train["lm"]["acc"])
 
     log(f"[decode] decode_loop and sustained_throughput on {qwen.name}, "
         f"batch {DECODE['batch']}, {DECODE['steps']} steps, max_len "

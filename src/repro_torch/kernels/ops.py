@@ -173,11 +173,26 @@ def fused_polyak(target, online, tau: float):
     return fused_polyak_nets([target], [online], tau)[0]
 
 
+def _refuse_grad(kernel: str, *xs: torch.Tensor) -> None:
+    """Raise if autograd would record a call of ``kernel``, a kernel with
+    no backward: its output would carry no ``grad_fn``, and a train step
+    would take the layer for a constant and return wrong gradients
+    without a word. Checked before any build or launch; nothing falls
+    back to the plain version."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in xs):
+        raise RuntimeError(
+            f"{kernel} has no backward, and an input requires grad: "
+            f"training through it waits for a later slice of the port "
+            f"(ROADMAP.md, Queue 1); run it under torch.no_grad()")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """q [B,H,S,D]; k,v [B,KV,S,D] -> [B,H,S,D] (K6). The JAX op pads S
     to its blocks' multiple; the kernel masks the ragged edge instead.
-    No gradient, as the JAX op has none."""
+    No gradient, as the JAX op has none: under autograd with an input
+    that requires grad it raises (``_refuse_grad``)."""
+    _refuse_grad("K6 (flash attention)", q, k, v)
     return _fa.flash_attention(q, k, v, causal=causal, window=window)
 
 
@@ -186,7 +201,9 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor,
     """a, b [B,S,C]; h0 [B,C] or None -> h [B,S,C] in a's dtype, ``h_t =
     a_t h_{t-1} + b_t`` (K7). The JAX op halves its blocks until they
     divide S and C; the kernel masks ragged edges instead. No gradient,
-    as the JAX op has none."""
+    as the JAX op has none: under autograd with an input that requires
+    grad it raises (``_refuse_grad``)."""
+    _refuse_grad("K7 (RG-LRU scan)", a, b, *(() if h0 is None else (h0,)))
     return _rg.rglru_scan(a, b, h0)
 
 
@@ -196,6 +213,8 @@ def ssd_scan(xh: torch.Tensor, dA: torch.Tensor, Bm: torch.Tensor,
     [B,S,N] -> (y [B,S,H,P], final state [B,H,P,N]) (K8). The JAX op
     halves the chunk until it divides S; the kernel masks the ragged
     edge at any chunk length instead, which is the same function. No
-    gradient, as the JAX op has none."""
+    gradient, as the JAX op has none: under autograd with an input that
+    requires grad it raises (``_refuse_grad``)."""
+    _refuse_grad("K8 (SSD scan)", xh, dA, Bm, Cm)
     return _ssd.ssd_scan(xh, dA, Bm, Cm, chunk=min(chunk, max(
         xh.shape[1], 1)))

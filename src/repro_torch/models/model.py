@@ -1,7 +1,8 @@
 """Decoder LM of the dense attention, the Mamba-2 (SSM) and the RG-LRU
 hybrid (Griffin) families: ``init``, ``forward`` (train / prefill),
 ``init_cache`` and ``decode_step`` (one new token against a KV, SSM or
-RG-LRU cache). Each layer dispatches on its kind (``cfg.layer_kinds[i]``).
+RG-LRU cache), and ``param_count``. Each layer dispatches on its kind
+(``cfg.layer_kinds[i]``).
 
 The JAX package stacks homogeneous layers on a leading axis and scans over
 them; here ``params["blocks"]``, ``cspec["blocks"]`` and the cache are
@@ -130,6 +131,15 @@ def init(cfg: ArchConfig, seed: int = 0, device="cuda") -> dict:
         params["unembed"] = L.linear_init(gen, cfg.d_model, cfg.vocab_size,
                                           dtype, device)["w"]
     return params
+
+
+def param_count(params) -> int:
+    """Elements over every leaf of a param tree (dicts and lists)."""
+    if isinstance(params, dict):
+        return sum(param_count(v) for v in params.values())
+    if isinstance(params, (list, tuple)):
+        return sum(param_count(v) for v in params)
+    return params.numel()
 
 
 def _embed_inputs(cfg: ArchConfig, params, tokens, cspec) -> torch.Tensor:

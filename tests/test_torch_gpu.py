@@ -36,7 +36,12 @@ in [0.9487, 0.9995]) each (token, 256-channel block) row within 2^-12
 relative (``chip_smoke.py``'s ``K7_ROW_TOL``), in bf16 within one bf16
 rounding (2^-8 relative) of the f32 plain version; and everywhere bit for
 bit equal to the former three-launch kernel at the same chunk
-(``tools/k7_three_pass.cu``: the same steps in the same order).
+(``tools/k7_three_pass.cu``: the same steps in the same order). The
+training path: K1 under autograd exact in its forward, its gradient the
+upstream one bit for bit; one qwen2-0.5b SMOKE train step (f32) on the
+card against the CPU's plain route, loss 1e-5, gradients 1e-6 (f32 sums
+in other orders), updated leaves 1e-5, and the QAT step's loss within
+``chip_smoke.QAT_LOSS_TOL``.
 """
 import pathlib
 import sys
@@ -1350,3 +1355,44 @@ def test_gpu_population_graphs_equal_eager(cuda, kind):
         assert dict(graphs.COUNTS) == {"update": {"captures": 0,
                                                   "replays": 1}}
 
+
+
+# ---------------------------------------------------------------------------
+# The training path: K1 under autograd, the train step against the CPU
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(3072, 256), (4096, 896), (7, 33)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_gpu_fake_quant_ste_gradient_is_identity(cuda, shape, dtype, bits):
+    """K1's straight-through route under autograd, as a QAT forward runs
+    it (``core.quantization.fake_quant`` on a card tensor): the forward
+    equals the plain chain exactly and ``x.grad`` is the upstream
+    gradient bit for bit."""
+    from repro_torch.core.quantization import fake_quant
+    dt = getattr(torch, dtype)
+    x = torch.from_numpy(_normal(1, shape)).to(cuda).to(dt)
+    x.requires_grad_(True)
+    build.reset_launches()
+    y = fake_quant(x, bits)
+    assert build.LAUNCHES["fake_quant"] == 1 and y.grad_fn is not None
+    xf = x.detach().float()
+    chain = (xf + (fake_quant_ref(xf, bits) - xf)).to(dt)
+    assert torch.equal(y.detach(), chain)
+    gy = torch.from_numpy(_normal(2, shape)).to(cuda).to(dt)
+    y.backward(gy)
+    assert torch.equal(x.grad, gy)
+
+
+@pytest.mark.gpu
+def test_gpu_train_step_matches_cpu(cuda):
+    """``chip_smoke.py``'s ``[training path]`` b: qwen2-0.5b SMOKE in f32,
+    one train step on the card against the CPU's plain route (loss 1e-5,
+    gradients 1e-6, updated leaves 1e-5), then one QAT step with
+    ``k1_calls``' count of K1 launches and its loss within
+    ``QAT_LOSS_TOL`` (``check_train_device_vs_cpu`` raises otherwise)."""
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    out = chip_smoke.check_train_device_vs_cpu(cuda)
+    assert out["qat"] <= chip_smoke.QAT_LOSS_TOL
