@@ -151,7 +151,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
    latency the calibrated oracle's.
 11. Training path (``[training path]``, before the serving phases while
    the card's memory is free; the LM testbed's trainer also runs on the
-   CPU's plain route in a child process from here until after phase 12,
+   CPU's plain route in a child process from here until after phase 13,
    where its accuracy is checked):
    a. K1 under autograd (``core.quantization.fake_quant`` on a card
       tensor, as every QAT forward calls it) at the testbed's [3072,
@@ -184,7 +184,38 @@ Phases, each fatal on failure (non-zero exit, no result line):
       and 5 timed steps (ms, tokens/s, MFU against 989 TFLOP/s, peak
       memory), K1 launches per QAT step equal to ``k1_calls``' count,
       the loss after the steps below its first value.
-12. Prefill: ``make_prefill_step`` on qwen2-0.5b at full width (24
+12. Trainer path (``[trainer path]``, after phase 11 while the card's
+   memory is free):
+   a. K6, K7 and K8 under autograd (``kernels/ops.py``: the kernel's
+      forward, the backward the plain chain recomputed from the saved
+      inputs and differentiated), at the JAX tests' shapes and at one
+      full-width layer at training length from the seeded init:
+      qwen2-0.5b's q/k/v at 4 x 2048 (bf16), mamba2-780m layer 0's
+      (xh_dt, dA, B, C) at 4 x 512 (the tensor-core route),
+      recurrentgemma-2b layer 0's (a, b) at 1 x 2048: the forward
+      bit-equal to the no-grad launch, one launch and none in the
+      backward, every input's gradient against autograd through the
+      plain chain on the same tensors (bit-equal, or within
+      ``AUTOGRAD_REL_TOL``).
+   b. ``launch.train.main`` on qwen2-0.5b at full width, 4 x 2048, 8
+      steps over seeded token shards (24 K6 launches a forward): once
+      uninterrupted, once with ``--ckpt-every 4`` and one ``StepTimeout``
+      injected after step 4, whose retry restores step 4 and reaches the
+      uninterrupted run's losses at steps 5-8 within ``RESUME_LOSS_TOL``;
+      ms per step, tokens/s, MFU against 989 TFLOP/s, peak memory, and
+      seconds and bytes per checkpoint (snapshot, write, restore); then
+      one profiled step of the same shape (the device's busy share, the
+      device ms under K6's backward, the top kernels). The checkpoint
+      directory is removed at the end.
+   c. ``Trainer`` on mamba2-780m at full width, 4 x 512, 4 steps (48 K8
+      launches a forward, every gradient leaf finite, the loss falling;
+      ms per step, peak memory); recurrentgemma-2b at its SMOKE widths in
+      f32, 2 x 600 tokens, card against the CPU (loss within 1e-5,
+      gradients within ``RG_GRAD_TOL``, K7 2 and K6 1 launches).
+   d. ``examples/train_compress_serve_torch.py`` at its default 200
+      steps: its four stage lines, the training loss falling, the served
+      tokens in the vocabulary.
+13. Prefill: ``make_prefill_step`` on qwen2-0.5b at full width (24
    layers, d 896, vocab 151,936; seeded random weights) over 1 x 32,768
    seeded tokens, uncompressed and under a seeded pq policy. First K6 on
    one layer's q/k/v at that shape against the chunked plain branch
@@ -196,13 +227,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
    kernels and the oracle's predicted compressed/reference ratio beside
    the measured one. The whole prefill at the SMOKE widths and 1,100
    tokens (f32) must agree with the plain CPU path.
-13. Decode: ``decode_loop`` and ``sustained_throughput`` on the same
+14. Decode: ``decode_loop`` and ``sustained_throughput`` on the same
    model, batch 8, 64 steps, max_len 256, KV cache 16 and 8 bits, raw
    and under the policy; tok/s per variant, then one profiled 8-step
    decode each (device busy share, kernels per step). At the SMOKE
    widths (f32) the greedy tokens must be the prefill forward's
    argmaxes.
-14. Mamba-2 prefill: ``make_prefill_step`` on mamba2-780m at full width
+15. Mamba-2 prefill: ``make_prefill_step`` on mamba2-780m at full width
    (48 SSD layers, d 1536, d_inner 3072, 48 heads of 64, state 128,
    vocab 50,280; seeded random weights) over 1 x 32,768 tokens, raw and
    under a seeded pq policy (SSD heads pruned at ``ssm_in``). First K8
@@ -210,17 +241,17 @@ Phases, each fatal on failure (non-zero exit, no result line):
    plain branch (each (token, head) row within ``K8_ROW_TOL``, the final
    state within 2e-4), timed beside it and its bounds (f32 on the CUDA
    cores, split TF32 on the tensor cores), its route and its four
-   kernels' times (profiler); then, as in phase 12, a warm-up and one
+   kernels' times (profiler); then, as in phase 13, a warm-up and one
    timed forward each, with exactly 48 K8 launches, all 48 on the
    tensor-core route, and ``k1_calls``' count of K1 launches per
    forward. At the SMOKE
    widths (f32, 2 x 1,100 tokens, chunk 32: a ragged last chunk) the
    device forward's argmaxes equal the plain CPU path's.
-15. Mamba-2 decode: ``decode_loop`` and ``sustained_throughput``, batch 8,
+16. Mamba-2 decode: ``decode_loop`` and ``sustained_throughput``, batch 8,
    64 steps, the conv and state cache (no KV cache, so no int8 variant),
    raw and under the policy; one profiled 8-step decode each. At the
    SMOKE widths (f32) the greedy tokens are the prefill's argmaxes.
-16. RecurrentGemma prefill: ``make_prefill_step`` on recurrentgemma-2b at
+17. RecurrentGemma prefill: ``make_prefill_step`` on recurrentgemma-2b at
    full width (26 layers in a (rglru, rglru, attn) pattern: 18 RG-LRU
    layers of width 2,560 and 8 local-attention layers, 10 / 1 heads of
    256, window 2,048; d 2,560, GeGLU d_ff 7,680, vocab 256,000; seeded
@@ -232,19 +263,19 @@ Phases, each fatal on failure (non-zero exit, no result line):
    against the former three-launch kernel (``tools/k7_three_pass.cu``)
    at the same chunk, and K6 on layer 2's
    q/k/v (window 2,048) against the chunked plain branch and the dense
-   tail rows, each timed beside its bound; then, as in phase 12, a warm-up
+   tail rows, each timed beside its bound; then, as in phase 13, a warm-up
    and one timed forward each, with exactly 18 K7, 8 K6 (all 8 on the
    tensor-core route) and ``k1_calls``' count of K1 launches per
    forward; a profiled raw forward, with the device ms of layer 0's
    RG-LRU block split into its gate passes, K7, the GEMMs and the rest;
    the phase's peak device memory; at the SMOKE widths (f32, 2 x 1,100
    tokens) the device forward's argmaxes equal the plain CPU path's.
-17. RecurrentGemma decode: ``decode_loop`` and ``sustained_throughput``,
+18. RecurrentGemma decode: ``decode_loop`` and ``sustained_throughput``,
    batch 8, 64 steps, the RG-LRU state and the ring KV cache (16 and 8
    bits), raw and under the policy; one profiled 8-step decode each. At
    the SMOKE widths (f32, window 16) 24 greedy steps (the ring wraps) are
    the prefill's argmaxes.
-18. Lines before the last: the kernels as JSON, then ``nvidia-smi``'s name
+19. Lines before the last: the kernels as JSON, then ``nvidia-smi``'s name
    and power limit. Last line: ``{"ok": true, "device": {...}}``.
 
 K8 (SSD scan) joins phase 3: against the sequential ``ssd_scan_ref`` and
@@ -4213,7 +4244,579 @@ def training_phase(device) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phases 12 and 13: prefill and decode of qwen2-0.5b
+# Phase 12: the trainer path (K6 / K7 / K8 under autograd, the launcher
+# with its checkpoints and a resume, the other families, the example)
+# ---------------------------------------------------------------------------
+
+# The launcher on qwen2-0.5b at full width: global batch x sequence,
+# steps, checkpoint cadence, and the step after which one StepTimeout is
+# injected (the retry restores that step's checkpoint).
+LAUNCH_TRAIN = dict(batch=4, seq=2048, steps=8, ckpt_every=4, fail_after=4)
+# Token shards the launcher reads (``--data``): seeded uniform tokens.
+LAUNCH_SHARDS = dict(files=2, tokens=1 << 20)
+# The resumed run's losses at the steps after the restore against the
+# uninterrupted run's (~12.4 each). A development run on the card found
+# them bit-equal, as were two uninterrupted runs: no reduction on this
+# path raced there (the embedding's backward sorts its indices; the CE's
+# gather backward writes one element a position). The gate leaves room
+# for a card or library whose reductions are not reproducible, where
+# Adam turns last-bit gradient differences into fractions of a step.
+RESUME_LOSS_TOL = 1e-3
+MAMBA_TRAIN = dict(batch=4, seq=512, steps=4)
+RG_TRAIN = dict(batch=2, seq=600)      # SMOKE widths: K6 past 512 tokens
+# recurrentgemma-2b's SMOKE gradients, card against the CPU (f32): K6's
+# online softmax and K7's chunked walk round the forward in other orders
+# than the CPU's plain versions (~1e-6 of a value), and the backward
+# recomputes the plain chain from inputs that carry that difference (a
+# development run on the card found 6.6e-7).
+RG_GRAD_TOL = 1e-5
+# K6 / K7 / K8 under autograd: the gradient is the plain chain's,
+# differentiated on the same card tensors. Bit-equal is expected (the
+# same kernels on the same inputs); where a library kernel picks another
+# algorithm between the two runs the gate is AUTOGRAD_REL_TOL of the
+# largest gradient element.
+AUTOGRAD_REL_TOL = 1e-6
+
+
+def kernel_grad_calls(kind: str, extra):
+    """(the public op, the plain chain its backward differentiates, the
+    launch counter) of K6 ((causal, window)), K7 or K8 (chunk)."""
+    from repro_torch.kernels import ops, ref
+    if kind == "K6":
+        causal, window = extra
+        return (lambda q, k, v: ops.flash_attention(
+            q, k, v, causal=causal, window=window),
+            lambda q, k, v: ops._attention_plain(q, k, v, causal, window),
+            "flash_attention")
+    if kind == "K7":
+        return ops.rglru_scan, ref.rglru_scan_ref, "rglru_scan"
+    return (lambda *x: ops.ssd_scan(*x, chunk=extra),
+            lambda *x: ref.ssd_chunked_ref(*x, extra), "ssd_scan")
+
+
+def check_kernel_grad(kind: str, inputs, extra, what: str,
+                      seed: int = 0) -> dict:
+    """One kernel under autograd on card tensors: the forward bit-equal
+    to the bare (no-grad) launch, one launch in the forward and none in
+    the backward, and each input's gradient against autograd through the
+    plain chain on the same tensors with the same upstream gradient
+    (bit-equal, or within ``AUTOGRAD_REL_TOL``)."""
+    import torch
+    from repro_torch.kernels import build
+    call, plain, counter = kernel_grad_calls(kind, extra)
+
+    def tup(x):
+        return x if isinstance(x, tuple) else (x,)
+    with torch.no_grad():
+        want = tup(call(*inputs))
+    xs = [x.detach().requires_grad_(True) for x in inputs]
+    device = inputs[0].device
+    build.reset_launches()
+    outs = tup(call(*xs))
+    fwd = build.LAUNCHES[counter]
+    gen = torch.Generator(device=inputs[0].device).manual_seed(seed)
+    ups = [torch.randn(o.shape, generator=gen, device=o.device).to(o.dtype)
+           for o in outs]
+    grads = torch.autograd.grad(outs, xs, ups, allow_unused=True)
+    bwd = build.LAUNCHES[counter] - fwd
+    # timed once more, warm (host clock, each part ended by a sync)
+    _sync(device)
+    t0 = time.perf_counter()
+    again = tup(call(*xs))
+    _sync(device)
+    t_fwd = time.perf_counter() - t0
+    torch.autograd.grad(again, xs, ups, allow_unused=True)
+    _sync(device)
+    t_bwd = time.perf_counter() - t0 - t_fwd
+    del again
+    ys = [x.detach().requires_grad_(True) for x in inputs]
+    with torch.enable_grad():
+        pouts = tup(plain(*ys))
+    pgrads = torch.autograd.grad(pouts, ys, ups, allow_unused=True)
+    fwd_equal = all(torch.equal(o.detach(), w) for o, w in zip(outs, want))
+    equal, rel = True, 0.0
+    for g, p in zip(grads, pgrads):
+        if g is None or p is None:
+            equal &= g is None and p is None
+            continue
+        equal &= torch.equal(g, p)
+        scale = float(p.abs().max()) or 1.0
+        rel = max(rel, float((g.float() - p.float()).abs().max()) / scale)
+    shape = "x".join(str(s) for s in inputs[0].shape)
+    log(f"  a. {kind} under autograd, {what} [{shape}] "
+        f"{str(inputs[0].dtype).replace('torch.', '')}: forward "
+        f"{'bit-equal' if fwd_equal else 'DIFFERS'} to the no-grad launch, "
+        f"launches {fwd} forward / {bwd} backward; gradients "
+        f"{'bit-equal' if equal else f'max rel {rel:.3g}'} against the "
+        f"plain chain's; warm: {t_fwd * 1e3:.2f} ms forward, "
+        f"{t_bwd * 1e3:.2f} ms backward (the plain chain recomputed and "
+        f"differentiated)")
+    if not fwd_equal or fwd != 1 or bwd != 0 or (
+            not equal and rel > AUTOGRAD_REL_TOL):
+        raise AssertionError(f"{kind} under autograd at {what}: forward "
+                             f"equal {fwd_equal}, launches {fwd}/{bwd}, "
+                             f"gradients rel {rel}")
+    return {"equal": equal, "rel": rel, "fwd_ms": t_fwd * 1e3,
+            "bwd_ms": t_bwd * 1e3}
+
+
+def kernel_grad_cases(device) -> list:
+    """(kind, inputs, extra, what) at the JAX tests' shapes: K6 f32 (2,
+    128, 4 over 4, 32) causal and (2, 200, 8 over 2, 16) with a window
+    of 96, bf16 (1, 128, 4 over 2, 32); K7 (2, 64, 96) and (2, 32, 64)
+    with h0; K8 (2, 64, 4, 16, 8) at chunk 16 and (1, 128, 2, 32, 16) at
+    32."""
+    import numpy as np
+    import torch
+    cases = []
+    for (B, S, H, KV, D), dtype, mask in (
+            ((2, 128, 4, 4, 32), torch.float32, (True, 0)),
+            ((2, 200, 8, 2, 16), torch.float32, (True, 96)),
+            ((1, 128, 4, 2, 32), torch.bfloat16, (True, 0))):
+        rng = np.random.default_rng(B * S + D)
+        q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(
+            np.float32)).to(device, dtype)
+            for s in ((B, H, S, D), (B, KV, S, D), (B, KV, S, D)))
+        cases.append(("K6", [q, k, v], mask, "the JAX tests' shape"))
+    for (B, S, C), h0 in (((2, 64, 96), False), ((2, 32, 64), True)):
+        a, b, h = lru_case(S, B, S, C, (0.4, 0.99), device, h0)
+        cases.append(("K7", [a, b] + ([h] if h0 else []), None,
+                      "the JAX tests' shape" + (", h0" if h0 else "")))
+    for shape, chunk in (((2, 64, 4, 16, 8), 16), ((1, 128, 2, 32, 16), 32)):
+        cases.append(("K8", ssd_case(chunk, *shape, 0.5, device), chunk,
+                      f"the JAX tests' shape, chunk {chunk}"))
+    return cases
+
+
+def layer0_inputs(name: str, batch: int, seq: int, device):
+    """Layer 0's kernel inputs at full width from the seeded init, the
+    model cut to one layer (the init draws the embedding, then the layers
+    in order, so layer 0's weights are the full model's): qwen2-0.5b's
+    q, k, v as [B,H,S,D] views (the layout K6 is handed), mamba2-780m's
+    (xh_dt, dA, B, C), recurrentgemma-2b's (a, b)."""
+    from repro_torch.models import model as M
+    from repro_torch.models.registry import get_config
+    cfg = get_config(name).replace(num_layers=1)
+    params = M.init(cfg, seed=0, device=device)
+    toks = prefill_tokens(cfg, batch, seq, 9, device)
+    if name == "qwen2-0.5b":
+        return [x.transpose(1, 2) for x in layer_qkv(cfg, params, toks)]
+    if name == "mamba2-780m":
+        return list(layer_ssd_inputs(cfg, params, toks)), cfg.ssm.chunk_size
+    return list(layer_rglru_inputs(cfg, params, toks))
+
+
+def check_autograd_kernels(device) -> dict:
+    """Part a: K6, K7 and K8 under autograd at the JAX tests' shapes and
+    at one full-width layer at training length."""
+    import torch
+    out = {}
+    for kind, xs, extra, what in kernel_grad_cases(device):
+        out[f"{kind} {what}"] = check_kernel_grad(kind, xs, extra, what)
+    B, S = LAUNCH_TRAIN["batch"], LAUNCH_TRAIN["seq"]
+    out["K6 qwen2"] = check_kernel_grad(
+        "K6", layer0_inputs("qwen2-0.5b", B, S, device), (True, 0),
+        f"qwen2-0.5b layer 0 at {B} x {S}")
+    xs, chunk = layer0_inputs("mamba2-780m", MAMBA_TRAIN["batch"],
+                              MAMBA_TRAIN["seq"], device)
+    from repro_torch.kernels.ssd_scan import route
+    if route(xs[0].shape[-1], xs[2].shape[-1], chunk) != "tc":
+        raise AssertionError("mamba2's layer 0 left K8's tensor-core route")
+    out["K8 mamba2"] = check_kernel_grad(
+        "K8", xs, chunk, f"mamba2-780m layer 0 at {MAMBA_TRAIN['batch']} x "
+        f"{MAMBA_TRAIN['seq']}, chunk {chunk}, route tc")
+    out["K7 recurrentgemma"] = check_kernel_grad(
+        "K7", layer0_inputs("recurrentgemma-2b", 1, 2048, device), None,
+        "recurrentgemma-2b layer 0 at 1 x 2048")
+    release_cached_memory(device)
+    return out
+
+
+def write_token_shards(directory: str, vocab: int) -> None:
+    """``LAUNCH_SHARDS`` seeded uniform uint32 token shards (``*.npy``),
+    the launcher's ``--data``: the synthetic bigram source would build a
+    vocab x vocab table, 185 GB at qwen2's vocab of 151,936."""
+    import numpy as np
+    os.makedirs(directory, exist_ok=True)
+    rng = np.random.default_rng(17)
+    for i in range(LAUNCH_SHARDS["files"]):
+        np.save(os.path.join(directory, f"shard{i}.npy"),
+                rng.integers(0, vocab, LAUNCH_SHARDS["tokens"], np.uint32))
+
+
+@contextlib.contextmanager
+def trainer_probes(fail_after=None):
+    """Patches for one launcher run: stamps of each ``StepMonitor.record``
+    (the host clock after a step is queued; with the loss read back each
+    step, consecutive stamps are one whole step apart), one injected
+    ``StepTimeout`` after step ``fail_after``, and the seconds of each
+    checkpoint's snapshot (the host copy ``AsyncCheckpointer.save``
+    waits for), write (the thread) and restore."""
+    from repro_torch.checkpoint import checkpointing as C
+    from repro_torch.distributed.fault_tolerance import StepTimeout
+    from repro_torch.train import trainer as TT
+    rec = {"stamps": [], "fired": [], "snapshot_s": [], "write_s": [],
+           "restore_s": [], "dirs": []}
+    base, save, snap, restore = (TT.StepMonitor, C.save,
+                                 C.AsyncCheckpointer.save, C.restore)
+
+    class Monitor(base):
+        def record(self, step, dt):
+            rec["stamps"].append((step, time.perf_counter()))
+            if step == (fail_after or 0) + 1 and fail_after \
+                    and not rec["fired"]:
+                rec["fired"].append(step)
+                raise StepTimeout(f"injected after step {fail_after}")
+            super().record(step, dt)
+
+    def timed(key, fn):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            rec[key].append(time.perf_counter() - t0)
+            if key == "write_s":
+                rec["dirs"].append(os.path.join(a[0], f"step_{a[1]}"))
+            return out
+        return run
+    TT.StepMonitor = Monitor
+    C.save = timed("write_s", save)
+    C.AsyncCheckpointer.save = timed("snapshot_s", snap)
+    C.restore = timed("restore_s", restore)
+    try:
+        yield rec
+    finally:
+        TT.StepMonitor, C.save = base, save
+        C.AsyncCheckpointer.save, C.restore = snap, restore
+
+
+def step_ms(stamps) -> float:
+    """Median ms between consecutive steps' stamps of one attempt, the
+    first two steps (allocations, library handles) left out."""
+    gaps = [(t1 - t0) * 1e3 for (s0, t0), (s1, t1) in zip(stamps, stamps[1:])
+            if s1 == s0 + 1 and s0 >= 2]
+    return sorted(gaps)[len(gaps) // 2]
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+
+
+def profile_train_step(cfg, batch: int, seq: int, device) -> dict:
+    """Where the launcher's step goes: ``make_train_step`` (what
+    ``Trainer`` runs) on ``cfg``'s seeded init at ``batch`` x ``seq``, two
+    warm-up steps, one timed (host clock ended by a sync) and one under
+    ``torch.profiler`` (device activity only: recording the host's ops
+    too cost ~40 s for this step's ~21,600 kernels) with CUDA events
+    around each call of K6's backward: the device's busy share, the
+    device ms those calls span (the chunked plain chain recomputed and
+    differentiated) beside K6's forward kernel, and the top kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.optim.optimizer import OptimizerConfig, adamw_init
+    from repro_torch.train.train_step import make_train_step
+    release_cached_memory(device)
+    params = M.init(cfg, seed=0, device=device)
+    ocfg = OptimizerConfig(lr=3e-4, warmup_steps=10, total_steps=8)
+    box = [params, adamw_init(params, ocfg)]
+    step = make_train_step(cfg, ocfg)
+    toks = {"tokens": prefill_tokens(cfg, batch, seq, 23, device)}
+
+    def one():
+        box[0], box[1], _ = step(box[0], box[1], toks)
+    for _ in range(2):
+        one()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    backward, spans = ops._FlashAttention.backward, []
+
+    def timed(ctx, g):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = backward(ctx, g)
+        ev[1].record()
+        spans.append(ev)
+        return out
+    ops._FlashAttention.backward = staticmethod(timed)
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            one()
+            torch.cuda.synchronize()
+    finally:
+        ops._FlashAttention.backward = staticmethod(backward)
+    rows = [(getattr(ev, "self_device_time_total", 0.0) * 1e-3, ev.key,
+             ev.count) for ev in prof.key_averages()
+            if getattr(ev, "device_type", None) is not None
+            and "CUDA" in str(ev.device_type)]
+    busy = sum(t for t, _, _ in rows)
+    del box
+    release_cached_memory(device)
+    return {"step_ms": wall * 1e3, "busy_ms": busy,
+            "busy_share": busy / (wall * 1e3),
+            "attn_bwd_ms": sum(a.elapsed_time(b) for a, b in spans),
+            "attn_bwd_calls": len(spans),
+            "k6_ms": sum(t for t, key, _ in rows if "flash_attention" in key),
+            "kernels": sum(n for *_, n in rows),
+            "top": sorted(rows, reverse=True)[:6]}
+
+
+def launcher_qwen2(device) -> dict:
+    """Part b: ``launch.train.main`` on qwen2-0.5b at full width,
+    ``LAUNCH_TRAIN``'s batch x sequence (K6 on every layer, 24 launches a
+    forward, none in the backward) over seeded token shards, first
+    uninterrupted with no checkpoint directory, then with ``--ckpt-every
+    4`` and one ``StepTimeout`` injected after step 4: the retry restores
+    step 4 and its losses at steps 5-8 are the uninterrupted run's within
+    ``RESUME_LOSS_TOL``."""
+    import shutil
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import build
+    from repro_torch.launch import train as LT
+    from repro_torch.launch.inputs import model_flops
+    from repro_torch.models.registry import get_config
+    arch = "qwen2-0.5b"
+    cfg = get_config(arch)
+    L = LAUNCH_TRAIN
+    work = os.path.join(ROOT, "build", "trainer_path")
+    shards, ckpt = os.path.join(work, "tokens"), os.path.join(work, "ckpt")
+    shutil.rmtree(work, ignore_errors=True)
+    write_token_shards(shards, cfg.vocab_size)
+    argv = ["--arch", arch, "--steps", str(L["steps"]), "--global-batch",
+            str(L["batch"]), "--seq-len", str(L["seq"]), "--data", shards,
+            "--device", str(device)]
+    flops = model_flops(cfg, ShapeConfig("train_4x2048", L["seq"],
+                                         L["batch"], "train"))
+    try:
+        release_cached_memory(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        build.reset_launches()
+        with trainer_probes() as rec:
+            plain = LT.main(argv)
+        k6 = (build.LAUNCHES["flash_attention"],
+              build.LAUNCHES["flash_attention_tc"])
+        peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+        ms = step_ms(rec["stamps"])
+        want_k6 = cfg.num_layers * L["steps"]
+        log(f"  b. launch.train on {cfg.name} at full width, {L['batch']} x "
+            f"{L['seq']} tokens, {L['steps']} steps, no checkpoints: "
+            f"{ms:.2f} ms per step (median of steps 3-{L['steps']}, the "
+            f"loss read back each step), {L['batch'] * L['seq'] / ms * 1e3:.0f}"
+            f" tokens/s, MFU {flops / (ms * 1e-3) / BF16_FLOPS:.1%} "
+            f"({flops / 1e12:.2f} TFLOP a step: model_flops in train mode), "
+            f"peak {peak:.2f} GiB; K6 {k6[0]} launches ({k6[1]} on the "
+            f"tensor-core route) for {L['steps']} forwards of "
+            f"{cfg.num_layers} layers; losses "
+            + " ".join(f"{r['loss']:.4f}" for r in plain["history"])
+            + f"; {CARD}")
+        if k6 != (want_k6, want_k6):
+            raise AssertionError(f"K6 launched {k6} times, not "
+                                 f"{cfg.num_layers} per forward")
+        del plain["trainer"]
+        release_cached_memory(device)
+        build.reset_launches()
+        with trainer_probes(L["fail_after"]) as res:
+            out = LT.main(argv + ["--ckpt-dir", ckpt, "--ckpt-every",
+                                  str(L["ckpt_every"])])
+        k6r = build.LAUNCHES["flash_attention"]
+        sizes = [dir_bytes(d) for d in res["dirs"] if os.path.isdir(d)]
+        want = {r["step"]: r["loss"] for r in plain["history"]}
+        got = {r["step"]: r["loss"] for r in out["history"]}
+        diff = max(abs(got[s] - want[s]) for s in got)
+        log(f"  b. the same with --ckpt-every {L['ckpt_every']} and a "
+            f"StepTimeout injected after step {L['fail_after']}: "
+            f"{out['attempts']} attempts, resumed at step "
+            f"{out['trainer'].step - len(got)}; losses at steps "
+            f"{sorted(got)}: " + " ".join(f"{got[s]:.4f}" for s in sorted(got))
+            + f", {diff:.3g} from the uninterrupted run's (tol "
+            f"{RESUME_LOSS_TOL}); checkpoints: snapshot "
+            + ", ".join(f"{t:.2f}" for t in res["snapshot_s"]) + " s, write "
+            + ", ".join(f"{t:.2f}" for t in res["write_s"]) + " s, "
+            + ", ".join(f"{b / 1e9:.3f}" for b in sizes) + " GB, restore "
+            + ", ".join(f"{t:.2f}" for t in res["restore_s"])
+            + f" s; K6 {k6r} launches")
+        if res["fired"] != [L["fail_after"] + 1] or out["attempts"] != 2 \
+                or sorted(got) != list(range(L["fail_after"] + 1,
+                                             L["steps"] + 1)) \
+                or diff > RESUME_LOSS_TOL \
+                or k6r != cfg.num_layers * (L["steps"] + 1):
+            raise AssertionError(f"the resumed run: fired {res['fired']}, "
+                                 f"attempts {out['attempts']}, losses {got} "
+                                 f"vs {want}, K6 {k6r}")
+        del out
+        prof = profile_train_step(cfg, L["batch"], L["seq"], device)
+        log(f"  b. one train step of the launcher's profiled: "
+            f"{prof['step_ms']:.2f} ms unprofiled, device busy "
+            f"{prof['busy_ms']:.2f} ms ({prof['busy_share']:.1%}); K6's "
+            f"backward (the chunked plain chain) spans "
+            f"{prof['attn_bwd_ms']:.2f} ms of the device's time over its "
+            f"{prof['attn_bwd_calls']} calls, K6's forward kernel "
+            f"{prof['k6_ms']:.2f} ms")
+        log_top(prof)
+        return {"step_ms": ms, "tokens_s": L["batch"] * L["seq"] / ms * 1e3,
+                "mfu": flops / (ms * 1e-3) / BF16_FLOPS, "peak_gib": peak,
+                "k6": k6[0] + k6r, "resume_diff": diff,
+                "snapshot_s": res["snapshot_s"], "write_s": res["write_s"],
+                "restore_s": res["restore_s"], "ckpt_bytes": sizes,
+                "profile": prof}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        release_cached_memory(device)
+
+
+def trainer_mamba2(device) -> dict:
+    """Part c: ``Trainer`` on mamba2-780m at full width (48 SSD layers,
+    seeded weights), ``MAMBA_TRAIN``'s steps on one seeded batch: every
+    gradient leaf finite, K8 48 launches a forward and none in the
+    backward (all on the tensor-core route), the loss finite and falling;
+    ms per step and peak memory."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.models.registry import get_config
+    from repro_torch.optim.optimizer import OptimizerConfig, tree_leaves
+    from repro_torch.train.train_step import lm_loss, value_and_grad
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg = get_config("mamba2-780m")
+    B, S, n = MAMBA_TRAIN["batch"], MAMBA_TRAIN["seq"], MAMBA_TRAIN["steps"]
+    release_cached_memory(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    batch = {"tokens": prefill_tokens(cfg, B, S, 21, device)}
+    with trainer_probes() as rec:
+        tr = Trainer(cfg, OptimizerConfig(lr=3e-4, warmup_steps=2,
+                                          total_steps=1000),
+                     TrainerConfig(total_steps=n, log_every=1), seed=0,
+                     device=device)
+        build.reset_launches()
+        _, grads = value_and_grad(lambda p: lm_loss(cfg, p, batch),
+                                  tr.params)
+        bad = sum(not bool(torch.isfinite(g).all())
+                  for g in tree_leaves(grads))
+        k8_grad = build.LAUNCHES["ssd_scan"]
+        del grads
+        build.reset_launches()
+        hist = tr.fit(iter([batch] * (n + 1)))
+    k8 = (build.LAUNCHES["ssd_scan"], build.LAUNCHES["ssd_scan_tc"])
+    peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    stamps = rec["stamps"]
+    ms = (stamps[-1][1] - stamps[1][1]) / (len(stamps) - 2) * 1e3
+    losses = [r["loss"] for r in hist]
+    log(f"  c. Trainer on {cfg.name} at full width ({cfg.num_layers} SSD "
+        f"layers), {B} x {S} tokens, {n} steps on one batch: {ms:.2f} ms "
+        f"per step (steps 3-{n}), peak {peak:.2f} GiB; losses "
+        + " ".join(f"{x:.4f}" for x in losses)
+        + f"; gradient leaves not finite: {bad}; K8 {k8_grad} launches in a "
+        f"value_and_grad, {k8[0]} in {n} steps ({k8[1]} on the tensor-core "
+        f"route); {CARD}")
+    if bad or k8_grad != cfg.num_layers or k8 != (cfg.num_layers * n,) * 2 \
+            or not all(math.isfinite(x) for x in losses) \
+            or not losses[-1] < losses[0]:
+        raise AssertionError(f"mamba2 training: {bad} bad leaves, K8 "
+                             f"{k8_grad}/{k8}, losses {losses}")
+    del tr
+    release_cached_memory(device)
+    return {"step_ms": ms, "peak_gib": peak, "losses": losses,
+            "k8": k8[0] + k8_grad}
+
+
+def train_rg_device_vs_cpu(device) -> dict:
+    """Part c: recurrentgemma-2b at its SMOKE widths in f32 (3 layers:
+    two RG-LRU, one local attention), ``RG_TRAIN``'s tokens (K6 past 512
+    positions), the same seeded params and batch on the card and on the
+    CPU: the loss within 1e-5, every gradient leaf within
+    ``RG_GRAD_TOL``, K7 2 and K6 1 launches in the card's forward and
+    none in its backward."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.models import model as M
+    from repro_torch.models.registry import get_config
+    from repro_torch.train.train_step import lm_loss, value_and_grad
+    cfg = get_config("recurrentgemma-2b", smoke=True).replace(
+        compute_dtype="float32")
+    host = M.init(cfg, 0, "cpu")
+    toks = prefill_tokens(cfg, RG_TRAIN["batch"], RG_TRAIN["seq"], 4, "cpu")
+    want = value_and_grad(lambda p: lm_loss(cfg, p, {"tokens": toks}), host)
+    dev = _to(host, device)
+    build.reset_launches()
+    got = value_and_grad(lambda p: lm_loss(
+        cfg, p, {"tokens": toks.to(device)}), dev)
+    launches = {k: build.LAUNCHES[k] for k in ("rglru_scan",
+                                               "flash_attention")}
+    kinds = cfg.layer_kinds
+    d_loss = abs(float(want[0]) - float(got[0]))
+    d_grad = _max_leaf_diff(want[1], got[1])
+    log(f"  c. {cfg.name} f32, {RG_TRAIN['batch']} x {RG_TRAIN['seq']} "
+        f"tokens, card against the CPU: loss {d_loss:.3g} apart (tol 1e-5), "
+        f"gradients {d_grad:.3g} (tol {RG_GRAD_TOL}); launches {launches}")
+    if d_loss > 1e-5 or d_grad > RG_GRAD_TOL or launches != {
+            "rglru_scan": kinds.count("rglru"),
+            "flash_attention": kinds.count("attn")}:
+        raise AssertionError(f"recurrentgemma SMOKE training: loss "
+                             f"{d_loss}, gradients {d_grad}, {launches}")
+    return {"loss": d_loss, "grad": d_grad, **launches}
+
+
+def run_example(device) -> dict:
+    """Part d: ``examples/train_compress_serve_torch.py`` at its default
+    200 steps on the card (its four stage lines print here): the
+    training loss falls, the served tokens come back in the vocabulary."""
+    import importlib.util
+    import shutil
+    from repro_torch.kernels import build
+    path = os.path.join(ROOT, "examples", "train_compress_serve_torch.py")
+    spec = importlib.util.spec_from_file_location("e2e_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    build.reset_launches()
+    t0 = time.perf_counter()
+    out = mod.main(["--device", str(device)])
+    seconds = time.perf_counter() - t0
+    shutil.rmtree(out["ckpt_dir"], ignore_errors=True)
+    losses = [r["loss"] for r in out["history"]]
+    toks = out["tokens"]
+    ok = (losses[-1] < losses[0]
+          and tuple(toks.shape) == (4, out["serve_steps"] + 1)
+          and 0 <= int(toks.min()) and int(toks.max()) < out["vocab"])
+    log(f"  d. the example: {seconds:.1f} s; logged losses "
+        + " ".join(f"{x:.4f}" for x in losses)
+        + f"; served tokens {tuple(toks.shape)}; QAT accuracy "
+        f"{out['qat_accuracy']:.4f} (clean {out['ref_accuracy']:.4f}); "
+        f"launches {dict((k, v) for k, v in build.LAUNCHES.items() if v)}")
+    if not ok:
+        raise AssertionError(f"the example: losses {losses}, tokens "
+                             f"{tuple(toks.shape)}")
+    return {"seconds": seconds, "losses": losses}
+
+
+def trainer_phase(device) -> dict:
+    """Phase 12, ``[trainer path]``: a-d of the module docstring."""
+    t_phase = time.perf_counter()
+    log(f"[trainer path] K6 / K7 / K8 under autograd; launch.train on "
+        f"qwen2-0.5b at full width with a checkpoint and a resume; "
+        f"mamba2-780m through Trainer; recurrentgemma-2b card vs CPU; the "
+        f"end-to-end example; {CARD}")
+    out, seconds = {}, {}
+
+    def part(name, fn, *args):
+        t0 = time.perf_counter()
+        out[name] = fn(*args)
+        seconds[name] = round(time.perf_counter() - t0, 1)
+    part("autograd", check_autograd_kernels, device)
+    part("launcher", launcher_qwen2, device)
+    part("mamba2", trainer_mamba2, device)
+    part("recurrentgemma", train_rg_device_vs_cpu, device)
+    part("example", run_example, device)
+    log(f"  {time.perf_counter() - t_phase:.1f} s for the trainer phase "
+        f"(by part: {seconds})")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phases 13 and 14: prefill and decode of qwen2-0.5b
 # ---------------------------------------------------------------------------
 
 def seeded_policy(cm, seed: int):
@@ -4842,7 +5445,7 @@ def _to(tree, device):
 # ---------------------------------------------------------------------------
 
 def recurrentgemma_phases(device, results: dict, launches: dict) -> None:
-    """Phases 16 and 17 on the card: recurrentgemma-2b's prefill and
+    """Phases 17 and 18 on the card: recurrentgemma-2b's prefill and
     decode (the earlier models freed first). Adds the K6 (D 256) and K7
     rows to ``results`` and their launch counts to ``launches``."""
     import torch
@@ -5120,6 +5723,8 @@ def main() -> int:
 
     release_cached_memory(device)
     train = training_phase(device)
+    release_cached_memory(device)
+    trainer = trainer_phase(device)
 
     from repro_torch.core.compress import CompressibleLM
     from repro_torch.models import blocks as MB
@@ -5268,6 +5873,10 @@ def main() -> int:
         f"{r['plain_ms']:.4f} ms plain, bound {r['bound_ms']:.4f} ms "
         f"({r['bound_by']}); max err {r['max_abs_err']:.3g}, max row rel "
         f"{r['row_rel_err']:.3g} ({CARD})")
+    # the trainer path's training launches (not its autograd checks)
+    launches["flash_attention"] += trainer["launcher"]["k6"]
+    launches["ssd_scan"] += trainer["mamba2"]["k8"]
+    launches["rglru_scan"] += trainer["recurrentgemma"]["rglru_scan"]
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", **KERNELS[name],
          "launches": launches[name], "max_abs_err": r["max_abs_err"],

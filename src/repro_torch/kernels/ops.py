@@ -173,26 +173,107 @@ def fused_polyak(target, online, tau: float):
     return fused_polyak_nets([target], [online], tau)[0]
 
 
-def _refuse_grad(kernel: str, *xs: torch.Tensor) -> None:
-    """Raise if autograd would record a call of ``kernel``, a kernel with
-    no backward: its output would carry no ``grad_fn``, and a train step
-    would take the layer for a constant and return wrong gradients
-    without a word. Checked before any build or launch; nothing falls
-    back to the plain version."""
-    if torch.is_grad_enabled() and any(x.requires_grad for x in xs):
-        raise RuntimeError(
-            f"{kernel} has no backward, and an input requires grad: "
-            f"training through it waits for a later slice of the port "
-            f"(ROADMAP.md, Queue 1); run it under torch.no_grad()")
+def _wants_grad(*xs) -> bool:
+    return torch.is_grad_enabled() and any(
+        x is not None and x.requires_grad for x in xs)
+
+
+def _plain_vjp(ctx, plain, grads_out) -> tuple:
+    """The backward of a kernel forward: ``plain`` (the chain the JAX
+    package differentiates) recomputed from the saved inputs under
+    ``enable_grad`` and differentiated against ``grads_out`` (None for an
+    output nobody used). One gradient per saved input, None where the
+    input asked for none. Only the inputs are kept between forward and
+    backward, as activation checkpointing keeps them."""
+    xs = [None if x is None else x.detach().requires_grad_(need)
+          for x, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+    with torch.enable_grad():
+        outs = plain(*xs)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    used = [(o, g) for o, g in zip(outs, grads_out) if g is not None]
+    wrt = [x for x in xs if x is not None and x.requires_grad]
+    got = iter(torch.autograd.grad([o for o, _ in used], wrt,
+                                   [g for _, g in used], allow_unused=True)
+               if used and wrt else [None] * len(wrt))
+    return tuple(next(got) if x is not None and x.requires_grad else None
+                 for x in xs)
+
+
+def _attention_plain(q, k, v, causal: bool, window: int):
+    """K6's function on its [B,H,S,D] layout through the JAX model's
+    chunked jnp chain (``layers.attention_chunked``, on the [B,S,H,D]
+    views the model hands in): what the JAX package differentiates past
+    512 positions."""
+    from ..models.layers import attention_chunked   # layers imports ops
+    return attention_chunked(q.transpose(1, 2), k.transpose(1, 2),
+                             v.transpose(1, 2), causal=causal,
+                             window=window).transpose(1, 2)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K6 under autograd: the forward is one kernel launch (the bits of a
+    no-grad call); the backward recomputes ``_attention_plain`` from the
+    saved q, k, v and differentiates it (the JAX package's K2 pattern,
+    ``custom_vjp`` with the reference chain as its backward)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.mask = (causal, window)
+        return _fa.flash_attention(q, k, v, causal=causal, window=window)
+
+    @staticmethod
+    def backward(ctx, g):
+        causal, window = ctx.mask
+        return (*_plain_vjp(ctx, lambda q, k, v: _attention_plain(
+            q, k, v, causal, window), (g,)), None, None)
+
+
+class _RGLRUScan(torch.autograd.Function):
+    """K7 under autograd: one launch forward; the backward differentiates
+    the sequential ``ref.rglru_scan_ref`` recomputed from a, b (and
+    h0)."""
+
+    @staticmethod
+    def forward(ctx, a, b, h0):
+        ctx.save_for_backward(a, b, h0)
+        return _rg.rglru_scan(a, b, h0)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _plain_vjp(ctx, _ref.rglru_scan_ref, (g,))
+
+
+class _SSDScan(torch.autograd.Function):
+    """K8 under autograd: one launch forward for (y, final state); the
+    backward differentiates the chunked ``ref.ssd_chunked_ref`` (the JAX
+    model's jnp ``ssd_chunked``) at the caller's chunk, recomputed from
+    xh, dA, B, C."""
+
+    @staticmethod
+    def forward(ctx, xh, dA, Bm, Cm, chunk):
+        ctx.save_for_backward(xh, dA, Bm, Cm)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return _ssd.ssd_scan(xh, dA, Bm, Cm, chunk=min(chunk, max(
+            xh.shape[1], 1)))
+
+    @staticmethod
+    def backward(ctx, gy, gstate):
+        return (*_plain_vjp(ctx, lambda *xs: _ref.ssd_chunked_ref(
+            *xs, ctx.chunk), (gy, gstate)), None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """q [B,H,S,D]; k,v [B,KV,S,D] -> [B,H,S,D] (K6). The JAX op pads S
     to its blocks' multiple; the kernel masks the ragged edge instead.
-    No gradient, as the JAX op has none: under autograd with an input
-    that requires grad it raises (``_refuse_grad``)."""
-    _refuse_grad("K6 (flash attention)", q, k, v)
+    On a CUDA tensor under autograd (an input requires grad) the kernel
+    runs inside ``_FlashAttention``, whose backward differentiates the
+    chunked plain chain; a CPU tensor takes the plain version, which
+    autograd differentiates directly."""
+    if q.device.type != "cpu" and _wants_grad(q, k, v):
+        return _FlashAttention.apply(q, k, v, causal, window)
     return _fa.flash_attention(q, k, v, causal=causal, window=window)
 
 
@@ -200,10 +281,12 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor,
                h0=None) -> torch.Tensor:
     """a, b [B,S,C]; h0 [B,C] or None -> h [B,S,C] in a's dtype, ``h_t =
     a_t h_{t-1} + b_t`` (K7). The JAX op halves its blocks until they
-    divide S and C; the kernel masks ragged edges instead. No gradient,
-    as the JAX op has none: under autograd with an input that requires
-    grad it raises (``_refuse_grad``)."""
-    _refuse_grad("K7 (RG-LRU scan)", a, b, *(() if h0 is None else (h0,)))
+    divide S and C; the kernel masks ragged edges instead. On a CUDA
+    tensor under autograd the kernel runs inside ``_RGLRUScan`` (backward:
+    the sequential plain version differentiated); a CPU tensor takes the
+    plain version."""
+    if a.device.type != "cpu" and _wants_grad(a, b, h0):
+        return _RGLRUScan.apply(a, b, h0)
     return _rg.rglru_scan(a, b, h0)
 
 
@@ -212,9 +295,11 @@ def ssd_scan(xh: torch.Tensor, dA: torch.Tensor, Bm: torch.Tensor,
     """xh [B,S,H,P] (dt-scaled inputs); dA [B,S,H] log decays; Bm, Cm
     [B,S,N] -> (y [B,S,H,P], final state [B,H,P,N]) (K8). The JAX op
     halves the chunk until it divides S; the kernel masks the ragged
-    edge at any chunk length instead, which is the same function. No
-    gradient, as the JAX op has none: under autograd with an input that
-    requires grad it raises (``_refuse_grad``)."""
-    _refuse_grad("K8 (SSD scan)", xh, dA, Bm, Cm)
+    edge at any chunk length instead, which is the same function. On a
+    CUDA tensor under autograd the kernel runs inside ``_SSDScan``
+    (backward: the chunked plain version at ``chunk`` differentiated); a
+    CPU tensor takes the plain version."""
+    if xh.device.type != "cpu" and _wants_grad(xh, dA, Bm, Cm):
+        return _SSDScan.apply(xh, dA, Bm, Cm, chunk)
     return _ssd.ssd_scan(xh, dA, Bm, Cm, chunk=min(chunk, max(
         xh.shape[1], 1)))

@@ -1,27 +1,39 @@
-"""The testbed trainers (the JAX package's ``train/trainer.py::
-train_testbed_lm`` and ``train_testbed_resnet``): short AdamW runs that
-give the Galen search a trained model to compress, the LM on the
+"""The training loop with checkpoint/restart and straggler detection
+(the JAX package's ``train/trainer.py::Trainer``), the loop behind
+``repro_torch.launch.train``; and the testbed trainers
+(``train_testbed_lm`` and ``train_testbed_resnet``): short AdamW runs
+that give the Galen search a trained model to compress, the LM on the
 synthetic bigram language, the ResNet on Gaussian-blob images. Batches
 come from the port's numpy generators (``data/pipeline.py``), which
 draw the JAX package's tokens and pixels bit for bit from the same
 seeds.
 
-Both take the JAX signature plus ``params`` (initial weights: the tests
+Each takes the JAX signature plus ``params`` (initial weights: the tests
 feed the JAX package's, carried over with ``repro_torch.convert``; the
 port's own seeded init otherwise) and ``device``. Given ``params`` are
-copied first, so the caller's tensors keep their values. Each returns
-(trained params, validation batch, validation accuracy as a float).
+copied first, so the caller's tensors keep their values (the train step
+updates in place). The testbed trainers return (trained params,
+validation batch, validation accuracy as a float).
 """
 from __future__ import annotations
 
+import time
+from dataclasses import dataclass, field
+from typing import Callable, Optional
+
 import torch
 
-from ..data.pipeline import blob_images, make_bigram_table, sample_bigram
+from ..checkpoint import checkpointing as ckpt
+from ..configs.base import ArchConfig
+from ..data.pipeline import (blob_images, make_bigram_table, sample_bigram,
+                             to_device)
+from ..distributed.fault_tolerance import FaultToleranceConfig, StepMonitor
 from ..models import model as M
 from ..models import resnet as R
 from ..optim.optimizer import (OptimizerConfig, adamw_init, adamw_update,
                                get_schedule, tree_leaves, tree_unflatten)
-from .train_step import make_train_step, value_and_grad
+from .train_step import (_stacks_layers, make_train_step, stack_layers,
+                         unstack_layers, value_and_grad)
 
 
 def _start(params, init):
@@ -34,6 +46,114 @@ def _tokens(table, batch: int, seq: int, seed: int, device):
     return {"tokens": torch.as_tensor(sample_bigram(table, batch, seq, seed),
                                       dtype=torch.int64, device=device)}
 
+
+@dataclass
+class TrainerConfig:
+    total_steps: int = 1000
+    log_every: int = 50
+    ckpt_every: int = 200
+    ckpt_dir: Optional[str] = None
+    ft: FaultToleranceConfig = field(default_factory=FaultToleranceConfig)
+
+
+class Trainer:
+    """AdamW training of an LM through ``make_train_step`` (QAT under
+    ``cspec``), with an ``AsyncCheckpointer`` when ``tcfg.ckpt_dir`` is
+    set. The saved tree is ``{"params", "opt"}`` in the JAX layout
+    (``train_step.stack_layers``: the layers stacked where the JAX model
+    scans them, dtypes kept; AdamW's ``{"m", "v", "step"}``), so either
+    package restores the other's checkpoints."""
+
+    def __init__(self, cfg: ArchConfig, opt_cfg: OptimizerConfig,
+                 tcfg: TrainerConfig, params=None, seed: int = 0,
+                 cspec=None, device="cuda"):
+        self.cfg, self.opt_cfg, self.tcfg = cfg, opt_cfg, tcfg
+        self.device = torch.device(device)
+        self.params = _start(params, lambda: M.init(cfg, seed, device))
+        self.opt_state = adamw_init(self.params, opt_cfg)
+        self.step_fn = make_train_step(cfg, opt_cfg, cspec=cspec)
+        self.step = 0
+        self.monitor = StepMonitor(tcfg.ft)
+        self.ckpt = (ckpt.AsyncCheckpointer(tcfg.ckpt_dir)
+                     if tcfg.ckpt_dir else None)
+
+    def _tree(self) -> dict:
+        st = self.opt_state
+        return {"params": stack_layers(self.cfg, self.params),
+                "opt": {"m": stack_layers(self.cfg, st["m"]),
+                        "v": stack_layers(self.cfg, st["v"]),
+                        "step": st["step"]}}
+
+    def _like(self) -> dict:
+        """The saved tree's structure without its copies: where the JAX
+        layout stacks the layers, one layer's dict stands for the
+        stack."""
+        def layout(t):
+            return {**t, "blocks": t["blocks"][0]} \
+                if _stacks_layers(self.cfg) else t
+        return {"params": layout(self.params),
+                "opt": {"m": layout(self.opt_state["m"]),
+                        "v": layout(self.opt_state["v"]),
+                        "step": self.opt_state["step"]}}
+
+    def _save(self) -> None:
+        self.ckpt.save(self.step, self._tree(),
+                       extra={"data_step": self.step})
+
+    def maybe_restore(self):
+        if self.ckpt is None:
+            return
+        restored, step, extra = ckpt.restore_latest(
+            self.tcfg.ckpt_dir, self._like(), self.device)
+        if restored is not None:
+            opt = restored["opt"]
+            self.params = unstack_layers(self.cfg, restored["params"])
+            self.opt_state = {"m": unstack_layers(self.cfg, opt["m"]),
+                              "v": unstack_layers(self.cfg, opt["v"]),
+                              "step": opt["step"]}
+            self.step = step
+            print(f"[trainer] resumed from step {step}")
+
+    def fit(self, data_iter, eval_fn: Optional[Callable] = None):
+        """Steps over ``data_iter``'s batches (numpy or tensors) up to
+        ``total_steps``: the host time of each step goes to the monitor
+        (which may raise ``StepTimeout``), the loss is read back only on
+        ``log_every`` steps, and a checkpoint lands every ``ckpt_every``
+        steps and at the end (once, where the last step just landed).
+        Returns the logged rows."""
+        history = []
+        saved = None
+        for batch in data_iter:
+            if self.step >= self.tcfg.total_steps:
+                break
+            t0 = time.perf_counter()
+            batch = to_device(batch, self.device) if any(
+                not isinstance(v, torch.Tensor) for v in batch.values()) \
+                else batch
+            self.params, self.opt_state, metrics = self.step_fn(
+                self.params, self.opt_state, batch)
+            self.step += 1
+            dt = time.perf_counter() - t0
+            self.monitor.record(self.step, dt)
+            if self.step % self.tcfg.log_every == 0:
+                loss = float(metrics["loss"])
+                row = {"step": self.step, "loss": loss, "dt": dt}
+                if eval_fn is not None:
+                    row["eval"] = float(eval_fn(self.params))
+                history.append(row)
+            if self.ckpt and self.step % self.tcfg.ckpt_every == 0:
+                self._save()
+                saved = self.step
+        if self.ckpt:
+            if saved != self.step:
+                self._save()
+            self.ckpt.wait()
+        return history
+
+
+# ---------------------------------------------------------------------------
+# Testbed trainers — the trained models the Galen search compresses.
+# ---------------------------------------------------------------------------
 
 def train_testbed_lm(cfg, steps: int = 300, batch: int = 32, seq: int = 64,
                      seed: int = 0, lr: float = 3e-3, params=None,

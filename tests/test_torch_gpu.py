@@ -41,7 +41,10 @@ training path: K1 under autograd exact in its forward, its gradient the
 upstream one bit for bit; one qwen2-0.5b SMOKE train step (f32) on the
 card against the CPU's plain route, loss 1e-5, gradients 1e-6 (f32 sums
 in other orders), updated leaves 1e-5, and the QAT step's loss within
-``chip_smoke.QAT_LOSS_TOL``.
+``chip_smoke.QAT_LOSS_TOL``. The trainer path: K6, K7 and K8 under
+autograd, the forward bit-equal to the no-grad launch and each gradient
+the plain chain's on the same tensors (bit-equal, or within
+``chip_smoke.AUTOGRAD_REL_TOL`` of the largest element).
 """
 import pathlib
 import sys
@@ -1396,3 +1399,24 @@ def test_gpu_train_step_matches_cpu(cuda):
     import chip_smoke
     out = chip_smoke.check_train_device_vs_cpu(cuda)
     assert out["qat"] <= chip_smoke.QAT_LOSS_TOL
+
+
+# ---------------------------------------------------------------------------
+# The trainer path: K6, K7 and K8 under autograd
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", range(7))
+def test_gpu_kernels_under_autograd(cuda, case):
+    """``chip_smoke.py``'s ``[trainer path]`` a at the JAX tests' shapes:
+    K6 (f32 causal and windowed, bf16), K7 (with and without h0), K8 (two
+    chunks): the forward bit-equal to the no-grad launch, one launch and
+    none in the backward, each input's gradient the plain chain's
+    (``check_kernel_grad`` raises otherwise)."""
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    cases = chip_smoke.kernel_grad_cases(cuda)
+    assert len(cases) == 7
+    kind, xs, extra, what = cases[case]
+    out = chip_smoke.check_kernel_grad(kind, xs, extra, what)
+    assert out["equal"] or out["rel"] <= chip_smoke.AUTOGRAD_REL_TOL

@@ -70,7 +70,9 @@ def _random_policies(specs_j, specs_t, n, seed):
 def test_port_imports_neither_jax_nor_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
-    assert len(files) > 15
+    examples = sorted((ROOT / "examples").glob("*_torch.py"))
+    assert len(files) > 15 and len(examples) >= 3
+    files += examples
     for f in files:
         for node in ast.walk(ast.parse(f.read_text())):
             names = []
@@ -80,7 +82,8 @@ def test_port_imports_neither_jax_nor_repro():
                 names = [node.module or ""]
             for name in names:
                 root = name.split(".")[0]
-                assert root not in ("jax", "jaxlib", "repro", "flax"), \
+                assert root not in ("jax", "jaxlib", "repro", "flax",
+                                    "ml_dtypes"), \
                     f"{f.relative_to(ROOT)} imports {name}"
 
 
