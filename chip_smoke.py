@@ -22,7 +22,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
    its wrapper (``kernels.flash_attention.route``): bf16 at head dim 64,
    128 or 256 on the tensor cores (wgmma on TMA-fed tiles, counted in
    ``flash_attention_tc`` as well as ``flash_attention``), f32 and bf16
-   at head dims 16 / 32 on the CUDA cores; each K6 line prints its route
+   at head dims 16 / 32 / 80 on the CUDA cores; each K6 line prints its route
    and TFLOP/s, and each call must have counted a launch of its route.
    K1 runs f32 and bf16 (and f16 at the testbed's shapes), plain and
    straight-through (against the chain of
@@ -275,7 +275,35 @@ Phases, each fatal on failure (non-zero exit, no result line):
    bits), raw and under the policy; one profiled 8-step decode each. At
    the SMOKE widths (f32, window 16) 24 greedy steps (the ring wraps) are
    the prefill's argmaxes.
-19. Lines before the last: the kernels as JSON, then ``nvidia-smi``'s name
+19. MoE and frontend path (``[moe and frontend path]``, after the earlier
+   models are freed): mixtral-8x22b (4 of 56 layers, ``MOE_DEPTH``: 8
+   experts top-2, window 4,096, 48 / 8 heads of 128) and arctic-480b (1
+   of 35 layers: 128 experts top-2 and a dense residual, 56 / 8 heads)
+   at full width, internvl2-2b (24 layers, 16 / 8 heads of 128, vocab
+   92,553, the first 256 positions seeded patch embeddings) and
+   hubert-xlarge (48 layers, 16 / 16 heads of 80, bidirectional, seeded
+   frame embeddings in place of tokens) at full width and depth; seeded
+   weights, each raw and under a seeded pq policy. Per model: K1 exact
+   at every (shape, bits) of the policy (``k1_calls``: an MoE layer's
+   dispatched [E·C, d] and [E·C, ff] buffers, its expert stacks as
+   [E·d, ff] / [E·ff, d] views; past ``K1_CHUNKED`` elements against the
+   plain version block by block, on layer 0's own stacks: arctic's
+   4.46 G-element views), timed at its largest shape and most launched
+   activation; K6 on the first attention layer's q/k/v at 1 x 32,768
+   against the chunked plain branch and the dense tail rows (D 128 on
+   the tensor cores; hubert's D 80 bidirectional on the CUDA cores),
+   timed beside the plain branch, SDPA and the bound; an MoE layer's
+   dropped share of top-k choices at 32K; a warm-up and one timed
+   prefill each (ms, tokens/s, MFU), the launches reset before and read
+   after: K6 once an attention layer on its route, K1 exactly
+   ``k1_calls``' count; a decode at batch 8 for 64 steps each, raw and
+   under the policy (not hubert: ``init_cache`` refuses an encoder); the
+   peak device memory. Then at the SMOKE widths: the whole prefill (f32,
+   2 x 1,100 tokens, frontends' embeddings included) against the CPU,
+   decode against prefill, the MoE configs' batched validation (K 8:
+   each slot's accuracy equal to its scalar forward's, K1 over slots
+   once a site) and one train step of each family, card against CPU.
+20. Lines before the last: the kernels as JSON, then ``nvidia-smi``'s name
    and power limit. Last line: ``{"ok": true, "device": {...}}``.
 
 K8 (SSD scan) joins phase 3: against the sequential ``ssd_scan_ref`` and
@@ -349,6 +377,12 @@ KERNELS = {
     "ssd_scan": {"source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
                  "replaces": "src/repro/kernels/ssd_scan.py:28"},
     "flash_attention_d256": {
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:29"},
+    "flash_attention_d80": {
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:29"},
+    "flash_attention_d128": {
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:29"},
     "rglru_scan": {"source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
@@ -474,24 +508,28 @@ def fake_quant_errors(x, bits) -> float:
     return err
 
 
-def time_fake_quant(x, bits, ste: bool, iters: int = 20) -> dict:
-    """K1 on x (device and host-paced ms) beside its plain version and its
-    bound: each element read once and written once in x's dtype, against
-    10 f32 operations an element (min, max, scale, subtract, floor, clip
-    twice, two adds, divide) and 2 more straight-through."""
+def time_fake_quant(x, bits, ste: bool, iters: int = 20,
+                    plain: bool = True) -> dict:
+    """K1 on x (device and host-paced ms) beside its plain version (with
+    ``plain``: its f32 temporaries must fit) and its bound: each element
+    read once and written once in x's dtype, against 10 f32 operations
+    an element (min, max, scale, subtract, floor, clip twice, two adds,
+    divide) and 2 more straight-through."""
     from repro_torch.kernels.fake_quant import fake_quant_2d
     from repro_torch.kernels.ref import fake_quant_ref, fake_quant_ste_ref
     plain_fn = fake_quant_ste_ref if ste else fake_quant_ref
     ms, paced = cuda_ms(lambda: fake_quant_2d(x, bits, ste=ste), iters, 3)
-    plain, _ = cuda_ms(lambda: plain_fn(x, bits), max(2, iters // 4), 1)
+    if plain:
+        plain, _ = cuda_ms(lambda: plain_fn(x, bits), max(2, iters // 4), 1)
     n = x.numel()
     bound, by = bound_ms(2.0 * x.element_size() * n,
                          (12.0 if ste else 10.0) * n)
     mode = "straight-through" if ste else "plain"
     log(f"    {list(x.shape)} {str(x.dtype)[6:]} {bits} bits {mode}: "
         f"{ms * 1e3:.2f} us kernel ({paced * 1e3:.2f} paced), "
-        f"{plain * 1e3:.2f} us plain, bound {bound * 1e3:.3f} us ({by}); "
-        f"{CARD}")
+        f"{'not timed' if plain is False else f'{plain * 1e3:.2f} us'} "
+        f"plain, bound {bound * 1e3:.3f} us ({by}); {CARD}")
+    plain = None if plain is False else plain
     return dict(shape=list(x.shape), dtype=str(x.dtype)[6:], bits=bits,
                 ste=ste, ms=ms, paced_ms=paced, plain_ms=plain,
                 bound_ms=bound, bound_by=by)
@@ -538,8 +576,12 @@ def k1_calls(cfg, cspec, rows: int) -> list:
     [d_in, d_out] (q, k and v each quantize their input; a gated MLP's up
     and gate too; an SSM layer's ``in_proj`` and ``out_proj`` once each;
     an RG-LRU layer's input once for ``w_x`` and ``w_y``, then its
-    output projection), then the head weight (the tied embedding's
-    transpose). ``bits >= 32`` launches nothing. For a batched cspec of
+    output projection; an MoE layer's dispatched tokens [E·C, d] once
+    for ``w_up`` and ``w_gate``, its expert stacks as their [E·d, ff]
+    and [E·ff, d] views, its hidden [E·C, ff], then a dense residual as
+    an MLP), then the head weight (the tied embedding's transpose; none
+    for an audio encoder, which has no embedding either). ``bits >= 32``
+    launches nothing. For a batched cspec of
     K policies (``rows`` per policy) each entry's bits are the site's
     K-tuple and the entries are K1's launches over the K slots: a site
     launches once if any slot quantizes there. A device cspec's bits
@@ -583,10 +625,39 @@ def k1_calls(cfg, cspec, rows: int) -> list:
         else:
             linear(b["attn"]["qkv"], d, (H * D, KV * D, KV * D))
             linear(b["attn"]["o"], H * D, (d,))
+        if "moe" in b:
+            mo, E = b["moe"], cfg.moe.num_experts
+            slots = moe_rows(cfg, rows)
+            add((slots, d), mo["up"]["a_bits"])     # once for up and gate
+            add((E * d, ff), mo["up"]["w_bits"])    # w_up
+            add((E * d, ff), mo["up"]["w_bits"])    # w_gate
+            add((slots, ff), mo["down"]["a_bits"])
+            add((E * ff, d), mo["down"]["w_bits"])
+            if mo["dense_up"] is not None:
+                linear(mo["dense_up"], d, ups)
+                linear(mo["dense_down"], ff, (d,))
+            continue
         linear(b["mlp"]["up"], d, ups)
         linear(b["mlp"]["down"], ff, (d,))
     add((d, V), cspec.get("head_bits"))
     return calls
+
+
+def moe_rows(cfg, rows: int) -> int:
+    """The rows E·C of an MoE layer's dispatched buffer for a forward over
+    ``rows`` tokens (one dispatch group): every expert's capacity."""
+    from repro_torch.models.blocks import moe_capacity
+    m = cfg.moe
+    return m.num_experts * moe_capacity(rows, m.num_experts, m.top_k,
+                                        m.capacity_factor)
+
+
+def k1_is_activation(cfg, shape, rows: int) -> bool:
+    """Whether the K1 call at ``shape`` in a forward over ``rows`` tokens
+    quantizes an activation (the tokens, or an MoE layer's dispatched
+    buffer) rather than a weight."""
+    return shape[0] == rows or (cfg.moe is not None
+                                and shape[0] == moe_rows(cfg, rows))
 
 
 def k1_call_dtype(cfg, shape, rows: int):
@@ -594,43 +665,115 @@ def k1_call_dtype(cfg, shape, rows: int):
     tokens: an activation [rows, d_in] comes in the compute dtype, a
     weight in the parameter dtype."""
     import torch
-    return getattr(torch, cfg.compute_dtype if shape[0] == rows
-                   else cfg.param_dtype)
+    return getattr(torch, cfg.compute_dtype if k1_is_activation(
+        cfg, shape, rows) else cfg.param_dtype)
 
 
-def check_fake_quant_path(cfg, cspec, rows: tuple, device) -> dict:
+def fake_quant_errors_chunked(x, bits, rows: int = 1 << 15) -> float:
+    """``fake_quant_errors`` for an x whose plain version's f32
+    temporaries would not fit beside the model (an expert stack's view,
+    4.46 G elements at arctic-480b's width): K1's output in each mode
+    against the arithmetic of ``core.quantization.quantize`` /
+    ``dequantize`` applied to blocks of ``rows`` rows, with each
+    channel's range taken over all rows first (min and max are exact in
+    any order, so every block sees the whole tensor's range)."""
+    import torch
+    from repro_torch.core.quantization import dequantize
+    from repro_torch.kernels.fake_quant import fake_quant_2d
+    if bits >= 32:
+        return fake_quant_errors(x[:rows], bits)
+    b = min(max(int(bits), 1), 31)
+    n = 2.0 ** b - 1.0
+    blocks = x.split(rows)
+    x_min = torch.stack([t.amin(0) for t in blocks]).amin(0).float()
+    x_max = torch.stack([t.amax(0) for t in blocks]).amax(0).float()
+    x_max = x_min + torch.clamp_min(x_max - x_min, 1e-8)
+    s = torch.full_like(x_min, n) / (x_max - x_min)
+    z = torch.floor(s * x_min) + 2.0 ** (b - 1.0)
+    err = 0.0
+    for ste in (False, True):
+        got = fake_quant_2d(x, bits, ste=ste)
+        if got.dtype != x.dtype or got.shape != x.shape:
+            raise AssertionError(f"fake_quant returned {got.dtype} "
+                                 f"{tuple(got.shape)} for {x.dtype}")
+        for g, t in zip(got.split(rows), blocks):
+            xf = t.float()
+            xq = dequantize(torch.clamp(torch.floor(s * xf - z), -n, n),
+                            s, z)
+            want = (xf + (xq - xf)) if ste else xq
+            err = max(err, float((g.float() - want.to(x.dtype).float())
+                                 .abs().max()))
+        del got
+    return err
+
+
+K1_CHUNKED = 1 << 28    # elements past which K1 is held block by block
+
+
+def check_fake_quant_path(cfg, cspec, rows: tuple, device,
+                          views=None) -> dict:
     """K1 at every (shape, bits) that a forward over each count of
     ``rows`` tokens gives it under ``cspec`` (``k1_calls``: the prefill's
     [32768, 896] and [32768, 4864] activations, the layer weights, the
     head weight [896, 151936], decode's [8, 896] activations), f32 and
     bf16, plain and straight-through; tolerance: exact, as
-    ``check_fake_quant``. On the card the largest shape is timed in f32
-    (the widest call) and the activation launched most often
-    in the path's dtype, straight-through (the layers' call), each
-    beside its bound."""
+    ``check_fake_quant``. A shape past ``K1_CHUNKED`` elements (an MoE
+    layer's expert stacks and dispatched buffers) runs in the dtype the
+    path gives it, against the plain version block by block
+    (``fake_quant_errors_chunked``), on the model's own tensor where
+    ``views`` maps the shape to one (layer 0's expert stacks as K1 reads
+    them). On the card the largest shape is timed in f32 (the widest
+    call; in its path dtype, kernel alone, past ``K1_CHUNKED``) and the
+    activation launched most often in the path's dtype, straight-through
+    (the layers' call), each beside its bound."""
     import torch
     gen = torch.Generator(device=device).manual_seed(2)
+    views = views or {}
     calls = {r: k1_calls(cfg, cspec, r) for r in rows}
     pairs = sorted({c for cs in calls.values() for c in cs})
     if not pairs:
         raise AssertionError("the policy quantizes nothing: K1 never runs")
+
+    def path_input(shape):
+        if shape in views:
+            return views[shape]
+        act = any(k1_is_activation(cfg, shape, r) for r in rows)
+        return torch.randn(shape, generator=gen, device=device).to(
+            getattr(torch, cfg.compute_dtype if act else cfg.param_dtype))
+
     err, out = 0.0, {}
     for shape, bits in pairs:
-        x = torch.randn(shape, generator=gen, device=device)
-        e = max(fake_quant_errors(x.to(dtype), bits)
-                for dtype in (torch.float32, torch.bfloat16))
+        if shape[0] * shape[1] > K1_CHUNKED:
+            x = path_input(shape)
+            e = fake_quant_errors_chunked(x, bits)
+            what = "the layer's own tensor" if shape in views else "seeded"
+            log(f"  fake_quant {list(shape)} {bits} bits, "
+                f"{str(x.dtype)[6:]} ({what}), plain and straight-through, "
+                f"against the plain version block by block: max |kernel - "
+                f"plain| {e:.3g}")
+            del x
+        else:
+            x = torch.randn(shape, generator=gen, device=device)
+            e = max(fake_quant_errors(x.to(dtype), bits)
+                    for dtype in (torch.float32, torch.bfloat16))
+            log(f"  fake_quant {list(shape)} {bits} bits, f32 and bf16, "
+                f"plain and straight-through: max |kernel - plain| {e:.3g}")
         err = max(err, e)
-        log(f"  fake_quant {list(shape)} {bits} bits, f32 and bf16, plain "
-            f"and straight-through: max |kernel - plain| {e:.3g}")
     if torch.device(device).type == "cuda":
         big, bits = max(pairs, key=lambda c: c[0][0] * c[0][1])
-        x = torch.randn(big, generator=gen, device=device)
-        out["largest"] = time_fake_quant(x, bits, False, 10)
-        acts = [c for c in calls[rows[0]] if c[0][0] == rows[0]]
+        if big[0] * big[1] > K1_CHUNKED:
+            out["largest"] = time_fake_quant(path_input(big), bits, False,
+                                             10, plain=False)
+        else:
+            x = torch.randn(big, generator=gen, device=device)
+            out["largest"] = time_fake_quant(x, bits, False, 10)
+        acts = [c for c in calls[rows[0]]
+                if k1_is_activation(cfg, c[0], rows[0])]
         shape, bits = max(set(acts), key=acts.count)
         x = torch.randn(shape, generator=gen, device=device).to(
             k1_call_dtype(cfg, shape, rows[0]))
-        out["activation"] = time_fake_quant(x, bits, True, 10)
+        out["activation"] = time_fake_quant(
+            x, bits, True, 10, plain=x.numel() <= K1_CHUNKED)
         out["activation"]["launches"] = acts.count((shape, bits))
     out.update(pairs=len(pairs), max_abs_err=err)
     if err > 0.0:
@@ -654,7 +797,7 @@ def check_fake_quant_slot_calls(cfg, cspec, rows: int, device) -> dict:
     pairs = sorted(set(k1_calls(cfg, cspec, rows)))
     err = 0.0
     for shape, bits in pairs:
-        act = shape[0] == rows
+        act = k1_is_activation(cfg, shape, rows)
         base = torch.randn((K,) + shape if act else shape, generator=gen,
                            device=device)
         for dtype in {torch.float32, k1_call_dtype(cfg, shape, rows)}:
@@ -1306,9 +1449,10 @@ def row_rel_err(got, want) -> float:
                   / w.norm(dim=-1).clamp_min(1e-30)).max())
 
 
-def attention_tail_ref(q, k, v, rows: int, window: int = 0):
-    """``ref.attention_ref``'s arithmetic (dense f32 softmax, causal,
-    ``window`` keys when > 0) for the last ``rows`` query rows of q
+def attention_tail_ref(q, k, v, rows: int, window: int = 0,
+                       causal: bool = True):
+    """``ref.attention_ref``'s arithmetic (dense f32 softmax, causal or
+    not, ``window`` keys when > 0) for the last ``rows`` query rows of q
     [B,H,S,D] only, in q's dtype: at the prefill length the whole score
     matrix would not fit, its last rows (the q tiles with the most keys)
     do."""
@@ -1320,7 +1464,7 @@ def attention_tail_ref(q, k, v, rows: int, window: int = 0):
                      k.float()) / math.sqrt(D)
     qpos = torch.arange(S - rows, S, device=q.device)[:, None]
     kpos = torch.arange(S, device=q.device)[None, :]
-    keep = kpos <= qpos
+    keep = kpos <= qpos if causal else torch.ones_like(kpos >= 0)
     if window > 0:
         keep &= kpos > qpos - window
     s = torch.where(keep, s, torch.full_like(s, -1e30))
@@ -1363,7 +1507,9 @@ FA_MASKS = ((True, 0), (False, 0), (True, 96))
 # (causal, bidirectional, window 96) and their bf16 case, qwen2-0.5b's
 # heads (14 over 2 of 64) at S 4096 in bf16; head dim 256 as
 # recurrentgemma-2b has it (MQA, 10 over 1 heads): f32 at a ragged S, bf16
-# at S 128 and at S 4,096 with its window of 2,048.
+# at S 128 and at S 4,096 with its window of 2,048; head dim 80 as
+# hubert-xlarge has it (the CUDA-core route): f32 at a ragged S, bf16 at
+# S 128, and its 16 / 16 heads bidirectional at S 4,096.
 FA_CASES = (((2, 128, 4, 4, 32), "float32", 2e-5, FA_MASKS),
             ((2, 200, 8, 2, 16), "float32", 2e-5, FA_MASKS),
             ((2, 512, 4, 1, 64), "float32", 2e-5, FA_MASKS),
@@ -1373,7 +1519,11 @@ FA_CASES = (((2, 128, 4, 4, 32), "float32", 2e-5, FA_MASKS),
             ((1, 128, 10, 1, 256), "bfloat16", 0.04,
              ((True, 0), (True, 2048), (True, 96))),
             ((1, 4096, 10, 1, 256), "bfloat16", 0.04,
-             ((True, 0), (True, 2048))))
+             ((True, 0), (True, 2048))),
+            ((2, 200, 4, 4, 80), "float32", 2e-5, FA_MASKS),
+            ((1, 128, 4, 4, 80), "bfloat16", 0.04, FA_MASKS),
+            ((1, 4096, 16, 16, 80), "bfloat16", 0.04,
+             ((False, 0), (True, 0))))
 # (head dim, window) of the S 4096 masks timed: qwen2's causal heads and
 # recurrentgemma's window.
 FA_TIMED = ((64, 0), (256, 2048))
@@ -4831,6 +4981,26 @@ def seeded_policy(cm, seed: int):
     return pol
 
 
+def frontend_request(cfg, batch: int, seq: int, seed: int, device):
+    """(tokens, embeds) of a seeded prefill request: tokens [batch, seq]
+    for a decoder (``prefill_tokens``; none for an audio encoder) and a
+    stub frontend's embeddings, standard normal from a numpy seed, in the
+    compute dtype: an audio encoder's frames [batch, seq, d], a VLM's
+    patches [batch, frontend_len, d] (none without a frontend)."""
+    import numpy as np
+    import torch
+    tokens = None if cfg.frontend == "audio_stub" else \
+        prefill_tokens(cfg, batch, seq, seed, device)
+    n = {"audio_stub": seq, "vision_stub": cfg.frontend_len}.get(
+        cfg.frontend, 0)
+    embeds = torch.as_tensor(np.random.default_rng(seed + 1000)
+                             .standard_normal((batch, n, cfg.d_model),
+                                              dtype=np.float32),
+                             device=device).to(
+        getattr(torch, cfg.compute_dtype)) if n else None
+    return tokens, embeds
+
+
 def prefill_tokens(cfg, batch: int, seq: int, seed: int, device):
     import numpy as np
     import torch
@@ -4839,15 +5009,15 @@ def prefill_tokens(cfg, batch: int, seq: int, seed: int, device):
     return torch.as_tensor(toks, dtype=torch.int64, device=device)
 
 
-def layer_input(cfg, params, tokens, kind: str):
+def layer_input(cfg, params, tokens, kind: str, embeds=None):
     """(index, its params, input x, positions) of the first layer of
-    ``kind`` in the uncompressed forward: the embedding, then every
-    earlier layer."""
+    ``kind`` in the uncompressed forward: the embedding (or a frontend's
+    ``embeds``), then every earlier layer."""
     import torch
     from repro_torch.models import model as M
     i = cfg.layer_kinds.index(kind)
     with torch.no_grad():
-        x = M._embed_inputs(cfg, params, tokens, None)
+        x = M._embed_inputs(cfg, params, tokens, None, embeds)
         pos = torch.arange(x.shape[1], device=x.device)[None, :]
         for j in range(i):
             x = M._apply_block(cfg.layer_kinds[j], params["blocks"][j], x,
@@ -4855,7 +5025,7 @@ def layer_input(cfg, params, tokens, kind: str):
     return i, params["blocks"][i], x, pos
 
 
-def layer_qkv(cfg, params, tokens):
+def layer_qkv(cfg, params, tokens, embeds=None):
     """q, k, v [B,S,H,D] / [B,S,KV,D] as the first attention layer of the
     uncompressed forward hands them to the attention: its input, its
     input norm, then ``blocks._qkv_rope``, which ``apply_attention``
@@ -4863,7 +5033,7 @@ def layer_qkv(cfg, params, tokens):
     import torch
     from repro_torch.models import blocks as MB
     from repro_torch.models import layers as ML
-    _, p, x, pos = layer_input(cfg, params, tokens, "attn")
+    _, p, x, pos = layer_input(cfg, params, tokens, "attn", embeds)
     with torch.no_grad():
         h = ML.apply_norm(cfg.norm, p["attn_norm"], x)
         return MB._qkv_rope(p["attn"], h, cfg, None, pos)
@@ -4882,31 +5052,39 @@ def layer_rglru_inputs(cfg, params, tokens):
         return MB.rglru_inputs(p["rglru"], h, cfg, None)[0]
 
 
-def check_flash_attention_prefill(q, k, v, window: int = 0) -> dict:
-    """K6 at the prefill shape on one layer's q/k/v (causal, ``window``
-    keys when > 0) against the chunked plain branch (the dense plain
-    version would need S² scores): bf16's atol 0.04 and each row within
-    ``K6_CHUNKED_ROW_TOL``; its last ``K6_TAIL_ROWS`` rows also against
-    the dense plain version (``attention_tail_ref``) within
+def check_flash_attention_prefill(q, k, v, window: int = 0,
+                                  causal: bool = True) -> dict:
+    """K6 at the prefill shape on one layer's q/k/v (causal or not,
+    ``window`` keys when > 0) against the chunked plain branch (the
+    dense plain version would need S² scores): bf16's atol 0.04 and each
+    row within ``K6_CHUNKED_ROW_TOL``; its last ``K6_TAIL_ROWS`` rows
+    also against the dense plain version (``attention_tail_ref``) within
     ``K6_ROW_TOL``. Timed beside the plain branch and SDPA (with a
     window: the window as a boolean mask, ``sdpa_window``)."""
+    import torch
     from repro_torch.kernels import ops
     from repro_torch.models import layers as ML
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    got, path = k6_launch(lambda: ops.flash_attention(qt, kt, vt,
-                                                      window=window),
-                          q.dtype, q.shape[-1])
-    tail = row_rel_err(got[:, :, -K6_TAIL_ROWS:],
-                       attention_tail_ref(qt, kt, vt, K6_TAIL_ROWS, window))
+    got, path = k6_launch(lambda: ops.flash_attention(
+        qt, kt, vt, causal=causal, window=window), q.dtype, q.shape[-1])
+    tail = row_rel_err(got[:, :, -K6_TAIL_ROWS:], attention_tail_ref(
+        qt, kt, vt, K6_TAIL_ROWS, window, causal))
     got = got.transpose(1, 2)
-    want = ML.attention_chunked(q, k, v, causal=True, window=window)
+    # the check's own call of the plain branch is its timing (one call of
+    # seconds; a second would only repeat it)
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    want = ML.attention_chunked(q, k, v, causal=causal, window=window)
+    t1.record()
+    torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
     rel = row_rel_err(got, want)
     del want, got
     B, S, H, D = q.shape
-    log(f"  flash_attention {(B, H, k.shape[2], S, D)} bf16 causal, window "
-        f"{window}, route {path}, the first attention layer's q/k/v: max "
-        f"|kernel - "
+    log(f"  flash_attention {(B, H, k.shape[2], S, D)} "
+        f"{str(q.dtype)[6:]} {'causal' if causal else 'bidirectional'}, "
+        f"window {window}, route {path}, the first attention layer's "
+        f"q/k/v: max |kernel - "
         f"chunked plain| {err:.3g} (tol 0.04), max row rel {rel:.3g} (tol "
         f"{K6_CHUNKED_ROW_TOL:.3g}); last {K6_TAIL_ROWS} rows vs the dense "
         f"plain version: max row rel {tail:.3g} (tol {K6_ROW_TOL:.3g})")
@@ -4914,23 +5092,34 @@ def check_flash_attention_prefill(q, k, v, window: int = 0) -> dict:
             and tail <= K6_ROW_TOL):
         raise AssertionError(f"flash_attention disagrees with its plain "
                              f"versions: {err}, {rel}, {tail}")
-    ms, paced = cuda_ms(lambda: ops.flash_attention(qt, kt, vt,
-                                                    window=window), 3, 1)
-    plain, _ = cuda_ms(lambda: ML.attention_chunked(q, k, v, causal=True,
-                                                    window=window), 1, 1)
+    return time_flash_attention(qt, kt, vt, window, causal, dict(
+        max_abs_err=err, tolerance=0.04, row_rel_err=rel,
+        tail_row_rel_err=tail, route=path), t0.elapsed_time(t1))
+
+
+def time_flash_attention(qt, kt, vt, window: int, causal: bool, row: dict,
+                         plain: float) -> dict:
+    """K6 on qt [B,H,S,D], kt, vt [B,KV,S,D] timed (CUDA events) beside
+    SDPA (with a window: the window as a boolean mask, ``sdpa_window``)
+    and its bound; ``row`` (the errors) and ``plain`` (the plain
+    branch's ms) completed into a kernels-line row."""
+    from repro_torch.kernels import ops
+    B, H, S, D = qt.shape
+    KV = kt.shape[1]
+    ms, paced = cuda_ms(lambda: ops.flash_attention(
+        qt, kt, vt, causal=causal, window=window), 3, 1)
     lib, _ = cuda_ms(sdpa_window(qt, kt, vt, window) if window else
-                     (lambda: sdpa(qt, kt, vt)), 5, 2)
-    n_bytes, n_ops = attention_work(B, H, k.shape[2], S, D, 2,
+                     (lambda: sdpa(qt, kt, vt, causal)), 5, 2)
+    n_bytes, n_ops = attention_work(B, H, KV, S, D, 2, causal=causal,
                                     window=window)
     bound, by = bound_ms(n_bytes, n_ops, BF16_FLOPS)
     log(f"    {CARD}: {ms:.3f} ms kernel ({n_ops / ms / 1e9:.1f} TFLOP/s), "
         f"{plain:.3f} ms chunked plain, {lib:.3f} ms SDPA"
         f"{' (boolean window mask)' if window else ''}, bound {bound:.4f} "
         f"ms ({by})")
-    return dict(shape=[B, H, k.shape[2], S, D] + ([window] if window else []),
-                ms=ms, paced_ms=paced, plain_ms=plain, library_ms=lib,
-                bound_ms=bound, bound_by=by, max_abs_err=err, tolerance=0.04,
-                row_rel_err=rel, tail_row_rel_err=tail, route=path,
+    return dict(row, shape=[B, H, KV, S, D]
+                + ([window] if window else []), ms=ms, paced_ms=paced,
+                plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by,
                 tflops=n_ops / ms / 1e9)
 
 
@@ -5113,19 +5302,21 @@ def release_cached_memory(device) -> None:
         torch.cuda.empty_cache()
 
 
-def timed_prefill(cfg, params, tokens, cspec=None) -> tuple:
-    """One ``make_prefill_step`` forward: (seconds on the host clock,
-    ended by a device sync, and the launches it made). Fails on logits
-    that are not finite or not [B, S, vocab]."""
+def timed_prefill(cfg, params, tokens, cspec=None, embeds=None) -> tuple:
+    """One ``make_prefill_step`` forward (over a frontend's ``embeds``
+    too): (seconds on the host clock, ended by a device sync, and the
+    launches it made). Fails on logits that are not finite or not [B, S,
+    vocab]."""
     import torch
     from repro_torch.kernels import build
     from repro_torch.train.train_step import make_prefill_step
     step = make_prefill_step(cfg, cspec)
-    sync = torch.cuda.synchronize if tokens.is_cuda else (lambda: None)
+    x = embeds if tokens is None else tokens
+    sync = torch.cuda.synchronize if x.is_cuda else (lambda: None)
     sync()
     build.reset_launches()
     t0 = time.perf_counter()
-    logits = step(params, tokens)
+    logits = step(params, tokens, embeds)
     sync()
     dt = time.perf_counter() - t0
     launches = dict(build.LAUNCHES)
@@ -5133,7 +5324,7 @@ def timed_prefill(cfg, params, tokens, cspec=None) -> tuple:
     # rows, so that 32,768 x 256,000 f32 logits (33.6 GB) get no twin.
     finite = all(bool(torch.isfinite(rows).all())
                  for rows in logits.flatten(0, 1).split(2048))
-    if tuple(logits.shape) != tuple(tokens.shape) + (cfg.vocab_size,) \
+    if tuple(logits.shape) != tuple(x.shape[:2]) + (cfg.vocab_size,) \
             or not finite:
         raise AssertionError(f"bad prefill logits {tuple(logits.shape)}")
     return dt, launches
@@ -5152,15 +5343,16 @@ def check_prefill_numerics(cfg, device, seq: int, seed: int = 0,
     f32 = cfg.replace(compute_dtype="float32")
     cpu_params = M.init(f32, seed=seed, device="cpu")
     dev_params = _to(cpu_params, device)
-    toks = prefill_tokens(f32, 2, seq, seed + 1, "cpu")
+    toks, embeds = frontend_request(f32, 2, seq, seed + 1, "cpu")
+    on_card = [None if t is None else t.to(device) for t in (toks, embeds)]
     cms = [CompressibleLM(f32, p) for p in (cpu_params, dev_params)]
     agree = {}
     for name, cspecs in (("uncompressed", (None, None)),
                          ("policy", [cm.build_cspec(seeded_policy(cm, seed))
                                      for cm in cms])):
-        want = make_prefill_step(f32, cspecs[0])(cpu_params, toks)
+        want = make_prefill_step(f32, cspecs[0])(cpu_params, toks, embeds)
         got = make_prefill_step(f32, cspecs[1])(dev_params,
-                                                toks.to(device)).cpu()
+                                                *on_card).cpu()
         agree[name] = float((got.argmax(-1) == want.argmax(-1)).float()
                             .mean())
         log(f"  {f32.name} {name}, f32, 2 x {seq} tokens: argmax agreement "
@@ -5186,29 +5378,40 @@ def run_prefill(cfg, params, cspec, device, seq: int, warm_seq: int,
     import torch
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch.inputs import model_flops
-    tokens = prefill_tokens(cfg, 1, seq, seed, device)
+    tokens, embeds = frontend_request(cfg, 1, seq, seed, device)
+    x = embeds if tokens is None else tokens
     out = {}
-    if tokens.is_cuda and "attn" in cfg.layer_kinds:
+    if x.is_cuda and "attn" in cfg.layer_kinds:
         out["k6"] = check_flash_attention_prefill(
-            *layer_qkv(cfg, params, tokens),
-            window=cfg.window if cfg.attention == "sliding" else 0)
-    if tokens.is_cuda and "ssm" in cfg.layer_kinds:
+            *layer_qkv(cfg, params, tokens, embeds),
+            window=cfg.window if cfg.attention == "sliding" else 0,
+            causal=not cfg.is_encoder)
+    if x.is_cuda and cfg.moe is not None:
+        out["capacity"], out["dropped"] = moe_drop_share(cfg, params,
+                                                         tokens)
+        log(f"  MoE dispatch of the first layer at {seq} tokens: "
+            f"{cfg.moe.num_experts} experts x {out['capacity']} slots, "
+            f"{out['dropped']:.2%} of the top-{cfg.moe.top_k} choices "
+            f"dropped")
+    if tokens is not None and tokens.is_cuda and "ssm" in cfg.layer_kinds:
         out["k8"] = check_ssd_prefill(*layer_ssd_inputs(cfg, params, tokens),
                                       cfg.ssm.chunk_size)
-    if tokens.is_cuda and "rglru" in cfg.layer_kinds:
+    if tokens is not None and tokens.is_cuda and "rglru" in cfg.layer_kinds:
         out["k7"] = check_rglru_prefill(*layer_rglru_inputs(cfg, params,
                                                             tokens))
     flops = model_flops(cfg, ShapeConfig("prefill", seq, 1, "prefill"))
+    warm = [None if t is None else t if t is embeds and tokens is not None
+            else t[:, :warm_seq] for t in (tokens, embeds)]
     for name, cs in (("uncompressed", None), ("policy", cspec)):
-        release_cached_memory(tokens.device)
-        timed_prefill(cfg, params, tokens[:, :warm_seq], cs)
-        dt, launches = timed_prefill(cfg, params, tokens, cs)
+        release_cached_memory(x.device)
+        timed_prefill(cfg, params, warm[0], cs, warm[1])
+        dt, launches = timed_prefill(cfg, params, tokens, cs, embeds)
         log(f"  {name}: {dt * 1e3:.1f} ms per forward of 1 x {seq} tokens, "
             f"{seq / dt:.0f} tokens/s, MFU {flops / dt / BF16_FLOPS:.4f} "
             f"(model_flops {flops / 1e12:.2f} TFLOP over 989 TFLOP/s; "
             f"{CARD}); launches {launches}")
         want = prefill_launches(cfg, cs, seq)
-        if not tokens.is_cuda:          # the plain versions' rehearsal
+        if not x.is_cuda:               # the plain versions' rehearsal
             if any(launches.values()):
                 raise AssertionError(f"kernels launched on the CPU: "
                                      f"{launches}")
@@ -5219,7 +5422,7 @@ def run_prefill(cfg, params, cspec, device, seq: int, warm_seq: int,
                                  f"{cfg.num_layers}-layer forward, "
                                  f"{want} expected")
         out[name] = dict(seconds=dt, launches=launches)
-    if tokens.is_cuda:
+    if x.is_cuda:
         torch.cuda.synchronize()
     return out
 
@@ -5237,8 +5440,9 @@ def oracle_prefill_ratio(cm, policy, seq: int) -> float:
 def run_decode(cfg, params, cspecs: dict, *, batch: int, steps: int,
                max_len: int, requests: int = 2,
                cache_bits: tuple = (16, 8)) -> dict:
-    """``decode_loop`` then ``sustained_throughput`` per (cspec, cache
-    bits); tok/s of each. Fails on tokens out of the vocabulary, and on
+    """``decode_loop`` then ``sustained_throughput`` (with ``requests``)
+    per (cspec, cache bits); tok/s of each. Fails on tokens out of the
+    vocabulary, and on
     the card when a ``decode_loop`` launches K1 other than ``k1_calls``
     times per step, or any other kernel."""
     from repro_torch.kernels import build
@@ -5259,15 +5463,17 @@ def run_decode(cfg, params, cspecs: dict, *, batch: int, steps: int,
             if tuple(toks.shape) != (batch, steps + 1) or \
                     int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
                 raise AssertionError(f"bad decode tokens {tuple(toks.shape)}")
-            tok_s, times = sustained_throughput(cfg, params, batch, steps,
-                                                max_len, cs, requests, bits)
             cache = f"{bits}-bit KV cache" if "attn" in cfg.layer_kinds \
                 else "conv/state cache"
+            tok_s, times = sustained_throughput(
+                cfg, params, batch, steps, max_len, cs, requests, bits) \
+                if requests else (None, None)
+            tail = (f"; sustained {tok_s:.1f} tok/s over {requests} "
+                    f"requests ({min(times):.3f}-{max(times):.3f} s each; "
+                    f"{CARD})") if requests else f"; {CARD}"
             log(f"  {name}, {cache}: decode_loop "
                 f"{batch * steps / dt:.1f} tok/s ({dt * 1e3:.1f} ms for "
-                f"{steps} steps x batch {batch}, {k1} K1 launches); "
-                f"sustained {tok_s:.1f} tok/s over {requests} requests "
-                f"({min(times):.3f}-{max(times):.3f} s each; {CARD})")
+                f"{steps} steps x batch {batch}, {k1} K1 launches){tail}")
             out[f"{name}/{bits}"] = dict(loop_tok_s=batch * steps / dt,
                                          sustained_tok_s=tok_s,
                                          k1_launches=k1)
@@ -5531,6 +5737,249 @@ def recurrentgemma_phases(device, results: dict, launches: dict) -> None:
                              device, steps=24)
     log(f"  {time.perf_counter() - t0:.1f} s for the recurrentgemma decode "
         f"phase")
+
+
+# Depth of the MoE configs on one 80 GB card, every width as published:
+# a mixtral-8x22b layer holds 5.0 GB of bf16 weights (8 experts x 3 x
+# 6,144 x 16,384, and 88 M of attention), 56 of them 280 GB; an
+# arctic-480b layer 26.8 GB (128 experts x 3 x 7,168 x 4,864, its dense
+# residual and attention besides), 35 of them 940 GB. 4 and 1 layers
+# leave room for one layer's fake-quantized stack (a bf16 copy of one of
+# its three) and the 32K activations.
+MOE_DEPTH = {"mixtral-8x22b": 4, "arctic-480b": 1}
+FRONTEND_ARCHS = ("mixtral-8x22b", "arctic-480b", "internvl2-2b",
+                  "hubert-xlarge")
+TRAIN_SMOKE_TOL = 1e-5      # card vs CPU: loss and every gradient leaf
+
+
+def moe_drop_share(cfg, params, tokens) -> tuple:
+    """(capacity, share of the top-k choices dropped) of the first MoE
+    layer's dispatch (``blocks.moe_route``, one group) on its own input
+    in the uncompressed forward over ``tokens``."""
+    import torch
+    from repro_torch.models import blocks as MB
+    from repro_torch.models import layers as ML
+    _, p, x, pos = layer_input(cfg, params, tokens, "attn")
+    with torch.no_grad():
+        h = ML.apply_norm(cfg.norm, p["attn_norm"], x)
+        x = x + MB.apply_attention(p["attn"], h, cfg, None, pos)
+        h = ML.apply_norm(cfg.norm, p["mlp_norm"], x)
+        dispatch, _, _, keep = MB.moe_route(
+            p["moe"], h.reshape(1, -1, h.shape[-1]), cfg)
+    return dispatch.shape[-1], 1.0 - float(keep.float().mean())
+
+
+def expert_views(params) -> dict:
+    """Layer 0's expert stacks as K1 reads them ([E·d, ff], [E·ff, d]
+    views, no copy), by shape (``w_up`` for the shape it shares with
+    ``w_gate``)."""
+    moe = params["blocks"][0]["moe"]
+    return {tuple(v.shape): v for v in (
+        moe[n].reshape(-1, moe[n].shape[-1])
+        for n in ("w_gate", "w_down", "w_up"))}
+
+
+def check_moe_slots(arch: str, device) -> dict:
+    """The batched validation of an MoE config at its SMOKE widths (bf16
+    compute, f32 params): ``accuracy_policy_batch`` over 8 seeded
+    policies (two of them the reference) on 2 x 1,100 tokens (past the
+    capacity's 4,096 token-experts: tokens drop) against each policy's
+    scalar forward, ``accuracy``: equal slot by slot (each policy
+    routes its own tokens at its own capacity). K1 over slots must have
+    launched once per site of ``k1_calls`` and the one-tensor K1 never."""
+    import torch
+    from repro_torch.core.compress import CompressibleLM
+    from repro_torch.core.policy import Policy, stack_policies
+    from repro_torch.kernels import build
+    from repro_torch.models import model as M
+    from repro_torch.models.registry import get_config
+    cfg = get_config(arch, smoke=True)
+    cm = CompressibleLM(cfg, M.init(cfg, seed=0, device=device))
+    pols = [Policy.reference(cm.specs) if k in (2, 5)
+            else seeded_policy(cm, k) for k in range(SLOTS)]
+    pb = stack_policies(cm.specs, pols)
+    batch = {"tokens": prefill_tokens(cfg, 2, 1100, 7, device)}
+    build.reset_launches()
+    got = cm.accuracy_policy_batch(batch, pb).tolist()
+    launched = dict(build.LAUNCHES)
+    want = [float(cm.accuracy(batch, cm.build_cspec(p))) for p in pols]
+    sites = len(k1_calls(cfg, cm.cspec_builder()(pb.keep, pb.w_bits,
+                                                 pb.a_bits), 2 * 1100)) \
+        if torch.device(device).type == "cuda" else 0
+    log(f"  {cfg.name} batched validation, K {SLOTS}, 2 x 1100 tokens: "
+        f"slot accuracies {[round(a, 4) for a in got]}, scalar forwards "
+        f"{[round(a, 4) for a in want]}; K1 over slots "
+        f"{launched['fake_quant_slots']} launches ({sites} sites), "
+        f"one-tensor K1 {launched['fake_quant']}")
+    if got != want or launched["fake_quant_slots"] != sites \
+            or launched["fake_quant"]:
+        raise AssertionError(f"{cfg.name}: the batched validation "
+                             f"disagrees with the scalar forwards or "
+                             f"launched {launched}")
+    return {"slots": got, "scalar": want}
+
+
+def smoke_train_batch(cfg, batch: int, seq: int, seed: int, device) -> dict:
+    """A seeded train batch: tokens for a decoder, frames and per-frame
+    labels for an audio encoder, patches besides for a VLM."""
+    import numpy as np
+    import torch
+    tokens, embeds = frontend_request(cfg, batch, seq, seed, device)
+    out = {"tokens": tokens, "embeds": embeds}
+    if cfg.is_encoder:
+        out["labels"] = torch.as_tensor(np.random.default_rng(seed).integers(
+            0, cfg.vocab_size, (batch, seq)), device=device)
+    return {k: v for k, v in out.items() if v is not None}
+
+
+def check_train_smoke(arch: str, device, batch: int = 2,
+                      seq: int = 64) -> dict:
+    """One train step of ``arch`` at its SMOKE widths in f32, the same
+    seeded params and batch on the card and on the CPU's plain route:
+    the loss and every gradient leaf within ``TRAIN_SMOKE_TOL``, the
+    step's updated leaves within 0.1 x its learning rate (Adam's
+    normalized step turns rounding-noise gradients into fractions of a
+    step, so the update is held in units of the step)."""
+    from repro_torch.models import model as M
+    from repro_torch.models.registry import get_config
+    from repro_torch.optim.optimizer import OptimizerConfig, adamw_init
+    from repro_torch.train.train_step import (lm_loss, make_train_step,
+                                              value_and_grad)
+    cfg = get_config(arch, smoke=True).replace(compute_dtype="float32")
+    host = M.init(cfg, 0, "cpu")
+    b = smoke_train_batch(cfg, batch, seq, 3, "cpu")
+    on = {"cpu": (host, b), "card": (_to(host, device), _to(b, device))}
+    ocfg = OptimizerConfig(lr=1e-3, warmup_steps=5, total_steps=60,
+                           weight_decay=0.0)
+    out = {}
+    for name, (p, bb) in on.items():
+        loss, g = value_and_grad(lambda q: lm_loss(cfg, q, bb), p)
+        q = _to(p, M.device_of(p))
+        q, _, m = make_train_step(cfg, ocfg)(q, adamw_init(q, ocfg), bb)
+        out[name] = (float(loss), g, q, float(m["lr"]))
+    d_loss = abs(out["cpu"][0] - out["card"][0])
+    d_grad = _max_leaf_diff(out["cpu"][1], out["card"][1])
+    d_step = _max_leaf_diff(out["cpu"][2], out["card"][2]) / out["card"][3]
+    log(f"  {cfg.name} f32, {batch} x {seq}, one train step card against "
+        f"the CPU: loss {out['card'][0]:.5f}, {d_loss:.3g} apart, "
+        f"gradients {d_grad:.3g} (tol {TRAIN_SMOKE_TOL}), updated leaves "
+        f"{d_step:.3g} x lr {out['card'][3]:.3g} (tol 0.1)")
+    if max(d_loss, d_grad) > TRAIN_SMOKE_TOL or d_step > 0.1:
+        raise AssertionError(f"{cfg.name}: the train step on the card "
+                             f"disagrees with the CPU's plain route")
+    return {"loss": d_loss, "grad": d_grad, "step": d_step}
+
+
+def moe_frontend_phase(device, results: dict, launches: dict) -> dict:
+    """Phase 19 on the card: mixtral-8x22b and arctic-480b at full width
+    (depth ``MOE_DEPTH``), internvl2-2b and hubert-xlarge at full width
+    and depth, each raw and under a seeded pq policy: K1 exact at every
+    (shape, bits) of the policy (an expert stack's view block by block),
+    K6 on the first attention layer's q/k/v at 1 x 32,768 (D 128 on the
+    tensor cores; hubert's D 80 on the CUDA cores, bidirectional), a
+    prefill of 1 x 32,768 (internvl2's first 256 positions seeded patch
+    embeddings, hubert's seeded frames) with K6 and K1 counted per
+    forward, a decode at batch 8 for 64 steps (not hubert: an encoder);
+    then at the SMOKE widths the whole prefill against the CPU, decode
+    against prefill, the MoE configs' batched validation and one train
+    step of each family card against CPU. Adds the D 80 and D 128 K6
+    rows to ``results`` and their launches to ``launches``."""
+    import torch
+    from repro_torch.core.compress import CompressibleLM
+    from repro_torch.models import model as M
+    from repro_torch.models.registry import get_config
+    out = {}
+    t_phase = time.perf_counter()
+    for arch in FRONTEND_ARCHS:
+        full = get_config(arch)
+        cfg = full.replace(num_layers=MOE_DEPTH.get(arch, full.num_layers))
+        what = (f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k} of d_ff "
+                f"{cfg.d_ff}, capacity factor {cfg.moe.capacity_factor}"
+                f"{', a dense residual' if cfg.moe.dense_residual else ''}"
+                if cfg.moe else f"{cfg.mlp} d_ff {cfg.d_ff}")
+        log(f"[moe and frontend path] {cfg.name}: {cfg.num_layers} of "
+            f"{full.num_layers} layers, d={cfg.d_model}, "
+            f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim} "
+            f"({cfg.attention}"
+            f"{f', window {cfg.window}' if cfg.attention == 'sliding' else ''}"
+            f"), {what}, vocab {cfg.vocab_size}, frontend {cfg.frontend}, "
+            f"{cfg.compute_dtype} compute, {cfg.param_dtype} params; seeded "
+            f"random weights, 1 x {PREFILL_SEQ} prefill"
+            f"{'' if cfg.is_encoder else ', decode batch 8 x 64 steps'}, "
+            f"raw and under a seeded pq policy; {CARD}")
+        t0 = time.perf_counter()
+        release_cached_memory(device)
+        torch.cuda.reset_peak_memory_stats()
+        cm = CompressibleLM(cfg, M.init(cfg, seed=0, device=device))
+        log(f"  params {M.param_count(cm.params) / 1e9:.3f} B "
+            f"({torch.cuda.memory_allocated() / 1e9:.2f} GB on the card), "
+            f"init {time.perf_counter() - t0:.1f} s")
+        policy = seeded_policy(cm, 0)
+        cspec = cm.build_cspec(policy)
+        log("  policy (keep, w/a bits): " + " ".join(
+            f"{s.name}:{c.keep}/{c.w_bits}/{c.a_bits}"
+            for s, c in zip(cm.specs, policy.cmps)
+            if c.w_bits < 32 or (s.prune_dim and c.keep < s.prune_dim)))
+        rows = (PREFILL_SEQ,) + (() if cfg.is_encoder
+                                 else (DECODE["batch"],))
+        k1 = check_fake_quant_path(cfg, cspec, rows, device,
+                                   expert_views(cm.params) if cfg.moe
+                                   else None)
+        log(f"  K1 at the {k1['pairs']} (shape, bits) of the policy's "
+            f"prefill{'' if cfg.is_encoder else ' and decode'}: max "
+            f"|kernel - plain| {k1['max_abs_err']:.3g} (tol 0)")
+        pre = run_prefill(cfg, cm.params, cspec, device, PREFILL_SEQ,
+                          PREFILL_WARM_SEQ)
+        n_attn = cfg.layer_kinds.count("attn")
+        for n in ("uncompressed", "policy"):
+            k6_ms = pre["k6"]["ms"] * n_attn
+            log(f"  {n}: K6 {n_attn} x {pre['k6']['ms']:.3f} ms = "
+                f"{k6_ms:.1f} ms, {k6_ms / 1e3 / pre[n]['seconds']:.1%} of "
+                f"the forward; K1 {pre[n]['launches']['fake_quant']} "
+                f"launches")
+        row = {80: "flash_attention_d80", 128: "flash_attention_d128"}[
+            cfg.head_dim]
+        if arch in ("internvl2-2b", "hubert-xlarge"):
+            results[row] = pre["k6"]
+        launches[row] = launches.get(row, 0) + sum(
+            pre[n]["launches"]["flash_attention"]
+            for n in ("uncompressed", "policy"))
+        rec = {"prefill_s": {n: pre[n]["seconds"]
+                             for n in ("uncompressed", "policy")},
+               "k6": pre["k6"], "k1": k1, "dropped": pre.get("dropped")}
+        if cfg.is_encoder:
+            try:
+                M.init_cache(cfg, 1, 8, device=device)
+            except ValueError:
+                pass
+            else:
+                raise AssertionError(f"{cfg.name}: an encoder got a cache")
+        else:
+            rec["decode"] = run_decode(
+                cfg, cm.params, {"uncompressed": None, "policy": cspec},
+                **DECODE, requests=0, cache_bits=(16,))
+        rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        log(f"  peak device memory: {rec['peak_gb']:.2f} GB "
+            f"(torch.cuda.max_memory_allocated; {CARD}); "
+            f"{time.perf_counter() - t0:.1f} s for {cfg.name}")
+        out[arch] = rec
+        del cm, cspec
+    release_cached_memory(device)
+    t0 = time.perf_counter()
+    log(f"[moe and frontend path] SMOKE widths: the whole prefill against "
+        f"the CPU, decode against prefill, the MoE batched validation, "
+        f"one train step card against CPU; {CARD}")
+    for arch in FRONTEND_ARCHS:
+        smoke = get_config(arch, smoke=True)
+        check_prefill_numerics(smoke, device, 1100)
+        if not smoke.is_encoder:
+            check_decode_consistency(smoke, device)
+        if smoke.moe is not None:
+            out[arch]["slots"] = check_moe_slots(arch, device)
+        out[arch]["train"] = check_train_smoke(arch, device)
+    log(f"  {time.perf_counter() - t0:.1f} s for the SMOKE checks; "
+        f"{time.perf_counter() - t_phase:.1f} s for the phase")
+    return out
 
 
 def main() -> int:
@@ -5855,6 +6304,7 @@ def main() -> int:
 
     del cm
     recurrentgemma_phases(device, results, launches)
+    moe_frontend_phase(device, results, launches)
 
     for r in k6_4096.values():
         log(f"  flash_attention at S 4096 {r['shape']}: {r['ms']:.4f} ms "

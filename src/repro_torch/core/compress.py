@@ -52,8 +52,7 @@ def lm_layer_specs(cfg: ArchConfig) -> List[LayerSpec]:
     """The compressible units of an LM of any family, in the JAX
     package's order: embed, then per layer its units, then head. Pure
     shape arithmetic (the oracle and ``launch.inputs.model_flops`` read
-    it for every config); ``CompressibleLM`` refuses the families whose
-    model is not ported."""
+    it for every config)."""
     specs: List[LayerSpec] = []
     d = cfg.d_model
     if cfg.frontend != "audio_stub":
@@ -184,9 +183,16 @@ def _qs(cmp: Optional[LayerCMP]) -> dict:
 
 
 def _unit_prune_scores(cfg: ArchConfig, p_l, kind: str) -> torch.Tensor:
-    """ℓ1 scores of one unit's prunable dim."""
+    """ℓ1 scores of one unit's prunable dim. ``moe_up``: the expert
+    stacks ``w_up`` and ``w_gate`` [E, d, ff] reduced over the experts
+    and rows; in an MoE layer ``mlp_up`` is the dense residual's."""
     if kind == "attn_qkv":
         return pruning.head_scores(p_l["attn"]["wq"]["w"], cfg.num_heads)
+    if kind == "moe_up":
+        return pruning.l1_scores([p_l["moe"]["w_up"], p_l["moe"]["w_gate"]])
+    if kind == "mlp_up" and "moe" in p_l:
+        return pruning.l1_scores([p_l["moe"]["dense_w_up"],
+                                  p_l["moe"]["dense_w_gate"]])
     if kind == "mlp_up":
         ws = [p_l["mlp"]["w_up"]["w"]]
         if "w_gate" in p_l["mlp"]:
@@ -201,15 +207,37 @@ def _unit_prune_scores(cfg: ArchConfig, p_l, kind: str) -> torch.Tensor:
     raise ValueError(kind)
 
 
-# The prunable units of each layer kind, whose ℓ1 scores a cspec reads.
-PRUNE_KINDS = {"attn": ("attn_qkv", "mlp_up"), "ssm": ("ssm_in",),
-               "rglru": ("rglru_in", "mlp_up")}
+def prune_kinds(cfg: ArchConfig, layer_kind: str) -> tuple:
+    """The prunable units of a layer of ``layer_kind``, whose ℓ1 scores a
+    cspec reads: an attention layer's heads and its MLP's (or its MoE
+    experts' and dense residual's) hidden channels, an SSM layer's heads,
+    an RG-LRU layer's width and its MLP's hidden channels."""
+    if layer_kind == "attn" and cfg.moe is not None:
+        return ("attn_qkv", "moe_up") + (
+            ("mlp_up",) if cfg.moe.dense_residual else ())
+    return {"attn": ("attn_qkv", "mlp_up"), "ssm": ("ssm_in",),
+            "rglru": ("rglru_in", "mlp_up")}[layer_kind]
+
+
+def _moe_cspec(cfg: ArchConfig, qs, mask) -> dict:
+    """An MoE layer's ``"moe"`` entry from a builder's ``qs(unit)`` and
+    ``mask(unit, dim)``: the experts' bits and ff mask, and the dense
+    residual's (``None`` where the config has none), as the JAX package
+    lays it out."""
+    moe = {"up": qs("moe_up"), "down": qs("moe_down"),
+           "ff_mask": mask("moe_up", cfg.d_ff),
+           "dense_up": None, "dense_down": None, "dense_ff_mask": None}
+    if cfg.moe.dense_residual:
+        moe.update(dense_up=qs("mlp_up"), dense_down=qs("mlp_down"),
+                   dense_ff_mask=mask("mlp_up", cfg.d_ff))
+    return moe
 
 
 def build_lm_cspec(cfg: ArchConfig, params, policy: Policy,
                    specs: Sequence[LayerSpec], scores=None) -> dict:
     """The cspec of ``policy``: per attention layer ``{"attn": {"qkv",
-    "o", "head_mask"}, "mlp": {"up", "down", "ff_mask"}}``, per SSM layer
+    "o", "head_mask"}, "mlp": {"up", "down", "ff_mask"}}`` (an MoE
+    layer ``"moe"`` in place of ``"mlp"``: ``_moe_cspec``), per SSM layer
     ``{"ssm": {"in", "out", "head_mask"}}`` (SSD heads pruned at the
     ``ssm_in`` unit), per RG-LRU layer ``{"rglru": {"in", "out",
     "width_mask"}, "mlp": {...}}`` (LRU channels pruned at the
@@ -227,8 +255,9 @@ def build_lm_cspec(cfg: ArchConfig, params, policy: Policy,
         else:
             by_layer.setdefault(s.layer_idx, {})[s.kind] = c
 
+    device = M.device_of(params)
+
     def mask(i, kind, cmp, dim):
-        device = params["embed"].device
         if cmp is None or cmp.keep >= dim:
             return torch.ones((dim,), dtype=torch.float32, device=device)
         sc = scores.get((i, kind)) if scores is not None else None
@@ -257,9 +286,14 @@ def build_lm_cspec(cfg: ArchConfig, params, policy: Policy,
                                                cfg.lru_width)}}
         else:
             raise ValueError(f"layer {i}: no cspec for kind {kind!r}")
-        cu, cd = cm.get("mlp_up"), cm.get("mlp_down")
-        cs["mlp"] = {"up": _qs(cu), "down": _qs(cd),
-                     "ff_mask": mask(i, "mlp_up", cu, cfg.d_ff)}
+        if kind == "attn" and cfg.moe is not None:
+            cs["moe"] = _moe_cspec(
+                cfg, lambda unit: _qs(cm.get(unit)),
+                lambda unit, dim: mask(i, unit, cm.get(unit), dim))
+        else:
+            cu, cd = cm.get("mlp_up"), cm.get("mlp_down")
+            cs["mlp"] = {"up": _qs(cu), "down": _qs(cd),
+                         "ff_mask": mask(i, "mlp_up", cu, cfg.d_ff)}
         layer_cspecs.append(cs)
     out: dict[str, Any] = {"blocks": layer_cspecs}
     if embed_bits is not None:
@@ -288,7 +322,7 @@ def make_lm_cspec_builder(cfg: ArchConfig, params,
     ``build_lm_cspec``'s bits and masks (the same scores and ties)."""
     scores = _lm_prune_scores(cfg, params, specs)
     ranked = _sorted(scores)
-    device = params["embed"].device
+    device = M.device_of(params)
     pos: dict = {}
     for idx, s in enumerate(specs):
         pos[s.kind if s.kind in ("embed", "head")
@@ -331,8 +365,14 @@ def make_lm_cspec_builder(cfg: ArchConfig, params,
                                                    cfg.lru_width)}}
             else:
                 raise ValueError(f"layer {i}: no cspec for kind {kind!r}")
-            cs["mlp"] = {"up": qs((i, "mlp_up")), "down": qs((i, "mlp_down")),
-                         "ff_mask": mask((i, "mlp_up"), cfg.d_ff)}
+            if kind == "attn" and cfg.moe is not None:
+                cs["moe"] = _moe_cspec(
+                    cfg, lambda unit: qs((i, unit)),
+                    lambda unit, dim: mask((i, unit), dim))
+            else:
+                cs["mlp"] = {"up": qs((i, "mlp_up")),
+                             "down": qs((i, "mlp_down")),
+                             "ff_mask": mask((i, "mlp_up"), cfg.d_ff)}
             layer_cspecs.append(cs)
         out: dict[str, Any] = {"blocks": layer_cspecs, "slots": K}
         if "embed" in pos:
@@ -477,16 +517,15 @@ class CompressibleLM(_BatchedAccuracyMixin):
     _scores: dict = field(default_factory=dict, init=False, repr=False)
 
     def __post_init__(self):
-        M._check_supported(self.cfg)
         self.specs = lm_layer_specs(self.cfg)
         for i, layer_kind in enumerate(self.cfg.layer_kinds):
-            for kind in PRUNE_KINDS[layer_kind]:
+            for kind in prune_kinds(self.cfg, layer_kind):
                 self._scores[(i, kind)] = _unit_prune_scores(
                     self.cfg, self.params["blocks"][i], kind)
 
     @property
     def device(self) -> torch.device:
-        return self.params["embed"].device
+        return M.device_of(self.params)
 
     def build_cspec(self, policy: Policy) -> dict:
         return build_lm_cspec(self.cfg, self.params, policy, self.specs,

@@ -12,7 +12,9 @@ Weight container formats (contraction axis = -2):
     {"w_p": int8 [..., in//2, out], "w_scale": f32 [..., 1, out]} — int4
 Scales are per output channel (per layer: ``params["blocks"]`` is a list
 of per-layer dicts, which the walk visits one by one, as the JAX
-package's stacked tree gives each layer its own scales).
+package's stacked tree gives each layer its own scales), and per expert
+for an MoE layer's stacks ``w_up`` / ``w_gate`` [E, d, ff] and
+``w_down`` [E, ff, d] (``w_scale`` [E, 1, out]).
 """
 from __future__ import annotations
 

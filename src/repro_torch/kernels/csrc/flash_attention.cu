@@ -38,12 +38,14 @@
 // config served), flash_attention_tc_kernel below: both products on the
 // tensor cores with wgmma, K/V tiles fed by TMA, warp-specialised.
 //
-// "simt" -- f32 at every head dim, and bf16 at D 16 and 32 (which occur
-// only in the JAX tests' shapes), flash_attention_kernel: both products
-// as f32 FMAs on the CUDA cores.  The tensor cores take f32 only as TF32
-// (about 3 decimal digits), which would break the f32 parity of 2e-5, so
-// f32 stays here; D 16 and 32 would need 32- and 64-byte swizzle atoms
-// for a route that no served model takes.  One block of 128 threads per
+// "simt" -- f32 at every head dim, and bf16 at D 16, 32 (which occur
+// only in the JAX tests' shapes) and 80 (hubert-xlarge's heads),
+// flash_attention_kernel: both products as f32 FMAs on the CUDA cores.
+// The tensor cores take f32 only as TF32 (about 3 decimal digits), which
+// would break the f32 parity of 2e-5, so f32 stays here; D 16 and 32
+// would need 32- and 64-byte swizzle atoms for a route that no served
+// model takes, and D 80 rows (160 bytes) fit none of the 128-byte
+// swizzled tiles of the tc route.  One block of 128 threads per
 // (BQ-row q tile, q head, batch), BQ x BK = 64 x 64 up to D 128 and
 // 32 x 32 at D 256 (FaTile).  The q tile and each BK-key K and V tile are
 // staged in shared memory as f32 (read with element strides, so q/k/v
@@ -55,7 +57,9 @@
 // and an RIx(D/16) one for P.V, with the rounded P tile passed through
 // shared memory.  Row statistics reduce over the 16 lanes of a half-warp
 // with shuffles.  Row strides of the f32 tiles (D + 4, 80) keep the
-// float4 reads free of bank conflicts.  Causal grids start with the q
+// float4 reads free of bank conflicts (at D 80, 84 floats: eight rows
+// land on eight distinct 4-bank groups).  At D 80 a thread's D/16 = 5
+// output columns are not a float4, so its P.V reads V by scalars.  Causal grids start with the q
 // tiles that have the most keys.  67 TFLOP/s is this route's ceiling.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -282,8 +286,9 @@ static int launch(const void* q, const void* k, const void* v, void* o,
     return (int)cudaGetLastError();
 }
 
-// bf16 takes this route at D 16 and 32 only: at 64, 128 and 256 it takes
-// the tensor cores (fa_tc below), so no bf16 instantiation exists there.
+// bf16 takes this route at D 16, 32 and 80 only: at 64, 128 and 256 it
+// takes the tensor cores (fa_tc below), so no bf16 instantiation exists
+// there.
 template <typename T>
 static int launch_d(const void* q, const void* k, const void* v, void* o,
                     const long long* st, int B, int H, int KV, int S, int D,
@@ -292,6 +297,8 @@ static int launch_d(const void* q, const void* k, const void* v, void* o,
         case 16: return launch<T, 16>(q, k, v, o, st, B, H, KV, S, scale,
                                       causal, window, s);
         case 32: return launch<T, 32>(q, k, v, o, st, B, H, KV, S, scale,
+                                      causal, window, s);
+        case 80: return launch<T, 80>(q, k, v, o, st, B, H, KV, S, scale,
                                       causal, window, s);
         default: break;
     }

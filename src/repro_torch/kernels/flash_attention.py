@@ -4,7 +4,8 @@ JAX package's ``kernels/flash_attention.py::_flash_kernel``).
 
 Two routes, chosen here and nowhere else (``route``): bf16 at head dim
 64, 128 or 256 takes the tensor-core kernel (wgmma, TMA-fed tiles);
-f32, and bf16 at head dims 16 and 32, the CUDA-core template."""
+f32, and bf16 at head dims 16, 32 and 80 (hubert-xlarge), the CUDA-core
+template."""
 from __future__ import annotations
 
 import ctypes
@@ -15,7 +16,7 @@ import torch
 from . import build
 from .ref import attention_ref
 
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 TC_HEAD_DIMS = (64, 128, 256)
 # flash_attention_tc_launch's codes past the cudaError_t range
 _NO_ENCODE_ENTRY, _ENCODE_ERROR = 1999, 2000

@@ -5,7 +5,10 @@ Galen compression policy applied at load time), on the card.
         --smoke --batch 4 --steps 32
 
 The library functions take the params' device; ``main`` runs on CUDA
-only and refuses without a card.
+only and refuses without a card. An encoder (hubert-xlarge) has no
+decode step (``configs.base.cell_supported``): ``decode_loop`` refuses it
+and ``main`` serves it one prefill over seeded frame embeddings
+(``encode``).
 """
 from __future__ import annotations
 
@@ -16,17 +19,15 @@ import time
 
 import torch
 
+from ..models import layers as L
 from ..models import model as M
 from ..models.registry import get_config
-from ..train.train_step import make_serve_step
+from ..train.train_step import make_prefill_step, make_serve_step
 
 
 def _device(params) -> torch.device:
     """The device of the first weight tensor (containers included)."""
-    leaf = params["embed"]
-    while isinstance(leaf, dict):
-        leaf = next(iter(leaf.values()))
-    return leaf.device
+    return M.device_of(params)
 
 
 def _sync(device: torch.device) -> None:
@@ -62,6 +63,27 @@ def decode_loop(cfg, params, batch: int, steps: int, max_len: int,
     _sync(device)
     dt = time.perf_counter() - t0
     return torch.cat(out, 1), dt
+
+
+@torch.no_grad()
+def encode(cfg, params, batch: int, frames: int, cspec=None,
+           seed: int = 0):
+    """An encoder's serving request: one prefill over seeded frame
+    embeddings [batch, frames, d] (standard normal, from a numpy seed, in
+    the compute dtype). Returns (per-frame class ids [batch, frames],
+    seconds on the host clock, ended by a device sync)."""
+    import numpy as np
+    device = _device(params)
+    embeds = torch.as_tensor(
+        np.random.default_rng(seed).standard_normal(
+            (batch, frames, cfg.d_model), dtype=np.float32),
+        device=device).to(L.dtype_of(cfg.compute_dtype))
+    step = make_prefill_step(cfg, cspec)
+    _sync(device)
+    t0 = time.perf_counter()
+    classes = torch.argmax(step(params, None, embeds), -1)
+    _sync(device)
+    return classes, time.perf_counter() - t0
 
 
 def sustained_throughput(cfg, params, batch: int, steps: int, max_len: int,
@@ -113,8 +135,6 @@ def main(argv=None) -> int:
         return 2
 
     cfg = get_config(args.arch, smoke=args.smoke)
-    if cfg.is_encoder:
-        raise SystemExit("encoder-only arch has no decode step")
     params = M.init(cfg, seed=0, device="cuda")
 
     cspec = None
@@ -126,6 +146,15 @@ def main(argv=None) -> int:
             rows = json.load(f)
         cspec = CompressibleLM(cfg, params).build_cspec(
             Policy([LayerCMP(**r) for r in rows]))
+
+    if cfg.is_encoder:
+        classes, dt = encode(cfg, params, args.batch, args.max_len, cspec)
+        print(f"[serve] {args.arch} is an encoder (no decode step): "
+              f"{args.batch} x {args.max_len} frames in {dt:.2f}s -> "
+              f"{args.batch * args.max_len / dt:.1f} frames/s "
+              f"({torch.cuda.get_device_name(0)})")
+        print("[serve] sample:", classes[0, :16].tolist())
+        return 0
 
     tokens, dt = decode_loop(cfg, params, args.batch, args.steps,
                              args.max_len, cspec)

@@ -1,21 +1,26 @@
 """Residual sub-blocks: attention (full sequence, and single-token decode
-against a KV cache), the MLP, the Mamba-2 (SSD) block and the RG-LRU
-(Griffin) recurrent block (each full sequence, and single-token decode
-against its conv and state cache).
+against a KV cache), the MLP, the MoE block (top-k routed experts with a
+capacity dispatch, and Arctic's dense residual), the Mamba-2 (SSD) block
+and the RG-LRU (Griffin) recurrent block (each full sequence, and
+single-token decode against its conv and state cache).
 
 Compression hooks: ``cspec`` — a dict of quant specs
 (``{"w_bits","a_bits"}``, host ints) and float 0/1 pruning masks; ``None``
 means uncompressed. A batched cspec (K policies: bits as K-tuples, masks
 [K, n], the policies' rows folded into the batch axis) takes the same
 paths: ``layers.project`` and ``layers.apply_mask`` take either form.
-The MoE block waits for its slice.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
+from ..core.quantization import (fake_quant_act, fake_quant_act_slots,
+                                 fake_quant_weight, fake_quant_weight_slots,
+                                 slotted)
 from ..kernels import ops, ref
 from . import layers as L
 
@@ -152,6 +157,191 @@ def apply_mlp(p, x, cfg: ArchConfig, cspec=None):
     gate = L.linear(p["w_gate"], x, qs_up) if "w_gate" in p else up
     h = L.mlp_act(cfg.mlp, gate, up)
     return L.linear(p["w_down"], L.apply_mask(h, ff_mask), qs_down)
+
+
+# ===========================================================================
+# MoE (top-k, capacity dispatch; optional Arctic dense residual)
+# ===========================================================================
+
+def init_moe(gen: torch.Generator, cfg: ArchConfig, dtype, device):
+    """The router [d, E] (f32 whatever the param dtype), the expert stacks
+    ``w_up`` / ``w_gate`` [E, d, ff] and ``w_down`` [E, ff, d] as raw
+    arrays, and, for a dense residual (Arctic), ``dense_w_*`` raw [d, ff]
+    / [ff, d]. Each stack is drawn in f32 and scaled in place before its
+    cast, so a full-width stack costs one f32 copy at a time."""
+    m = cfg.moe
+    d, ff, E = cfg.d_model, cfg.d_ff, m.num_experts
+
+    def draw(shape, std):
+        return torch.randn(shape, generator=gen, device=device).mul_(std)
+
+    p = {"router": draw((d, E), 1.0 / math.sqrt(d)),
+         "w_up": draw((E, d, ff), 1.0 / math.sqrt(d)).to(dtype),
+         "w_gate": draw((E, d, ff), 1.0 / math.sqrt(d)).to(dtype),
+         "w_down": draw((E, ff, d), 1.0 / math.sqrt(ff)).to(dtype)}
+    if m.dense_residual:
+        p["dense_w_up"] = L.linear_init(gen, d, ff, dtype, device)["w"]
+        p["dense_w_gate"] = L.linear_init(gen, d, ff, dtype, device)["w"]
+        p["dense_w_down"] = L.linear_init(gen, ff, d, dtype, device)["w"]
+    return p
+
+
+def moe_capacity(Tg: int, E: int, K: int, capacity_factor: float) -> int:
+    """Slots per expert for a group of Tg tokens: all of them where Tg·E
+    <= 4096 (decode, small batches: nothing drops), else K·Tg/E times
+    the capacity factor, rounded up to a multiple of 4 (at least 4)."""
+    if Tg * E <= 4096:
+        return Tg
+    cap = int(math.ceil(K * Tg / E * capacity_factor))
+    return max(4, -(-cap // 4) * 4)
+
+
+def moe_dispatch(gates: torch.Tensor, E: int, K: int, capacity: int):
+    """Grouped dispatch. gates [G, Tg, E] softmax probs -> (dispatch
+    [G, E, C] token index per expert slot, Tg = the pad row where a slot
+    is empty; gate values [G, Tg, K] renormalised over the K chosen;
+    slot [G, Tg, K] flat index e·C + position of each choice, E·C where
+    it dropped; keep [G, Tg, K]). Positions count each expert's earlier
+    choices in token-major, k-minor order (flat index t·K + k), within
+    the group; a choice at position >= C drops."""
+    G, Tg, _ = gates.shape
+    gate_vals, expert_idx = torch.topk(gates, K, dim=-1)
+    gate_vals = gate_vals / torch.clamp_min(
+        gate_vals.sum(-1, keepdim=True), 1e-9)
+    e_flat = expert_idx.reshape(G, Tg * K)
+    onehot = F.one_hot(e_flat, E)                           # [G, Tg*K, E]
+    pos = ((torch.cumsum(onehot, 1) - onehot) * onehot).sum(-1)
+    keep = pos < capacity
+    pos_c = torch.where(keep, pos, torch.full_like(pos, capacity))
+    tok = (torch.arange(Tg * K, device=gates.device) // K).expand(G, -1)
+    gi = torch.arange(G, device=gates.device)[:, None].expand(-1, Tg * K)
+    dispatch = torch.full((G, E, capacity + 1), Tg, dtype=torch.int64,
+                          device=gates.device)
+    # only the overflow column (dropped below) takes repeated writes
+    dispatch[gi, e_flat, pos_c] = tok
+    slot = torch.where(keep, e_flat * capacity + pos,
+                       torch.full_like(pos, E * capacity))
+    return (dispatch[:, :, :capacity], gate_vals, slot.reshape(G, Tg, K),
+            keep.reshape(G, Tg, K))
+
+
+def moe_route(p, xt: torch.Tensor, cfg: ArchConfig):
+    """Route the token groups xt [G, Tg, d]: the router in f32, softmax,
+    then ``moe_dispatch`` at ``moe_capacity(Tg, ...)`` slots per expert;
+    returns its (dispatch, gate values, slot, keep)."""
+    m = cfg.moe
+    gates = torch.softmax(torch.matmul(xt.float(), p["router"].float()), -1)
+    return moe_dispatch(gates, m.num_experts, m.top_k, moe_capacity(
+        xt.shape[1], m.num_experts, m.top_k, m.capacity_factor))
+
+
+def dispatch_groups(T: int, E: int, groups: int = 1) -> int:
+    """Dispatch groups for T tokens: ``groups`` (a data-parallel axis's
+    size), halved while the group's tokens would not divide evenly or
+    would number fewer than 4·E. On one device ``groups`` is 1, as the
+    JAX package has it without a mesh; the argument waits for a
+    sharding slice."""
+    G = groups
+    while G > 1 and (T % G != 0 or T // G < 4 * E):
+        G //= 2
+    return max(1, G)
+
+
+def _n_slots(qs) -> int:
+    """K for a batched quant spec (K policies' rows folded into the batch
+    axis), 1 for a scalar spec or none."""
+    if qs is None or not slotted(qs["w_bits"]):
+        return 1
+    return len(qs["w_bits"])
+
+
+def _expert_act(xe: torch.Tensor, qs, P: int) -> torch.Tensor:
+    """Fake-quantize dispatched activations [P·G, E, C, n] at ``qs``'s
+    a_bits: one range per channel over all of a policy's rows, empty
+    slots' zero pad rows included (as the JAX package counts them)."""
+    if qs is None:
+        return xe
+    if P == 1:
+        return fake_quant_act(xe, qs["a_bits"])
+    return fake_quant_act_slots(xe.reshape(P, -1, xe.shape[-1]),
+                                qs["a_bits"]).reshape(xe.shape)
+
+
+def _expert_product(xe: torch.Tensor, w: torch.Tensor, qs,
+                    P: int) -> torch.Tensor:
+    """xe [P·G, E, C, n_in] by the expert stack w [E, n_in, n_out] under
+    ``qs``'s w_bits: the stack fake-quantized per output channel over
+    the experts and rows together (read in place as its [E·n_in, n_out]
+    view), per policy for a batched spec; one batched product over the
+    experts. The quantized copy lives only for its product."""
+    E, n_in, n_out = w.shape
+    if qs is None:
+        return torch.matmul(xe, w.to(xe.dtype))
+    if P == 1:
+        return torch.matmul(xe, fake_quant_weight(w, qs["w_bits"])
+                            .to(xe.dtype))
+    ws = fake_quant_weight_slots(w.reshape(E * n_in, n_out), qs["w_bits"])
+    xs = xe.reshape(P, -1, E, xe.shape[2], n_in)
+    return torch.matmul(xs, ws.reshape(P, 1, E, n_in, n_out).to(xe.dtype)
+                        ).reshape(*xe.shape[:-1], n_out)
+
+
+def apply_moe(p, x, cfg: ArchConfig, cspec=None):
+    """Top-k routed experts over x [B, S, d]: the router in f32, softmax,
+    ``moe_dispatch`` with ``moe_capacity`` slots per expert (overflow
+    tokens drop), the gathered tokens [G, E, C, d] (an empty slot reads a
+    zero pad row) through the gated experts, and the outputs combined
+    with the renormalised gates of the kept choices; plus the dense
+    residual MLP where the config has one (its spec under ``dense_up`` /
+    ``dense_down`` / ``dense_ff_mask``). A batched cspec (K policies'
+    rows folded into B) dispatches each policy's tokens on their own:
+    K groups, each its own positions and capacity, each its own
+    quantized experts (what ``vmap`` gives the JAX package)."""
+    m = cfg.moe
+    E, K = m.num_experts, m.top_k
+    d = x.shape[-1]
+    qs_up, qs_down = _get(cspec, "up"), _get(cspec, "down")
+    P = _n_slots(qs_up)
+    T = x.shape[0] * x.shape[1] // P
+    G = dispatch_groups(T, E)
+    Tg = T // G
+    xt = x.reshape(P * G, Tg, d)
+    dispatch, gate_vals, slot, keep = moe_route(p, xt, cfg)
+    cap = dispatch.shape[-1]
+
+    gi = torch.arange(P * G, device=x.device)[:, None]
+    pad = torch.zeros((P * G, 1, d), dtype=x.dtype, device=x.device)
+    xe = torch.cat([xt, pad], 1)[gi, dispatch.reshape(P * G, E * cap)]
+    xe = _expert_act(xe.reshape(P * G, E, cap, d), qs_up, P)
+    # each buffer is dropped once consumed: a full-width arctic-480b layer
+    # at 32K tokens peaks near 64 GB with them
+    dt = x.dtype
+    up = _expert_product(xe, L.getw(p, "w_up", dt), qs_up, P)
+    gate = _expert_product(xe, L.getw(p, "w_gate", dt), qs_up, P)
+    del xe
+    h = L.mlp_act("swiglu" if cfg.mlp == "swiglu" else "geglu", gate, up)
+    del up, gate
+    h = _expert_act(L.apply_mask(h, _get(cspec, "ff_mask")), qs_down, P)
+    ye = _expert_product(h, L.getw(p, "w_down", dt), qs_down, P)
+    del h
+
+    ye = torch.cat([ye.reshape(P * G, E * cap, d),
+                    torch.zeros((P * G, 1, d), dtype=ye.dtype,
+                                device=x.device)], 1)
+    per_tk = ye[gi, slot.reshape(P * G, Tg * K)].reshape(P * G, Tg, K, d)
+    w = torch.where(keep, gate_vals, torch.zeros_like(gate_vals))
+    out = (per_tk * w.to(per_tk.dtype)[..., None]).sum(2).reshape(x.shape)
+    if m.dense_residual:
+        dspec = None if cspec is None else {
+            "up": cspec.get("dense_up"), "down": cspec.get("dense_down"),
+            "ff_mask": cspec.get("dense_ff_mask")}
+
+        def as_linear(v):
+            return v if isinstance(v, dict) else {"w": v}
+        out = out + apply_mlp({k: as_linear(p["dense_" + k])
+                               for k in ("w_up", "w_gate", "w_down")},
+                              x, cfg, dspec)
+    return out
 
 
 # ===========================================================================

@@ -107,7 +107,8 @@ def apply_mask(x: torch.Tensor, mask: Optional[torch.Tensor],
 def materialize_weight(p, dtype: torch.dtype):
     """Resolve a weight container (see ``core/deploy.py``) to a dense
     tensor. Deployed int8 / packed-int4 storage dequantizes on the fly,
-    in ``dtype``: codes times per-channel scale."""
+    in ``dtype``: codes times per-channel scale (an MoE stack's codes
+    [E, in, out] times its per-expert scales [E, 1, out])."""
     if not isinstance(p, dict):
         return p
     if "w" in p:
@@ -122,7 +123,7 @@ def materialize_weight(p, dtype: torch.dtype):
 
 def getw(container: dict, name: str, dtype: torch.dtype):
     """Fetch a possibly deploy-quantized raw weight (the embedding, the
-    unembedding)."""
+    unembedding, an MoE layer's expert stacks)."""
     v = container[name]
     if isinstance(v, dict):
         return materialize_weight(v, dtype)

@@ -1,8 +1,11 @@
-"""Decoder LM of the dense attention, the Mamba-2 (SSM) and the RG-LRU
-hybrid (Griffin) families: ``init``, ``forward`` (train / prefill),
-``init_cache`` and ``decode_step`` (one new token against a KV, SSM or
-RG-LRU cache), and ``param_count``. Each layer dispatches on its kind
-(``cfg.layer_kinds[i]``).
+"""Decoder LM of every family the JAX package runs (dense attention, MoE,
+Mamba-2 (SSM), the RG-LRU hybrid (Griffin)) and its two stub frontends
+(an audio encoder fed frame embeddings, a VLM whose first positions are
+patch embeddings): ``init``, ``forward`` (train / prefill), ``init_cache``
+and ``decode_step`` (one new token against a KV, SSM or RG-LRU cache;
+an encoder has none), and ``param_count``. Each layer dispatches on its
+kind (``cfg.layer_kinds[i]``); an attention layer carries an MLP or,
+where the config has ``moe``, the MoE block.
 
 The JAX package stacks homogeneous layers on a leading axis and scans over
 them; here ``params["blocks"]``, ``cspec["blocks"]`` and the cache are
@@ -25,14 +28,6 @@ from . import blocks as B
 from . import layers as L
 
 
-def _check_supported(cfg: ArchConfig) -> None:
-    if not set(cfg.layer_kinds) <= {"attn", "ssm", "rglru"} \
-            or cfg.moe is not None or cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: only the dense attention, SSM and RG-LRU "
-            f"families are ported")
-
-
 # ---------------------------------------------------------------------------
 # Per-kind block init / apply / cache / decode dispatch
 # ---------------------------------------------------------------------------
@@ -45,7 +40,9 @@ def _init_block(kind: str, gen: torch.Generator, cfg: ArchConfig, dtype,
                 "attn": B.init_attention(gen, cfg, dtype, device),
                 "mlp_norm": L.norm_init(cfg.norm, cfg.d_model, dtype,
                                         device),
-                "mlp": B.init_mlp(gen, cfg, dtype, device)}
+                **({"moe": B.init_moe(gen, cfg, dtype, device)}
+                   if cfg.moe is not None
+                   else {"mlp": B.init_mlp(gen, cfg, dtype, device)})}
     if kind == "ssm":
         return {"norm": L.norm_init(cfg.norm, cfg.d_model, dtype, device),
                 "ssm": B.init_ssm(gen, cfg, dtype, device)}
@@ -59,6 +56,13 @@ def _init_block(kind: str, gen: torch.Generator, cfg: ArchConfig, dtype,
     raise ValueError(kind)
 
 
+def _ffn(p, h, cfg: ArchConfig, cs: dict):
+    """An attention layer's feed-forward half: the MoE block or the MLP."""
+    if "moe" in p:
+        return B.apply_moe(p["moe"], h, cfg, cs.get("moe"))
+    return B.apply_mlp(p["mlp"], h, cfg, cs.get("mlp"))
+
+
 def _apply_block(kind: str, p, x, cfg: ArchConfig, cspec, positions):
     cs = cspec or {}
     if kind == "attn":
@@ -66,7 +70,7 @@ def _apply_block(kind: str, p, x, cfg: ArchConfig, cspec, positions):
         x = x + B.apply_attention(p["attn"], h, cfg, cs.get("attn"),
                                   positions)
         h = L.apply_norm(cfg.norm, p["mlp_norm"], x)
-        return x + B.apply_mlp(p["mlp"], h, cfg, cs.get("mlp"))
+        return x + _ffn(p, h, cfg, cs)
     if kind == "ssm":
         h = L.apply_norm(cfg.norm, p["norm"], x)
         return x + B.apply_ssm(p["ssm"], h, cfg, cs.get("ssm"))
@@ -100,7 +104,7 @@ def _decode_block(kind: str, p, x, cache, pos: int, cfg: ArchConfig,
         x = x + B.decode_attention_block(p["attn"], h, cache, pos, cfg,
                                          cs.get("attn"))
         h = L.apply_norm(cfg.norm, p["mlp_norm"], x)
-        return x + B.apply_mlp(p["mlp"], h, cfg, cs.get("mlp"))
+        return x + _ffn(p, h, cfg, cs)
     if kind == "ssm":
         h = L.apply_norm(cfg.norm, p["norm"], x)
         return x + B.decode_ssm(p["ssm"], h, cache, pos, cfg, cs.get("ssm"))
@@ -116,14 +120,16 @@ def _decode_block(kind: str, p, x, cache, pos: int, cfg: ArchConfig,
 def init(cfg: ArchConfig, seed: int = 0, device="cuda") -> dict:
     """Seeded random weights from the port's own ``torch.Generator`` (a
     different stream from the JAX package's keys: to hold the two against
-    each other, carry the JAX weights over with ``repro_torch.convert``)."""
-    _check_supported(cfg)
+    each other, carry the JAX weights over with ``repro_torch.convert``).
+    An audio-frontend config has no ``embed`` (its inputs are frame
+    embeddings)."""
     dtype = L.dtype_of(cfg.param_dtype)
     gen = torch.Generator(device=device).manual_seed(seed)
-    params: dict[str, Any] = {
-        "embed": (torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
-                              device=device)
-                  / (cfg.d_model ** 0.5)).to(dtype)}
+    params: dict[str, Any] = {}
+    if cfg.frontend != "audio_stub":
+        params["embed"] = (torch.randn((cfg.vocab_size, cfg.d_model),
+                                       generator=gen, device=device)
+                           / (cfg.d_model ** 0.5)).to(dtype)
     params["blocks"] = [_init_block(kind, gen, cfg, dtype, device)
                         for kind in cfg.layer_kinds]
     params["final_norm"] = L.norm_init(cfg.norm, cfg.d_model, dtype, device)
@@ -142,21 +148,52 @@ def param_count(params) -> int:
     return params.numel()
 
 
-def _embed_inputs(cfg: ArchConfig, params, tokens, cspec) -> torch.Tensor:
+def device_of(params) -> torch.device:
+    """The device of a param tree: that of its first tensor (weight
+    containers included; an audio-frontend model has no ``embed``)."""
+    if isinstance(params, dict):
+        params = list(params.values())
+    if isinstance(params, (list, tuple)):
+        for v in params:
+            d = device_of(v)
+            if d is not None:
+                return d
+        return None
+    return params.device if isinstance(params, torch.Tensor) else None
+
+
+def _embed_inputs(cfg: ArchConfig, params, tokens, cspec,
+                  embeds=None) -> torch.Tensor:
+    """The first layer's input: an audio frontend's frame embeddings
+    [B, S, d] as they come; else the token embeddings in the compute
+    dtype, with a vision frontend's ``embeds`` [B, P, d] over the first
+    P positions. Under a batched cspec of K policies each slot gathers
+    from its own quantized table and the frontend's embeddings repeat
+    for every slot ([K·B, S, d])."""
+    K = None if cspec is None else cspec.get("slots")
+    if cfg.frontend == "audio_stub":
+        if K:
+            return embeds.expand(K, *embeds.shape).reshape(
+                -1, *embeds.shape[1:])
+        return embeds
     compute = L.dtype_of(cfg.compute_dtype)
     table = L.getw(params, "embed", compute)
     ebits = None if cspec is None else cspec.get("embed_bits")
-    K = None if cspec is None else cspec.get("slots")
     if K:
         # [K, V, d] tables (a view of the one table where no slot
         # quantizes it); slot k's rows are the k-th block of the batch
         tables = table.expand(K, *table.shape) if ebits is None \
             else L.fake_quant_weight_slots(table, ebits)
-        return tables[:, tokens].reshape(-1, *tokens.shape[1:],
-                                         table.shape[-1]).to(compute)
-    if ebits is not None:
-        table = L.fake_quant_weight(table, ebits)
-    return table[tokens].to(compute)
+        x = tables[:, tokens].to(compute)
+    else:
+        if ebits is not None:
+            table = L.fake_quant_weight(table, ebits)
+        x = table[tokens].to(compute)[None]
+    if cfg.frontend == "vision_stub" and embeds is not None:
+        P = embeds.shape[1]
+        x = torch.cat([embeds.to(x.dtype).expand(x.shape[0], *embeds.shape),
+                       x[:, :, P:]], 2)
+    return x.reshape(-1, *x.shape[2:])
 
 
 def _unembed(cfg: ArchConfig, params, x, cspec) -> torch.Tensor:
@@ -177,12 +214,13 @@ def _unembed(cfg: ArchConfig, params, x, cspec) -> torch.Tensor:
     return torch.einsum("bsd,dv->bsv", x, w.to(x.dtype)).float()
 
 
-def forward(cfg: ArchConfig, params, tokens, cspec=None,
-            positions=None) -> torch.Tensor:
-    """tokens [B, S] int64 -> logits [B, S, vocab] (f32); [K, B, S, vocab]
+def forward(cfg: ArchConfig, params, tokens=None, cspec=None,
+            positions=None, embeds=None) -> torch.Tensor:
+    """tokens [B, S] int64 (and/or a frontend's ``embeds``: [B, S, d]
+    frames for an audio encoder, [B, P, d] patches over the first P
+    positions for a VLM) -> logits [B, S, vocab] (f32); [K, B, S, vocab]
     for a batched cspec of K policies."""
-    _check_supported(cfg)
-    x = _embed_inputs(cfg, params, tokens, cspec)
+    x = _embed_inputs(cfg, params, tokens, cspec, embeds)
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
     blocks_cs = None if cspec is None else cspec.get("blocks")
@@ -198,25 +236,32 @@ def forward(cfg: ArchConfig, params, tokens, cspec=None,
 # Decode (single new token against a cache)
 # ---------------------------------------------------------------------------
 
+def _check_decoder(cfg: ArchConfig) -> None:
+    if cfg.is_encoder:
+        raise ValueError(f"{cfg.name}: an encoder-only arch has no decode "
+                         f"step")
+
+
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None,
                cache_bits: int = 16, device="cuda") -> list:
     """One cache dict per layer: an attention layer's K/V in the compute
     dtype (int8 codes and scales with ``cache_bits=8``; a ring of
     ``window`` slots for a sliding-window layer), an SSM or RG-LRU layer's
-    conv window and f32 state."""
-    _check_supported(cfg)
+    conv window and f32 state. An encoder has none (ValueError)."""
+    _check_decoder(cfg)
     dtype = dtype or L.dtype_of(cfg.compute_dtype)
     return [_init_block_cache(kind, cfg, batch, max_len, dtype, device,
                               cache_bits) for kind in cfg.layer_kinds]
 
 
 def decode_step(cfg: ArchConfig, params, cache, tokens, pos: int,
-                cspec=None):
+                cspec=None, embeds=None):
     """tokens: [B, 1]; pos: the position of these tokens (a host int).
     Returns (logits [B, 1, V] f32, cache); the cache is updated in
-    place."""
-    _check_supported(cfg)
-    x = _embed_inputs(cfg, params, tokens, cspec)
+    place. ``embeds`` as ``forward`` takes them (a VLM's patches cover
+    the prompt, so decode passes none)."""
+    _check_decoder(cfg)
+    x = _embed_inputs(cfg, params, tokens, cspec, embeds)
     blocks_cs = None if cspec is None else cspec.get("blocks")
     for i, (p_l, c_l) in enumerate(zip(params["blocks"], cache)):
         x = _decode_block(cfg.layer_kinds[i], p_l, x, c_l, pos, cfg,

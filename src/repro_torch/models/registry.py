@@ -1,7 +1,7 @@
 """Architecture registry: ``--arch <id>`` -> (full config, smoke config).
 The port's copy of the JAX package's ``models/registry.py``, over the
-port's own config modules. Every config is listed; the model refuses the
-families that are not ported yet (``model._check_supported``)."""
+port's own config modules. Every config is listed, and the port's model
+runs each of them."""
 from __future__ import annotations
 
 from importlib import import_module

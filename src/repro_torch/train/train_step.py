@@ -9,9 +9,10 @@ straight-through gradient flowing through each quantizer (on the card
 K1's straight-through route, ``kernels.ops.fake_quant_ste``): the
 paper's quantization-aware retraining.
 
-The JAX package's ``lm_loss`` also has an encoder branch (per-frame
-labels) and a vision-frontend mask; the port's model refuses those
-configs (``models.model._check_supported``), so neither is ported here.
+A batch is ``{"tokens"}`` for a decoder, plus ``"embeds"`` for a
+frontend (a VLM's patch embeddings over its first positions, an audio
+encoder's frame embeddings in place of tokens) and ``"labels"`` for an
+encoder (per-frame classes).
 """
 from __future__ import annotations
 
@@ -40,10 +41,23 @@ def _sharded_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 def lm_loss(cfg: ArchConfig, params, batch: dict, cspec=None
             ) -> torch.Tensor:
     """Next-token CE of a decoder LM, averaged over every position that
-    has a next token."""
-    tokens = batch["tokens"]
-    logits = M.forward(cfg, params, tokens, cspec=cspec)
-    return torch.mean(_sharded_ce(logits[:, :-1], tokens[:, 1:]))
+    has a next token; a VLM's only over the positions from the last
+    patch on (``pos >= frontend_len - 1``: the text the patches
+    condition), summed over the batch and divided by the mask's sum,
+    which, the mask being [1, S - 1] as in the JAX package, counts one
+    row's positions; an encoder's per-frame CE against
+    ``batch["labels"]``."""
+    tokens = batch.get("tokens")
+    logits = M.forward(cfg, params, tokens, cspec=cspec,
+                       embeds=batch.get("embeds"))
+    if cfg.is_encoder:
+        return torch.mean(_sharded_ce(logits, batch["labels"]))
+    nll = _sharded_ce(logits[:, :-1], tokens[:, 1:])
+    if cfg.frontend == "vision_stub" and cfg.frontend_len > 0:
+        pos = torch.arange(nll.shape[1], device=nll.device)[None]
+        mask = (pos >= cfg.frontend_len - 1).to(nll.dtype)
+        return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    return torch.mean(nll)
 
 
 def value_and_grad(loss_fn, params):
@@ -164,11 +178,14 @@ def make_serve_step(cfg: ArchConfig, cspec=None):
 
 
 def make_prefill_step(cfg: ArchConfig, cspec=None):
-    """One prefill forward: (params, tokens [B,S]) -> logits [B,S,V]
-    (f32), with no autograd graph."""
+    """One prefill forward: (params, tokens [B,S], embeds=None) -> logits
+    [B,S,V] (f32), with no autograd graph; ``embeds`` a frontend's, as
+    ``models.model.forward`` takes them (an audio encoder's in place of
+    tokens, which are then ``None``)."""
 
-    def step(params, tokens):
+    def step(params, tokens, embeds=None):
         with torch.no_grad():
-            return M.forward(cfg, params, tokens, cspec=cspec)
+            return M.forward(cfg, params, tokens, cspec=cspec,
+                             embeds=embeds)
 
     return step

@@ -1420,3 +1420,66 @@ def test_gpu_kernels_under_autograd(cuda, case):
     kind, xs, extra, what = cases[case]
     out = chip_smoke.check_kernel_grad(kind, xs, extra, what)
     assert out["equal"] or out["rel"] <= chip_smoke.AUTOGRAD_REL_TOL
+
+
+# ---------------------------------------------------------------------------
+# The MoE and frontend slice: K6 at head dim 80, K1 on expert stacks
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,H", [(200, 4), (4096, 16)])
+@pytest.mark.parametrize("causal,window", FA_MASKS)
+def test_gpu_flash_attention_d80(cuda, dtype, S, H, causal, window):
+    """hubert-xlarge's head dim 80 (MHA: 16 / 16 heads at S 4096, and a
+    ragged S) takes the CUDA-core route in f32 and bf16: one
+    ``flash_attention`` launch and no ``flash_attention_tc`` one; against
+    the dense plain version at f32's 2e-5, bf16's 0.04 and each row
+    within 2^-6."""
+    dt = getattr(torch, dtype)
+    q, k, v = _qkv(80 + S, 1, S, H, H, 80, dt, cuda)
+    before = (build.LAUNCHES["flash_attention"],
+              build.LAUNCHES["flash_attention_tc"])
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    assert (build.LAUNCHES["flash_attention"],
+            build.LAUNCHES["flash_attention_tc"]) == (before[0] + 1,
+                                                      before[1])
+    assert got.dtype == dt
+    want = ref.attention_ref(q, k, v, causal=causal, window=window)
+    if dt == torch.float32:
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
+        return
+    torch.testing.assert_close(got.float(), want.float(), atol=0.04, rtol=0)
+    rel = (got.float() - want.float()).norm(dim=-1) \
+        / want.float().norm(dim=-1)
+    assert float(rel.max()) <= 2.0 ** -6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("E,R,C", [(8, 768, 2048), (128, 56, 608),
+                                   (4, 64, 97)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gpu_fake_quant_expert_stack_view(cuda, E, R, C, dtype):
+    """An MoE layer's expert stack [E, d, ff] quantized the way the block
+    quantizes it on the card (``core.quantization.fake_quant_weight``:
+    K1 straight-through on its [E·d, ff] view, read in place, one
+    launch), bit for bit the plain version on that view (one range per
+    channel over the experts and rows together); and the slot form over
+    the stack shared by 4 policies (one at 32 bits), each slot exact."""
+    from repro_torch.core.quantization import (fake_quant_weight,
+                                               fake_quant_weight_slots)
+    dt = getattr(torch, dtype)
+    w = torch.from_numpy(_normal(E + C, (E, R, C))).to(cuda, dt)
+    before = build.LAUNCHES["fake_quant"]
+    got = fake_quant_weight(w, 4)
+    assert build.LAUNCHES["fake_quant"] == before + 1
+    assert got.shape == w.shape and got.dtype == dt
+    view = w.reshape(E * R, C)
+    assert view.data_ptr() == w.data_ptr()
+    assert torch.equal(got.reshape(E * R, C), fake_quant_ste_ref(view, 4))
+    bits = (2, 4, 8, 32)
+    before = build.LAUNCHES["fake_quant_slots"]
+    slots = fake_quant_weight_slots(view, bits)
+    assert build.LAUNCHES["fake_quant_slots"] == before + 1
+    assert torch.equal(slots, fake_quant_slots_ref(
+        view.expand(len(bits), *view.shape), bits, True))

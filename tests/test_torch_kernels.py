@@ -496,8 +496,9 @@ def test_wrappers_refuse_other_devices():
 
 def test_flash_attention_takes_head_dims_up_to_256():
     """K6 is built for head dims 16 to 256; 256 is recurrentgemma-2b's
-    (its own 32 x 32 tile instantiation in ``csrc/flash_attention.cu``)."""
-    assert HEAD_DIMS == (16, 32, 64, 128, 256)
+    (its own 32 x 32 tile instantiation in ``csrc/flash_attention.cu``),
+    80 hubert-xlarge's (the CUDA-core template, f32 and bf16)."""
+    assert HEAD_DIMS == (16, 32, 64, 80, 128, 256)
     src = (build.CSRC / "flash_attention.cu").read_text()
     for d in HEAD_DIMS:
         assert f"case {d}: return launch<T, {d}>" in src

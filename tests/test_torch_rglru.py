@@ -361,10 +361,22 @@ def test_convert_carries_the_rglru_leaves():
 
 
 def test_model_refuses_moe_and_frontends_only():
+    """The MoE family and the stub frontends are ported: their SMOKE
+    configs init (an MoE layer's ``moe`` block, no ``embed`` for the
+    audio encoder). What is still refused is decode for the encoder
+    (hubert-xlarge has no decode step): ``init_cache`` and serving's
+    ``decode_loop`` raise; a decoder's cache is made as before."""
     for arch in ("mixtral-8x22b", "hubert-xlarge", "internvl2-2b"):
         cfg = treg.get_config(arch, smoke=True)
-        with pytest.raises(NotImplementedError):
-            TM.init(cfg, device="cpu")
+        params = TM.init(cfg, device="cpu")
+        assert len(params["blocks"]) == cfg.num_layers
+        assert ("moe" in params["blocks"][0]) == (cfg.moe is not None)
+        assert ("embed" in params) == (cfg.frontend != "audio_stub")
+    hubert = treg.get_config("hubert-xlarge", smoke=True)
+    with pytest.raises(ValueError, match="encoder"):
+        TM.init_cache(hubert, 1, 8, device="cpu")
+    with pytest.raises(ValueError, match="encoder"):
+        tserve.decode_loop(hubert, TM.init(hubert, device="cpu"), 1, 2, 8)
     cfg = treg.get_config(ARCH, smoke=True)
     assert len(TM.init_cache(cfg, 1, 8, device="cpu")) == cfg.num_layers
 

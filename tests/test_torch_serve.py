@@ -316,15 +316,23 @@ def test_sustained_throughput_and_serve_main_on_cpu():
 
 
 def test_unported_families_are_refused():
-    """The MoE family and the frontend stubs are still refused (mamba2-780m
-    and recurrentgemma-2b are served since their slices:
-    ``tests/test_torch_ssm.py``, ``tests/test_torch_rglru.py``)."""
-    for arch in ("mixtral-8x22b", "hubert-xlarge"):
-        cfg = treg.get_config(arch, smoke=True)
-        with pytest.raises(NotImplementedError):
-            TM.init_cache(cfg, 1, 8, device="cpu")
-        with pytest.raises(NotImplementedError):
-            TM.init(cfg, device="cpu")
+    """No family is refused any more: the MoE configs serve too (the
+    last family's slice; ``tests/test_torch_moe.py`` holds them against
+    JAX). Their greedy decode loop (f32, SMOKE, 16-bit and int8 KV
+    caches) gives the tokens a prefill over the same tokens argmaxes:
+    the cache path and the full-sequence path route each token to the
+    same experts. Only the encoder's decode is refused (its own test,
+    ``tests/test_torch_frontends.py``)."""
+    for arch in ("mixtral-8x22b", "arctic-480b"):
+        cfg = treg.get_config(arch, smoke=True).replace(
+            compute_dtype="float32")
+        params = TM.init(cfg, seed=1, device="cpu")
+        for bits in (16, 8):
+            toks, _ = tserve.decode_loop(cfg, params, 2, 12, 16,
+                                         cache_bits=bits)
+            with torch.no_grad():
+                again = TM.forward(cfg, params, toks[:, :12]).argmax(-1)
+            assert torch.equal(again, toks[:, 1:]), (arch, bits)
 
 
 # --------------------------------------------------------------------------

@@ -4,7 +4,7 @@ goes in the compressed prefills, and its design choices taken back one at
 a time; and K2 (the DDPG MLP) at the DDPG batches.
 
     python3 tools/k1_ablation.py [--src DIR]
-        [--sections entry,prefill,ablation,k2,decode]
+        [--sections entry,prefill,ablation,k2,decode] [--archs A,B,...]
 
 ``--src`` imports the port from another tree (default: this checkout's
 ``src``), so that one call can time a parent commit unpacked beside this
@@ -12,7 +12,9 @@ one: run parent, this tree, this tree, parent. Sections:
 
 entry     Per model (the LM testbed's validation at 3,072 tokens;
           qwen2-0.5b, mamba2-780m and recurrentgemma-2b at full width over
-          32,768 tokens; seeded random weights, seeded pq policy), every
+          32,768 tokens, or the zoo configs ``--archs`` names, an MoE
+          config at ``chip_smoke.MOE_DEPTH``'s layers; seeded random
+          weights, seeded pq policy), every
           (shape, bits) that ``chip_smoke.k1_calls`` lists, in the dtype the
           forward hands it (activations bf16, weights f32), with its
           launches per forward: device time per call (CUDA events) of
@@ -319,6 +321,9 @@ def main() -> int:
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--sections",
                     default="entry,prefill,ablation,k2,decode")
+    ap.add_argument("--archs",
+                    default="qwen2-0.5b,mamba2-780m,recurrentgemma-2b",
+                    help="the zoo configs of the entry section")
     args = ap.parse_args()
     sys.path.insert(0, args.src)
     import torch
@@ -340,9 +345,10 @@ def main() -> int:
     cs.log(f"k1_ablation on {args.src}; {cs.CARD}")
     sections = args.sections.split(",")
     if "entry" in sections:
+        zoo = [get_config(a) for a in args.archs.split(",")]
         entry(cs, torch, [("testbed", LM_CFG, VAL_BATCH * VAL_SEQ)] + [
-            (a, get_config(a), cs.PREFILL_SEQ)
-            for a in ("qwen2-0.5b", "mamba2-780m", "recurrentgemma-2b")])
+            (c.name, c.replace(num_layers=cs.MOE_DEPTH.get(
+                c.name, c.num_layers)), cs.PREFILL_SEQ) for c in zoo])
     if "prefill" in sections:
         prefill(cs, torch)
     if "ablation" in sections:
