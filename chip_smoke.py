@@ -228,7 +228,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
    the measured one. The whole prefill at the SMOKE widths and 1,100
    tokens (f32) must agree with the plain CPU path.
 14. Decode: ``decode_loop`` and ``sustained_throughput`` on the same
-   model, batch 8, 64 steps, max_len 256, KV cache 16 and 8 bits, raw
+   model, batch 8, 32 steps, max_len 256, KV cache 16 and 8 bits, raw
    and under the policy; tok/s per variant, then one profiled 8-step
    decode each (device busy share, kernels per step). At the SMOKE
    widths (f32) the greedy tokens must be the prefill forward's
@@ -248,7 +248,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
    widths (f32, 2 x 1,100 tokens, chunk 32: a ragged last chunk) the
    device forward's argmaxes equal the plain CPU path's.
 16. Mamba-2 decode: ``decode_loop`` and ``sustained_throughput``, batch 8,
-   64 steps, the conv and state cache (no KV cache, so no int8 variant),
+   32 steps, the conv and state cache (no KV cache, so no int8 variant),
    raw and under the policy; one profiled 8-step decode each. At the
    SMOKE widths (f32) the greedy tokens are the prefill's argmaxes.
 17. RecurrentGemma prefill: ``make_prefill_step`` on recurrentgemma-2b at
@@ -271,7 +271,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
    the phase's peak device memory; at the SMOKE widths (f32, 2 x 1,100
    tokens) the device forward's argmaxes equal the plain CPU path's.
 18. RecurrentGemma decode: ``decode_loop`` and ``sustained_throughput``,
-   batch 8, 64 steps, the RG-LRU state and the ring KV cache (16 and 8
+   batch 8, 32 steps, the RG-LRU state and the ring KV cache (16 and 8
    bits), raw and under the policy; one profiled 8-step decode each. At
    the SMOKE widths (f32, window 16) 24 greedy steps (the ring wraps) are
    the prefill's argmaxes.
@@ -296,14 +296,43 @@ Phases, each fatal on failure (non-zero exit, no result line):
    dropped share of top-k choices at 32K; a warm-up and one timed
    prefill each (ms, tokens/s, MFU), the launches reset before and read
    after: K6 once an attention layer on its route, K1 exactly
-   ``k1_calls``' count; a decode at batch 8 for 64 steps each, raw and
+   ``k1_calls``' count; a decode at batch 8 for 32 steps each, raw and
    under the policy (not hubert: ``init_cache`` refuses an encoder); the
    peak device memory. Then at the SMOKE widths: the whole prefill (f32,
    2 x 1,100 tokens, frontends' embeddings included) against the CPU,
    decode against prefill, the MoE configs' batched validation (K 8:
    each slot's accuracy equal to its scalar forward's, K1 over slots
    once a site) and one train step of each family, card against CPU.
-20. Lines before the last: the kernels as JSON, then ``nvidia-smi``'s name
+20. Slice and fleet path (``[slice and fleet path]``, last): granite-3-8b
+   at full width (40 layers, d 4,096, 32 / 8 heads of 128, SwiGLU d_ff
+   12,800, vocab 49,155, tied; seeded bf16 weights, unrolled) under a
+   seeded pruning-only policy (each layer keeps 25-75% of its ff
+   channels on the 128-channel grid; heads whole, bits 32): K6 on layer
+   0's q/k/v at 1 x 32,768 against the chunked plain branch, then four
+   prefills of 1 x 32,768 tokens, each warmed at that shape and timed
+   (ms, MFU from the FLOPs of the weights it multiplies, peak memory):
+   raw, masked (the full-width model under the cspec), sliced
+   (``core.compress.slice_lm_params``, no cspec), and the sliced model
+   deployed into int8 and packed-int4 containers; each launches K6 once
+   a layer on the tensor-core route and nothing else. Sliced against
+   masked: argmax agreement over the 32,768 rows >= ``SLICE_ARGMAX_MIN``
+   and the largest logit difference over 256 rows <= ``SLICE_LOGIT_TOL``;
+   the oracle's predicted ratio beside the measured one. At the SMOKE
+   widths (f32) sliced against masked on the card and against the CPU.
+   Then the fleet: ``launch.fleet.main`` at the reference's defaults (P
+   4, K 4, E 2, 32 episodes) uninterrupted, stopped after 2 epochs, and
+   resumed by a fresh fleet, bit for bit equal (records, agent and ring
+   tensors, host mirrors, generators); a P 4 pq ``FleetSearch`` on the
+   LM testbed (K 8, E 2, 4 epochs, the first all warmup, 16 updates per
+   live episode, checkpointing every epoch), one more
+   steady epoch with its launches counted exactly (K1's device-bits
+   entry once a validation site, K2's member form once a rollout step,
+   K2 and K3 per DDPG step, the fused Adam + Polyak never: epoch mode
+   runs each member's updates as solo chunks), K1 exact at the last
+   validation's sites, member-episodes/s, the monitor's summary, a
+   checkpoint's bytes and snapshot / write / restore seconds (restored
+   bit-equal into the fleet's own tensors).
+21. Lines before the last: the kernels as JSON, then ``nvidia-smi``'s name
    and power limit. Last line: ``{"ok": true, "device": {...}}``.
 
 K8 (SSD scan) joins phase 3: against the sequential ``ssd_scan_ref`` and
@@ -432,7 +461,9 @@ K8_TOL = 2e-4           # rtol and atol, as the JAX tests hold K8
 K7_ROW_TOL = 2.0 ** -12
 K7_BLOCK = 256
 K7_TOL = 2e-5           # atol, as the JAX tests hold K7
-DECODE = dict(batch=8, steps=64, max_len=256)
+# 32 steps: the decode phases are host-bound (up to ~0.1 s a step on a
+# loaded host), and the script's time limit has to hold every phase
+DECODE = dict(batch=8, steps=32, max_len=256)
 CARD = "no card"                # nvidia-smi's name and power limit
 
 
@@ -3506,6 +3537,34 @@ def pop_device_cspecs(members, histories) -> list:
     return out
 
 
+def check_shared_validation_k1(cfg, members, histories, rows: int,
+                               device) -> dict:
+    """K1's device-bits entry exact at every site of a shared epoch's last
+    validation (one forward over the members' P*K policies), in the
+    path's dtypes, and equal to the host-bits form."""
+    import torch
+    calls = k1_calls(cfg, pop_device_cspecs(members, [
+        h[-members[0].batch_size:] for h in histories])[0], rows)
+    gen = torch.Generator(device=device).manual_seed(16)
+
+    def lm_input(call, dtype):
+        (R, C), bits = call
+        x = torch.randn((len(bits), R, C) if R == rows else (R, C),
+                        generator=gen, device=device).to(dtype)
+        return x if R == rows else x.expand(len(bits), R, C)
+
+    t0 = time.perf_counter()
+    err = check_fake_quant_dev_calls(calls, lm_input, lambda c: {
+        k1_call_dtype(cfg, c[0], rows)}, device)
+    log(f"  K1 device bits over the P*K = "
+        f"{len(members) * members[0].batch_size} slots at the "
+        f"{err['pairs']} (shape, bits vector) sites of the last shared "
+        f"validation, in the path's dtypes: max |kernel - plain| "
+        f"{err['max_abs_err']:.3g} (tol 0), equal to the host-bits form "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return err
+
+
 def population_phase(device, lm_sens, resnet_sens, batch_size: int, *,
                      lm_cfg=None, resnet_cfg=None, val_batch=None,
                      val_seq=None, images=None, episodes: int = 16,
@@ -3684,27 +3743,7 @@ def population_phase(device, lm_sens, resnet_sens, batch_size: int, *,
                                  "differs from the member's own")
     out["lm"] = {"launches": launches, "seconds": secs}
     rows, P = VAL_BATCH * VAL_SEQ, len(ms)
-    # the sites of the run's last shared validation (every fake-quant site
-    # of one forward over the P*K policies)
-    calls = k1_calls(LM_CFG, pop_device_cspecs(ms, [
-        h[-SLOTS:] for h in hist])[0], rows)
-    gen = torch.Generator(device=device).manual_seed(16)
-
-    def lm_input(call, dtype):
-        (R, C), bits = call
-        x = torch.randn((len(bits), R, C) if R == rows else (R, C),
-                        generator=gen, device=device).to(dtype)
-        return x if R == rows else x.expand(len(bits), R, C)
-
-    t0 = time.perf_counter()
-    err = check_fake_quant_dev_calls(calls, lm_input, lambda c: {
-        k1_call_dtype(LM_CFG, c[0], rows)}, device)
-    log(f"  K1 device bits over the P*K = {P * SLOTS} slots at the "
-        f"{err['pairs']} (shape, bits vector) sites of the last shared "
-        f"validation, in the path's dtypes: max |kernel - plain| "
-        f"{err['max_abs_err']:.3g} (tol "
-        f"0), equal to the host-bits form ({time.perf_counter() - t0:.1f} "
-        f"s)")
+    err = check_shared_validation_k1(LM_CFG, ms, hist, rows, device)
     shared = pop_steady(pop, lm_eps)
     T = len(ms[0].steps)
     sites = sum(len(k1_calls(LM_CFG, cs, rows))
@@ -5302,11 +5341,13 @@ def release_cached_memory(device) -> None:
         torch.cuda.empty_cache()
 
 
-def timed_prefill(cfg, params, tokens, cspec=None, embeds=None) -> tuple:
+def timed_prefill(cfg, params, tokens, cspec=None, embeds=None,
+                  on_logits=None) -> tuple:
     """One ``make_prefill_step`` forward (over a frontend's ``embeds``
     too): (seconds on the host clock, ended by a device sync, and the
     launches it made). Fails on logits that are not finite or not [B, S,
-    vocab]."""
+    vocab]; ``on_logits``, if given, is called with them after that
+    check (to keep what a comparison needs)."""
     import torch
     from repro_torch.kernels import build
     from repro_torch.train.train_step import make_prefill_step
@@ -5327,6 +5368,8 @@ def timed_prefill(cfg, params, tokens, cspec=None, embeds=None) -> tuple:
     if tuple(logits.shape) != tuple(x.shape[:2]) + (cfg.vocab_size,) \
             or not finite:
         raise AssertionError(f"bad prefill logits {tuple(logits.shape)}")
+    if on_logits is not None:
+        on_logits(logits)
     return dt, launches
 
 
@@ -5640,12 +5683,13 @@ def _leaves(tree):
 
 def _to(tree, device):
     """A copy of a tree of tensors on ``device`` (a copy on the same
-    device too: the train steps update their params in place)."""
+    device too: the train steps update their params in place); other
+    leaves (a cspec's bits) as they are."""
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
     if isinstance(tree, list):
         return [_to(v, device) for v in tree]
-    return tree.to(device, copy=True)
+    return tree.to(device, copy=True) if hasattr(tree, "to") else tree
 
 
 # ---------------------------------------------------------------------------
@@ -5879,7 +5923,7 @@ def moe_frontend_phase(device, results: dict, launches: dict) -> dict:
     tensor cores; hubert's D 80 on the CUDA cores, bidirectional), a
     prefill of 1 x 32,768 (internvl2's first 256 positions seeded patch
     embeddings, hubert's seeded frames) with K6 and K1 counted per
-    forward, a decode at batch 8 for 64 steps (not hubert: an encoder);
+    forward, a decode at batch 8 for 32 steps (not hubert: an encoder);
     then at the SMOKE widths the whole prefill against the CPU, decode
     against prefill, the MoE configs' batched validation and one train
     step of each family card against CPU. Adds the D 80 and D 128 K6
@@ -5905,7 +5949,7 @@ def moe_frontend_phase(device, results: dict, launches: dict) -> dict:
             f"), {what}, vocab {cfg.vocab_size}, frontend {cfg.frontend}, "
             f"{cfg.compute_dtype} compute, {cfg.param_dtype} params; seeded "
             f"random weights, 1 x {PREFILL_SEQ} prefill"
-            f"{'' if cfg.is_encoder else ', decode batch 8 x 64 steps'}, "
+            f"{'' if cfg.is_encoder else ', decode batch 8 x 32 steps'}, "
             f"raw and under a seeded pq policy; {CARD}")
         t0 = time.perf_counter()
         release_cached_memory(device)
@@ -5978,6 +6022,480 @@ def moe_frontend_phase(device, results: dict, launches: dict) -> dict:
             out[arch]["slots"] = check_moe_slots(arch, device)
         out[arch]["train"] = check_train_smoke(arch, device)
     log(f"  {time.perf_counter() - t0:.1f} s for the SMOKE checks; "
+        f"{time.perf_counter() - t_phase:.1f} s for the phase")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 20: the deployment slicer and the fleet
+# ---------------------------------------------------------------------------
+
+SLICE_ARCH = "granite-3-8b"
+SLICE_KEEP = (0.25, 0.75)   # a layer's kept share of its ff channels
+SLICE_SAMPLE_ROWS = 256     # rows whose whole logits are compared
+# Sliced against masked at full width (bf16): the two forwards multiply
+# the same kept channels; the masked one also adds the pruned channels'
+# exact zeros, so the down projections sum in another order (cuBLAS
+# picks its kernel by K), and every layer's output may round to bf16
+# differently by an ulp (2^-8 relative); over 40 layers that moves a
+# random-weight model's logits by a few hundredths and flips the argmax
+# of rows whose top two logits lie that close. The bounds leave room
+# over what the card showed (PERF.md, Findings); a model whose weights
+# are far off agrees on few rows (the sliced model deployed with every
+# weight at 4 bits agreed with it on 1.3% of the argmaxes).
+SLICE_ARGMAX_MIN = 0.9
+SLICE_LOGIT_TOL = 0.5
+# The SMOKE config in f32: sliced against masked on the card (the same
+# products summed in other orders), and against the CPU's plain route.
+SLICE_SMOKE_TOL = 1e-4
+FLEET_MEMBERS, FLEET_EPOCHS = 4, 4
+
+
+def slice_policy(cm, seed: int, grid: int = 128):
+    """A seeded pruning-only policy: each layer's ``mlp_up`` keeps a
+    seeded share of its ff channels in ``SLICE_KEEP`` on the ``grid``;
+    heads whole, every bit width 32."""
+    import numpy as np
+    from repro_torch.core.policy import Policy
+    from repro_torch.core.spec import LayerCMP
+    rng = np.random.default_rng(seed)
+    pol = Policy.reference(cm.specs)
+    for i, s in enumerate(cm.specs):
+        if s.kind == "mlp_up":
+            units = s.prune_dim // grid
+            lo = math.ceil(SLICE_KEEP[0] * units)
+            hi = math.floor(SLICE_KEEP[1] * units)
+            pol.cmps[i] = LayerCMP(keep=grid * int(rng.integers(lo, hi + 1)))
+    return pol
+
+
+def ff_keeps(cspec) -> list:
+    return [int(cs["mlp"]["ff_mask"].sum()) for cs in cspec["blocks"]]
+
+
+def sliced_prefill_flops(cfg, cspec, seq: int) -> float:
+    """``model_flops`` of a prefill with each layer's MLP products cut to
+    its kept ff channels (the weights a sliced model multiplies);
+    ``cspec`` None: the whole model."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.compress import lm_layer_specs
+    from repro_torch.launch.inputs import model_flops
+    full = model_flops(cfg, ShapeConfig("prefill", seq, 1, "prefill"))
+    if cspec is None:
+        return full
+    keeps = ff_keeps(cspec)
+    cut = sum(s.flops_per_token * (1.0 - keeps[s.layer_idx] / cfg.d_ff)
+              for s in lm_layer_specs(cfg)
+              if s.kind in ("mlp_up", "mlp_down"))
+    return full - cut * seq
+
+
+def slice_prefill(name, cfg, params, tokens, flops, keep=None,
+                  cspec=None) -> dict:
+    """A prefill timed as the other prefill phases time theirs, warmed at
+    the timed shape: host ms ended by a sync, MFU (``flops`` over 989
+    TFLOP/s), the peak device memory of the timed forward, and the
+    launches: on the card K6 once a layer on the tensor-core route and no
+    other kernel; on the CPU none. ``keep``: a dict that receives the
+    argmax of every row and the whole logits of ``SLICE_SAMPLE_ROWS``
+    evenly spaced rows. ``cspec``: the masked model's (bits 32: K1 never
+    launches)."""
+    import torch
+    device = tokens.device
+    seq = tokens.shape[1]
+    rows = torch.arange(0, seq, max(1, seq // SLICE_SAMPLE_ROWS),
+                        device=device)
+
+    def digest(logits):
+        flat = logits.flatten(0, 1)
+        keep["argmax"] = flat.argmax(-1)
+        keep["sample"] = flat.index_select(0, rows)
+
+    release_cached_memory(device)
+    timed_prefill(cfg, params, tokens, cspec)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    dt, launches = timed_prefill(cfg, params, tokens, cspec,
+                                 on_logits=None if keep is None else digest)
+    peak = torch.cuda.max_memory_allocated() / 1e9 \
+        if device.type == "cuda" else 0.0
+    want = prefill_launches(cfg, cspec, seq)
+    if device.type != "cuda":
+        if any(launches.values()):
+            raise AssertionError(f"kernels launched on the CPU: {launches}")
+    elif any(launches[k] != n for k, n in want.items()) or \
+            sum(launches.values()) != sum(want.values()):
+        raise AssertionError(f"{name} prefill launched {launches}, "
+                             f"{want} expected")
+    out = {"ms": dt * 1e3, "mfu": flops / dt / BF16_FLOPS, "peak_gb": peak,
+           "tflop": flops / 1e12, "launches": launches}
+    log(f"  {name}: {out['ms']:.1f} ms per forward of 1 x {seq} tokens, "
+        f"MFU {out['mfu']:.4f} ({out['tflop']:.1f} TFLOP of the weights it "
+        f"multiplies, over 989 TFLOP/s), peak {peak:.2f} GB; launches "
+        f"{ {k: v for k, v in launches.items() if v} }; {CARD}")
+    return out
+
+
+def compare_sliced(masked: dict, sliced: dict) -> dict:
+    """Argmax agreement over every row and the largest |logit
+    difference| over the sampled rows, with the sample's largest |logit|
+    as scale."""
+    return {"argmax": float((masked["argmax"] == sliced["argmax"])
+                            .float().mean()),
+            "max_diff": float((masked["sample"] - sliced["sample"])
+                              .abs().max()),
+            "scale": float(masked["sample"].abs().max())}
+
+
+def check_slice_smoke(device, seq: int = 1100, seed: int = 0) -> dict:
+    """granite-3-8b's SMOKE config in f32, unrolled, under a seeded
+    FF-only policy (keeps on a 16-channel grid, the masks taken on the
+    CPU): on ``device`` the sliced forward against the masked one (within
+    ``SLICE_SMOKE_TOL``), and against the same sliced forward on the
+    CPU's plain route (argmax agreement >= 0.99, as the other SMOKE
+    checks hold the card to the CPU)."""
+    import torch
+    from repro_torch.core.compress import CompressibleLM, slice_lm_params
+    from repro_torch.models import model as M
+    from repro_torch.models.registry import get_config
+    from repro_torch.train.train_step import make_prefill_step
+    cfg = get_config(SLICE_ARCH, smoke=True).replace(
+        compute_dtype="float32", scan_layers=False)
+    cpu_params = M.init(cfg, seed=seed, device="cpu")
+    dev_params = _to(cpu_params, device)
+    cm = CompressibleLM(cfg, cpu_params)
+    cspec = cm.build_cspec(slice_policy(cm, seed, grid=16))
+    dev_cspec = _to(cspec, device)
+    toks = prefill_tokens(cfg, 2, seq, seed + 1, "cpu")
+    step = make_prefill_step(cfg)
+    want = step(slice_lm_params(cfg, cpu_params, cspec), toks)
+    got = step(slice_lm_params(cfg, dev_params, dev_cspec),
+               toks.to(device)).cpu()
+    masked = make_prefill_step(cfg, dev_cspec)(dev_params,
+                                               toks.to(device)).cpu()
+    out = {"keeps": ff_keeps(cspec),
+           "vs_masked": float((got - masked).abs().max()),
+           "vs_cpu": float((got - want).abs().max()),
+           "argmax_vs_cpu": float((got.argmax(-1) == want.argmax(-1))
+                                  .float().mean()),
+           "argmax_vs_masked": float((got.argmax(-1) == masked.argmax(-1))
+                                     .float().mean())}
+    log(f"  {cfg.name}, f32, 2 x {seq} tokens, ff keeps {out['keeps']} of "
+        f"{cfg.d_ff}: sliced vs masked on {device} max |logit diff| "
+        f"{out['vs_masked']:.3g} (tol {SLICE_SMOKE_TOL}), argmax agreement "
+        f"{out['argmax_vs_masked']:.4f}; vs the CPU's sliced forward "
+        f"{out['vs_cpu']:.3g}, argmax agreement {out['argmax_vs_cpu']:.4f} "
+        f"(>= 0.99)")
+    if out["vs_masked"] > SLICE_SMOKE_TOL or out["argmax_vs_cpu"] < 0.99:
+        raise AssertionError(f"the SMOKE sliced forward disagrees: {out}")
+    return out
+
+
+def _fleet_state(fleet) -> list:
+    from repro_torch.core.ddpg import state_leaves
+    return state_leaves(fleet.state) + list(fleet.ring)
+
+
+def fleet_cli_resume(device, root: str, argv=()) -> dict:
+    """``launch.fleet.main`` at the reference's defaults (P 4, K 4, E 2,
+    32 episodes; ``argv`` appended): an uninterrupted run checkpointing
+    every epoch, a run stopped after 2 epochs, then a fresh fleet that
+    restores and finishes. The resumed tail's records, every agent and
+    ring tensor, the host mirrors and both generators of every member
+    must equal the uninterrupted run's bit for bit."""
+    import torch
+    from repro_torch.launch import fleet as F
+    base = ["--device", str(device), "--data", "0", *argv]
+    t0 = time.perf_counter()
+    full = F.main(base + ["--ckpt-dir", os.path.join(root, "a")])
+    t_full = time.perf_counter() - t0
+    head = F.main(base + ["--ckpt-dir", os.path.join(root, "b"),
+                          "--stop-after-epochs", "2"])
+    t1 = time.perf_counter()
+    tail = F.main(base + ["--ckpt-dir", os.path.join(root, "b"),
+                          "--resume"])
+    t_tail = time.perf_counter() - t1
+    a, b = full["fleet"], tail["fleet"]
+    same = {
+        "records": all(h + t == f for h, t, f in zip(
+            head["records"], tail["records"], full["records"])),
+        "tensors": all(torch.equal(x, y) for x, y in
+                       zip(_fleet_state(a), _fleet_state(b))),
+        "mirrors": all(
+            (ma.replay.ptr, ma.replay.size, ma.agent.norm.count)
+            == (mb.replay.ptr, mb.replay.size, mb.agent.norm.count)
+            and (ma.agent.norm.mean == mb.agent.norm.mean).all()
+            and (ma.agent.norm.var == mb.agent.norm.var).all()
+            for ma, mb in zip(a.members, b.members)),
+        "generators": all(
+            torch.equal(ma._rollout_gen.get_state(),
+                        mb._rollout_gen.get_state())
+            and torch.equal(ma.agent.sample_gen.get_state(),
+                            mb.agent.sample_gen.get_state())
+            for ma, mb in zip(a.members, b.members))}
+    out = {"same": same, "episodes": full["epoch_cursor"],
+           "members": full["members"], "epochs": full["epochs_run"],
+           "resumed_at": head["epoch_cursor"], "full_s": t_full,
+           "tail_s": t_tail, "eps_per_s": full["eps_per_s"],
+           "monitor": full["monitor"]}
+    log(f"  launch.fleet.main: {out['members']} members x "
+        f"{out['episodes']} episodes in {out['epochs']} epochs, "
+        f"{t_full:.2f} s uninterrupted ({out['eps_per_s']} member-episodes"
+        f"/s with captures); stopped after 2 epochs at episode "
+        f"{out['resumed_at']}, restored by a fresh fleet and finished in "
+        f"{t_tail:.2f} s: bit for bit equal to the uninterrupted run {same}"
+        f"; {CARD}")
+    if not all(same.values()) or not tail["records"][0] or \
+            head["epoch_cursor"] + len(tail["records"][0]) != \
+            full["epoch_cursor"]:
+        raise AssertionError(f"the resumed fleet differs or ran nothing: "
+                             f"{same}")
+    return out
+
+
+def testbed_fleet(device, lm_sens, cfg, root: str, *, members: int,
+                  epochs: int, warmup: int, updates: int, batch_size: int,
+                  val_batch: int, val_seq: int) -> dict:
+    """A P-member pq ``FleetSearch`` (seeds 0..P-1) on ``cfg`` (the LM
+    testbed), K ``SLOTS``, E ``FUSED_E``, checkpointing every epoch, for
+    ``epochs`` epochs; then one steady epoch with its launches counted
+    exactly; member-episodes/s, the monitor's summary, a checkpoint's
+    bytes, snapshot and write seconds, and a restore into the fleet's own
+    tensors (bit-equal, addresses kept)."""
+    import dataclasses
+    import statistics
+    import torch
+    from repro_torch.configs.testbed import SERVE_CTX
+    from repro_torch.core import graphs
+    from repro_torch.core.search import FleetSearch, FusedCompressionSearch
+    from repro_torch.kernels import build
+    E, K = FUSED_E, SLOTS
+    per_epoch = E * K
+    cm, val, scfg = search_inputs(
+        cfg, device, episodes=(epochs + 1) * per_epoch, warmup=warmup,
+        updates=updates, batch_size=batch_size, val_batch=val_batch,
+        val_seq=val_seq)
+    ms = [FusedCompressionSearch(cm, val, dataclasses.replace(scfg, seed=p),
+                                 SERVE_CTX, sens=lm_sens, batch_size=K,
+                                 epoch_batches=E) for p in range(members)]
+    fleet = FleetSearch(ms, ckpt_dir=root, ckpt_every=1)
+    _sync(device)
+    build.reset_launches()
+    graphs.reset_counts()
+    t0 = time.perf_counter()
+    res = fleet.run_fleet(epochs * per_epoch)
+    _sync(device)
+    secs = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    for m, r in zip(ms, res):
+        check_batch_records(m, r.history, epochs * per_epoch)
+        if m.dispatch_log != ["epoch"] * epochs:
+            raise AssertionError(f"dispatch log {m.dispatch_log}")
+    if fleet.readbacks != epochs:
+        raise AssertionError(f"{fleet.readbacks} readbacks in {epochs} "
+                             f"epochs")
+    times = list(fleet.monitor.times)
+    steady_s = statistics.median(times[2:]) if len(times) > 2 else times[-1]
+    log(f"  {cfg.name} fleet: {members} pq members (seeds 0-"
+        f"{members - 1}), K {K}, E {E}, {epochs} epochs of "
+        f"{per_epoch} episodes in {secs:.3f} s (captures included); epoch "
+        f"seconds {[round(t, 4) for t in times]}; steady "
+        f"{members * per_epoch / steady_s:.2f} member-episodes/s; monitor "
+        f"{fleet.monitor.summary()}; launches {launches}; {CARD}")
+    # one more epoch, counted exactly
+    rows, T = val_batch * val_seq, len(ms[0].steps)
+    _sync(device)
+    build.reset_launches()
+    graphs.reset_counts()
+    t0 = time.perf_counter()
+    tail = fleet.run_fleet((epochs + 1) * per_epoch)
+    _sync(device)
+    step_s = time.perf_counter() - t0
+    sites = sum(len(k1_calls(cfg, cs, rows)) for cs in pop_device_cspecs(
+        ms, [r.history for r in tail]))
+    n = updates * E * K
+    check_fused_launches(dict(build.LAUNCHES), {
+        "mlp3_members": E * T, "mlp3": 5 * members * n,
+        "polyak": members * n, "fake_quant_slots_dev": sites,
+        "adam_polyak": 0, "fake_quant_slots": 0, "fake_quant": 0},
+        f"{cfg.name} fleet, a steady epoch (and its checkpoint)")
+    counts = {k: dict(v) for k, v in graphs.COUNTS.items()}
+    if device.type == "cuda" and counts != {"epoch": {"captures": 0,
+                                                      "replays": 1}}:
+        raise AssertionError(f"a steady fleet epoch is not one replay: "
+                             f"{counts}")
+    k1 = check_shared_validation_k1(cfg, ms, [r.history for r in tail],
+                                    rows, device)
+    # a checkpoint of the carry: host copy, write, restore in place
+    t0 = time.perf_counter()
+    fleet.save_checkpoint()
+    snap_s = time.perf_counter() - t0
+    fleet._ckpt.wait()
+    write_s = time.perf_counter() - t0 - snap_s
+    step_dir = os.path.join(root, f"step_{fleet.epochs_run}")
+    n_bytes = dir_bytes(step_dir)
+    before = [t.clone() for t in _fleet_state(fleet)]
+    ptrs = [t.data_ptr() for t in _fleet_state(fleet)]
+    _sync(device)
+    t0 = time.perf_counter()
+    extra = fleet.restore_latest_checkpoint()
+    _sync(device)
+    restore_s = time.perf_counter() - t0
+    exact = all(torch.equal(a, b) for a, b in
+                zip(before, _fleet_state(fleet)))
+    in_place = ptrs == [t.data_ptr() for t in _fleet_state(fleet)]
+    out = {"member_episodes_per_s": members * per_epoch / step_s,
+           "steady_epoch_s": step_s, "run_s": secs, "epoch_s": times,
+           "launches": launches, "monitor": fleet.monitor.summary(),
+           "ckpt_bytes": n_bytes, "snapshot_s": snap_s, "write_s": write_s,
+           "restore_s": restore_s, "k1": k1}
+    log(f"  a counted steady epoch: {step_s:.4f} s = "
+        f"{out['member_episodes_per_s']:.2f} member-episodes/s (its "
+        f"checkpoint included: run_fleet waits for the write at its "
+        f"end); checkpoint {n_bytes} bytes "
+        f"({len(extra['member_seeds'])} members' agents, rings and "
+        f"generators), snapshot {snap_s:.4f} s, write {write_s:.4f} s, "
+        f"restore {restore_s:.4f} s: bit-equal {exact}, in place "
+        f"{in_place}; {CARD}")
+    if not (exact and in_place) or extra["epoch_cursor"] != \
+            (epochs + 1) * per_epoch:
+        raise AssertionError("the fleet's restore is not its own carry, in "
+                             "place")
+    return out
+
+
+def slice_fleet_phase(device, lm_sens, results: dict, launches: dict, *,
+                      slice_cfg=None, seq: int = PREFILL_SEQ,
+                      smoke_seq: int = 1100, fleet_cfg=None,
+                      fleet_members: int = FLEET_MEMBERS,
+                      fleet_epochs: int = FLEET_EPOCHS, cli_argv=(),
+                      warmup: int = FUSED_E * SLOTS, updates: int = 16,
+                      batch_size: int = 64, val_batch=None,
+                      val_seq=None) -> dict:
+    """Phase 20: granite-3-8b at full width (``slice_cfg``; seeded
+    weights, unrolled) under a seeded pruning-only policy: four prefills
+    of 1 x ``seq`` tokens (raw, masked, sliced by ``slice_lm_params``,
+    the sliced model deployed into int8 and packed int4), sliced held to
+    masked; the SMOKE slice check; then the fleet: ``launch.fleet.main``'s
+    resume bit for bit and a P-member pq fleet on the LM testbed
+    (``fleet_cfg``; ``warmup`` one epoch by default, so the first epoch's
+    graph has no updates and only the steady epoch's capture runs its
+    updates eagerly once). Launch counts are reset before each part and
+    read after. Adds the prefills' K6 launches and the fleet's K1 / K2 / K3
+    launches to ``launches``."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.configs.testbed import LM_CFG, VAL_BATCH, VAL_SEQ
+    from repro_torch.core.compress import CompressibleLM, slice_lm_params
+    from repro_torch.core.deploy import quantize_params_for_deploy
+    from repro_torch.kernels import build
+    from repro_torch.models import model as M
+    from repro_torch.models.registry import get_config
+    device = torch.device(device)
+    t_phase = time.perf_counter()
+    cfg = (slice_cfg or get_config(SLICE_ARCH)).replace(scan_layers=False)
+    log(f"[slice and fleet path] {cfg.name}: {cfg.num_layers} layers, "
+        f"d={cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+        f"{cfg.head_dim}, {cfg.mlp} d_ff {cfg.d_ff}, vocab {cfg.vocab_size}"
+        f", tied {cfg.tie_embeddings}, {cfg.compute_dtype}; seeded random "
+        f"weights, unrolled; a seeded pruning-only policy (ff keeps "
+        f"{SLICE_KEEP[0]:.0%}-{SLICE_KEEP[1]:.0%} a layer), 1 x {seq} "
+        f"prefills: raw, masked, sliced, sliced int8 / int4; {CARD}")
+    release_cached_memory(device)
+    t0 = time.perf_counter()
+    cm = CompressibleLM(cfg, M.init(cfg, seed=0, device=device))
+    grid = 128 if cfg.d_ff % 128 == 0 else 16
+    policy = slice_policy(cm, 0, grid)
+    cspec = cm.build_cspec(policy)
+    keeps = ff_keeps(cspec)
+    log(f"  params {M.param_count(cm.params) / 1e9:.3f} B, init "
+        f"{time.perf_counter() - t0:.1f} s; ff keeps {keeps} (mean "
+        f"{sum(keeps) / len(keeps) / cfg.d_ff:.3f} of {cfg.d_ff})")
+    tokens = prefill_tokens(cfg, 1, seq, 0, device)
+    out = {"keeps": keeps}
+    if device.type == "cuda":
+        out["k6"] = check_flash_attention_prefill(
+            *layer_qkv(cfg, cm.params, tokens), causal=True)
+    flops_raw = sliced_prefill_flops(cfg, None, seq)
+    flops_cut = sliced_prefill_flops(cfg, cspec, seq)
+    masked, sliced_keep = {}, {}
+    predicted = oracle_prefill_ratio(cm, policy, seq)
+    pre = {"raw": slice_prefill("raw", cfg, cm.params, tokens, flops_raw)}
+    # the masked model multiplies every weight: its MFU counts them all
+    pre["masked"] = slice_prefill("masked", cfg, cm.params, tokens,
+                                  flops_raw, masked, cspec)
+    t0 = time.perf_counter()
+    sliced = slice_lm_params(cfg, cm.params, cspec)
+    slice_s = time.perf_counter() - t0
+    del cm
+    pre["sliced"] = slice_prefill("sliced", cfg, sliced, tokens, flops_cut,
+                                  sliced_keep)
+    agree = compare_sliced(masked, sliced_keep)
+    log(f"  sliced vs masked: argmax agreement {agree['argmax']:.4f} over "
+        f"{seq} rows (>= {SLICE_ARGMAX_MIN}), max |logit diff| "
+        f"{agree['max_diff']:.4g} over {SLICE_SAMPLE_ROWS} rows (<= "
+        f"{SLICE_LOGIT_TOL}; their largest |logit| {agree['scale']:.4g}); "
+        f"slice_lm_params {slice_s:.2f} s")
+    if agree["argmax"] < SLICE_ARGMAX_MIN or \
+            agree["max_diff"] > SLICE_LOGIT_TOL:
+        raise AssertionError(f"the sliced model disagrees with the masked "
+                             f"one: {agree}")
+    del masked
+    for bits in (8, 4):
+        dep = quantize_params_for_deploy(sliced, bits)
+        name = f"sliced int{bits}"
+        keep = {}
+        pre[name] = slice_prefill(name, cfg, dep, tokens, flops_cut, keep)
+        pre[name]["argmax_vs_sliced"] = float(
+            (keep["argmax"] == sliced_keep["argmax"]).float().mean())
+        del dep, keep
+    del sliced, sliced_keep
+    release_cached_memory(device)
+    measured = pre["sliced"]["ms"] / pre["raw"]["ms"]
+    log(f"  sliced / raw: measured {measured:.4f}, the analytic oracle's "
+        f"prediction {predicted:.4f} (V5E reference data); masked / raw "
+        f"{pre['masked']['ms'] / pre['raw']['ms']:.4f}; int8 / sliced "
+        f"{pre['sliced int8']['ms'] / pre['sliced']['ms']:.4f} (argmax vs "
+        f"sliced {pre['sliced int8']['argmax_vs_sliced']:.4f}), int4 / "
+        f"sliced {pre['sliced int4']['ms'] / pre['sliced']['ms']:.4f} "
+        f"({pre['sliced int4']['argmax_vs_sliced']:.4f}); {CARD}")
+    out.update(prefill=pre, agree=agree, predicted=predicted,
+               measured=measured)
+    launches["flash_attention_d128"] = launches.get(
+        "flash_attention_d128", 0) + sum(
+        p["launches"]["flash_attention"] for p in pre.values())
+    out["smoke"] = check_slice_smoke(device, smoke_seq)
+    log(f"  {time.perf_counter() - t_phase:.1f} s for the slicer")
+
+    t_fleet = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="fleet_")
+    try:
+        build.reset_launches()
+        out["cli"] = fleet_cli_resume(device, os.path.join(root, "cli"),
+                                      cli_argv)
+        cli_launches = dict(build.LAUNCHES)
+        log(f"  launches of the three CLI runs: "
+            f"{ {k: v for k, v in cli_launches.items() if v} }")
+        out["testbed"] = testbed_fleet(
+            device, lm_sens, fleet_cfg or LM_CFG, os.path.join(root, "lm"),
+            members=fleet_members, epochs=fleet_epochs, warmup=warmup,
+            updates=updates, batch_size=batch_size,
+            val_batch=val_batch or VAL_BATCH, val_seq=val_seq or VAL_SEQ)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    fleet_launches = {k: cli_launches[k] + out["testbed"]["launches"][k]
+                      for k in cli_launches}
+    if device.type == "cuda":
+        missing = [k for k in ("fake_quant_slots_dev", "mlp3_members",
+                               "mlp3", "polyak") if fleet_launches[k] == 0]
+        if missing:
+            raise AssertionError(f"kernels never launched on the fleet "
+                                 f"path: {missing}")
+    for k in ("fake_quant_slots_dev", "mlp3_members", "mlp3", "polyak"):
+        launches[k] = launches.get(k, 0) + fleet_launches[k]
+    out["fleet_launches"] = fleet_launches
+    log(f"  {time.perf_counter() - t_fleet:.1f} s for the fleet; "
         f"{time.perf_counter() - t_phase:.1f} s for the phase")
     return out
 
@@ -6305,6 +6823,7 @@ def main() -> int:
     del cm
     recurrentgemma_phases(device, results, launches)
     moe_frontend_phase(device, results, launches)
+    slice_fleet_phase(device, search.sens, results, launches)
 
     for r in k6_4096.values():
         log(f"  flash_attention at S 4096 {r['shape']}: {r['ms']:.4f} ms "

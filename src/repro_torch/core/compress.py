@@ -1,7 +1,8 @@
 """Apply a compression policy to a model: LayerSpec enumeration, cspec
 building (quant bits + ℓ1 pruning masks), and the model adapters the
 search and the sensitivity analysis call (``CompressibleLM``,
-``CompressibleResNet``).
+``CompressibleResNet``), and the deployment step that slices pruned
+channels out of an unrolled LM (``slice_lm_params``).
 
 Bits in a cspec are host ints (the scalar engine builds one cspec per
 policy on the host); masks are float tensors on the model's device.
@@ -638,3 +639,66 @@ class CompressibleResNet(_BatchedAccuracyMixin):
         lg = self.logits(batch, stacked_cspec)
         return torch.mean((torch.argmax(lg, -1) == batch["labels"][None])
                           .float(), 1)
+
+
+# ===========================================================================
+# Deployment: materialize truly sliced weights (unrolled LMs)
+# ===========================================================================
+
+def _containers(tree):
+    """``tree`` with new dicts and lists at every level and the same
+    tensors (the JAX package's ``jax.tree.map(lambda x: x, ...)``)."""
+    if isinstance(tree, dict):
+        return {k: _containers(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_containers(v) for v in tree]
+    return tree
+
+
+def _take(w: torch.Tensor, dim: int, idx: np.ndarray) -> torch.Tensor:
+    return torch.index_select(w, dim, torch.as_tensor(idx, device=w.device))
+
+
+def slice_lm_params(cfg: ArchConfig, params, cspec) -> Any:
+    """Slice pruned channels out for deployment (unrolled models only).
+    Returns a new params tree with reduced shapes; ``params`` is left as
+    it was (new dicts at every level, the kept tensors shared).
+
+    As the JAX package's: an attention layer with a ``head_mask`` keeps
+    ``wq``'s columns (and bias) and ``wo``'s rows of its kept heads and
+    leaves ``wk`` / ``wv`` whole, so only FF-only pruning gives a model
+    that ``models.model.forward`` runs with the same config (ROADMAP.md,
+    Queue 3); an ``ff_mask`` slices ``w_up``, ``w_gate`` and
+    ``w_down``; MoE, SSD and RG-LRU blocks and an MoE layer's dense
+    residual are left as they are. The port's blocks are always a list
+    of per-layer dicts; the scanned-config check follows the JAX
+    package, whose scanned blocks are one stacked tree."""
+    if cfg.scan_layers and cfg.homogeneous:
+        raise ValueError("slice requires an unrolled model; set "
+                         "scan_layers=False for deployment")
+    new = {k: v for k, v in params.items() if k != "blocks"}
+    new_blocks = []
+    for i, (p_l, cs) in enumerate(zip(params["blocks"], cspec["blocks"])):
+        p_l = _containers(p_l)
+        kind = cfg.layer_kinds[i]
+        if kind == "attn" and cs.get("attn", {}).get("head_mask") is not None:
+            idx = pruning.slice_indices(cs["attn"]["head_mask"])
+            hd = cfg.head_dim
+            cols = np.concatenate([np.arange(h * hd, (h + 1) * hd)
+                                   for h in idx])
+            a = p_l["attn"]
+            a["wq"]["w"] = _take(a["wq"]["w"], 1, cols)
+            if "b" in a["wq"]:
+                a["wq"]["b"] = _take(a["wq"]["b"], 0, cols)
+            a["wo"]["w"] = _take(a["wo"]["w"], 0, cols)
+        mlp_cs = cs.get("mlp")
+        if mlp_cs is not None and mlp_cs.get("ff_mask") is not None:
+            idx = pruning.slice_indices(mlp_cs["ff_mask"])
+            m = p_l["mlp"]
+            m["w_up"]["w"] = _take(m["w_up"]["w"], 1, idx)
+            if "w_gate" in m:
+                m["w_gate"]["w"] = _take(m["w_gate"]["w"], 1, idx)
+            m["w_down"]["w"] = _take(m["w_down"]["w"], 0, idx)
+        new_blocks.append(p_l)
+    new["blocks"] = new_blocks
+    return new

@@ -71,3 +71,12 @@ def head_scores(wq: torch.Tensor, num_heads: int) -> torch.Tensor:
     hd = hhd // num_heads
     w = torch.abs(wq.float()).reshape(d, num_heads, hd)
     return torch.sum(w, dim=(0, 2))
+
+
+def slice_indices(mask) -> np.ndarray:
+    """Indices of kept channels of a 0/1 mask (a tensor on any device, or
+    an array), as a host array (used when materializing the deployed,
+    truly sliced model)."""
+    if isinstance(mask, torch.Tensor):
+        mask = mask.detach().cpu().numpy()
+    return np.nonzero(np.asarray(mask) > 0)[0]

@@ -31,6 +31,8 @@ from typing import Sequence
 
 import torch
 
+from .policy import MAX_MIX_BITS
+
 
 def _minmax(x: torch.Tensor, dims: Sequence[int]):
     x_min = torch.amin(x, dim=tuple(dims), keepdim=True)
@@ -119,3 +121,8 @@ def fake_quant_weight_slots(w: torch.Tensor, bits) -> torch.Tensor:
         return shared
     from ..kernels import ops
     return ops.fake_quant_slots(shared, bits)
+
+
+def bits_for_mode(mode: str, mix_bits: int = MAX_MIX_BITS) -> int:
+    """Effective bits of a layer mode: FP32 32, INT8 8, MIX ``mix_bits``."""
+    return {"FP32": 32, "INT8": 8, "MIX": mix_bits}[mode]

@@ -109,6 +109,17 @@ class DeviceReplay:
         (self.states, self.actions, self.rewards, self.next_states,
          self.dones) = data[:5]
 
+    def load(self, data: DeviceReplayData, ptr: int, size: int):
+        """Take a restored ring (checkpoint resume): its tensors copied
+        into the ring's own (never rebound: a graph that reads them, or a
+        population's stack they are views of, stays valid), the host
+        mirrors from the checkpoint's manifest, so the sampleable prefix
+        and the next write slot both resume."""
+        for dst, src in zip(self.data, data):
+            dst.copy_(src)
+        self.ptr = int(ptr) % self.capacity
+        self.size = min(int(size), self.capacity)
+
     def push_batch(self, s, a, r, s_next, done):
         """Bulk insert N transitions (numpy or tensors) in one ring
         write; the host mirrors advance without reading the device."""

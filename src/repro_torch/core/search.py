@@ -53,22 +53,33 @@ tensors are views of, their update budgets run as one megabatched
 update replay (``ddpg.population_update_chunk``: the products batched
 over the members, a hand-written backward, the fused Adam + Polyak
 kernel), and, for fused members of one target family, their rollouts
-(K2's member form) or whole epochs as one replay. The fleet engine
-waits for a later slice.
+(K2's member form) or whole epochs as one replay.
+
+``FleetSearch`` is the population run as a service: whole shared epochs
+from an episode cursor, an atomic async checkpoint of the stacked carry
+(agent states, rings, both random streams of every member) every few
+epochs, and a resume that writes the checkpoint into the population's
+own tensors and continues bit for bit. On one device; a mesh of several
+is refused (``distributed/sharding.py``).
 """
 from __future__ import annotations
 
 import copy
+import time
 from dataclasses import dataclass, field
 from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
+from ..checkpoint.checkpointing import (AsyncCheckpointer, restore_latest,
+                                        save_async)
+from ..distributed.fault_tolerance import FaultToleranceConfig, StepMonitor
+from ..distributed.sharding import population_shardings
 from . import graphs
 from .constraints import legal_tables
-from .ddpg import (DDPGAgent, DDPGConfig, agent_act_batch, copy_state,
-                   index_state, observe_states_pure,
+from .ddpg import (AgentState, DDPGAgent, DDPGConfig, agent_act_batch,
+                   copy_state, index_state, observe_states_pure,
                    population_update_chunk, stack_states, state_leaves,
                    update_chunk)
 from .latency import (V5E, HardwareTarget, LatencyContext, fifo_cached,
@@ -77,7 +88,7 @@ from .latency import (V5E, HardwareTarget, LatencyContext, fifo_cached,
 from .policy import (Policy, PolicyBatch, action_columns, map_actions,
                      map_actions_batch, n_actions, policies_from_batch,
                      stack_policies)
-from .replay import DeviceReplay, device_replay_push
+from .replay import DeviceReplay, DeviceReplayData, device_replay_push
 from .reward import RewardConfig, compute_reward, compute_reward_batch
 from .sensitivity import SensitivityResult, run_sensitivity
 from .spec import effective_bits
@@ -1118,8 +1129,8 @@ class PopulationSearch:
     def _stack_for_dispatch(self, trees):
         """Stack per-member trees (agent states, rings, per-target
         tensors) along a new leading member axis, in new memory that the
-        shared dispatches read. ``FleetSearch`` (a later slice) overrides
-        it to place the members across devices."""
+        shared dispatches read (the JAX package's ``FleetSearch`` places
+        it on a mesh; the port's refuses a mesh of several devices)."""
         return stack_states(trees)
 
     # ----------------------------------------------------------- fusion
@@ -1318,3 +1329,193 @@ class PopulationSearch:
         else:
             for m in self.members:
                 m._flush_updates()
+
+
+# ===========================================================================
+# Fleet: the population's epochs with checkpoints and resume
+# ===========================================================================
+
+class FleetSearch(PopulationSearch):
+    """Population search with preemption-safe epoch checkpoints — search
+    as a service (the JAX package's ``FleetSearch``).
+
+    The members (``FusedCompressionSearch`` in epoch mode, of one epoch
+    family) run whole shared epochs: one graph replay and one readback
+    for all members an epoch (``PopulationSearch.run_epoch``). Every
+    ``ckpt_every`` completed epochs the stacked carry is checkpointed
+    through the atomic async writer (``checkpoint.checkpointing.
+    save_async``, which returns with a finished host copy, so the next
+    epoch's in-place updates never reach the writer): the stacked agent
+    states (the host running-norm mirrors folded in), the stacked rings,
+    and the state of both random streams of every member, the rollout
+    draws' (``_rollout_gen``) and the replay indices' (``agent.
+    sample_gen``), which the JAX package's carry holds as a rollout key
+    and the agent state's key. The manifest's ``extra`` has the JAX
+    package's keys: the epoch cursor, the mesh shape, per-member seeds,
+    methods and ring ptr/size mirrors, the monitor's summary.
+    ``restore_latest_checkpoint`` writes the newest intact checkpoint
+    into the population's own tensors (never rebinding them: the
+    members' views and every captured graph keep their addresses), sets
+    the mirrors and the streams, and the next ``run_fleet`` continues
+    from the saved cursor bit for bit. A ``StepMonitor`` times each epoch
+    dispatch and flags stragglers (``monitor.summary()``).
+
+    The fleet runs on one device. ``mesh`` is None, or a mesh (an object
+    with ``axis_names`` and a ``shape`` mapping) that must have a
+    ``data`` axis and span one device: the members stay stacked where
+    they lie, as ``PopulationSearch`` stacks them
+    (``distributed.sharding``: the identity placement); a mesh of
+    several devices is refused.
+    """
+
+    def __init__(self, members: Sequence[CompressionSearch], mesh=None,
+                 fuse_rollouts: bool = True, ckpt_dir: Optional[str] = None,
+                 ckpt_every: int = 1, keep: int = 3,
+                 ft_cfg: Optional[FaultToleranceConfig] = None):
+        super().__init__(members, fuse_rollouts=fuse_rollouts)
+        for m in self.members:
+            if getattr(m, "epoch_batches", 0) <= 0:
+                raise ValueError(
+                    "FleetSearch members must be FusedCompressionSearch "
+                    "in epoch mode (epoch_batches > 0)")
+        if not self._epochs_fusable():
+            raise ValueError(
+                "FleetSearch members must share one epoch trace (same "
+                "specs/sensitivity/context/methods/model/reward — vary "
+                "seeds or hardware targets instead)")
+        if mesh is not None and "data" not in mesh.axis_names:
+            raise ValueError(
+                f"FleetSearch mesh needs a 'data' axis to shard the "
+                f"member dimension; got axes {mesh.axis_names}")
+        if mesh is not None:
+            population_shardings(self.state, mesh)   # refuses several
+        self.mesh = mesh
+        self.monitor = StepMonitor(ft_cfg or FaultToleranceConfig())
+        self.ckpt_dir = ckpt_dir
+        self.ckpt_every = max(1, int(ckpt_every))
+        self._ckpt = AsyncCheckpointer(ckpt_dir, keep=keep) \
+            if ckpt_dir else None
+        self.epoch_cursor = 0      # episodes completed (per member)
+        self.epochs_run = 0        # epoch dispatches completed
+
+    # ------------------------------------------------------- checkpointing
+    def _fleet_carry(self) -> dict:
+        """The checkpointable carry: the population's stacked agent
+        states (``state_for_dispatch`` folds each member's host norm
+        mirror in first) and rings, as dicts of their fields, and each
+        member's two generator states (uint8 rows)."""
+        for m in self.members:
+            m.agent.state_for_dispatch()
+        return {
+            "agent": self.state._asdict(),
+            "ring": self.ring._asdict(),
+            "rollout_gen": torch.stack([m._rollout_gen.get_state()
+                                        for m in self.members]),
+            "sample_gen": torch.stack([m.agent.sample_gen.get_state()
+                                       for m in self.members]),
+        }
+
+    def _manifest_extra(self) -> dict:
+        return {
+            "epoch_cursor": int(self.epoch_cursor),
+            "epochs_run": int(self.epochs_run),
+            "mesh_shape": dict(self.mesh.shape)
+            if self.mesh is not None else None,
+            "member_seeds": [int(m.cfg.seed) for m in self.members],
+            "member_methods": [m.cfg.methods for m in self.members],
+            "ring_ptr": [int(m.replay.ptr) for m in self.members],
+            "ring_size": [int(m.replay.size) for m in self.members],
+            "monitor": self.monitor.summary(),
+        }
+
+    def save_checkpoint(self, wait: bool = False):
+        """Atomic async save of the stacked carry (one step per completed
+        epoch). The host copy is taken now; the files are written in the
+        background and the previous checkpoint stays intact until the
+        new LATEST pointer lands."""
+        if self._ckpt is None:
+            raise ValueError("FleetSearch was built without ckpt_dir")
+        save_async(self._ckpt, self.epochs_run, self._fleet_carry(),
+                   self._manifest_extra())
+        if wait:
+            self._ckpt.wait()
+
+    def restore_latest_checkpoint(self, directory: Optional[str] = None):
+        """Restore the newest intact checkpoint into the fleet's own
+        tensors. Returns the manifest extra, or None when no checkpoint
+        exists; the next ``run_fleet`` continues bit for bit."""
+        directory = directory or self.ckpt_dir
+        if directory is None:
+            raise ValueError("no checkpoint directory given")
+        tree, _step, extra = restore_latest(directory, self._fleet_carry(),
+                                            self.device)
+        if tree is None:
+            return None
+        P = len(self.members)
+        if len(extra.get("member_seeds", [])) != P:
+            raise ValueError(
+                f"checkpoint holds {len(extra.get('member_seeds', []))} "
+                f"members, fleet has {P}")
+        agent = AgentState(**tree["agent"])
+        ring = DeviceReplayData(**tree["ring"])
+        counts, means, vars_ = (x.cpu().numpy() for x in (
+            agent.norm_count, agent.norm_mean, agent.norm_var))
+        for i, m in enumerate(self.members):
+            m.agent.adopt_state(index_state(agent, i))
+            m._mirror_norm(counts[i], means[i], vars_[i])
+            m.replay.load(index_state(ring, i), extra["ring_ptr"][i],
+                          extra["ring_size"][i])
+            # set_state reads a tensor's storage from its start: a row
+            # of the stack must be copied into storage of its own first
+            m._rollout_gen.set_state(tree["rollout_gen"][i].cpu().clone())
+            m.agent.sample_gen.set_state(
+                tree["sample_gen"][i].cpu().clone())
+        self.epoch_cursor = int(extra["epoch_cursor"])
+        self.epochs_run = int(extra["epochs_run"])
+        return extra
+
+    # --------------------------------------------------------- fleet loop
+    def run_fleet(self, episodes: int,
+                  verbose: bool = False) -> List[SearchResult]:
+        """Run whole fleet epochs from ``self.epoch_cursor`` (0, or the
+        restored checkpoint's cursor) until ``episodes`` total episodes
+        per member, checkpointing every ``ckpt_every`` epochs. Histories
+        cover only the episodes run by THIS call — a resumed fleet
+        returns the post-restore tail."""
+        K = self.members[0].batch_size
+        E = self.members[0].epoch_batches
+        if episodes % K:
+            raise ValueError(
+                f"episodes ({episodes}) must be a multiple of the "
+                f"episode batch size ({K}) — fleets run whole batches")
+        histories = [[] for _ in self.members]
+        bests: List[Optional[EpisodeRecord]] = [None] * len(self.members)
+        while self.epoch_cursor < episodes:
+            nb = min(E, (episodes - self.epoch_cursor) // K)
+            t0 = time.perf_counter()
+            # run_epoch ends with the epoch's one blocking readback, so
+            # this wall time covers the whole dispatch
+            chunks = self.run_epoch(self.epoch_cursor, nb)
+            self.epochs_run += 1
+            self.monitor.record(self.epochs_run, time.perf_counter() - t0)
+            self.epoch_cursor += nb * K
+            for i, recs in enumerate(chunks):
+                for rec in recs:
+                    histories[i].append(rec)
+                    if bests[i] is None or rec.reward > bests[i].reward:
+                        bests[i] = rec
+            if self._ckpt is not None and \
+                    self.epochs_run % self.ckpt_every == 0:
+                self.save_checkpoint()
+            if verbose:
+                row = " ".join(
+                    f"{m.cfg.methods}:{histories[i][-1].reward:+.3f}"
+                    for i, m in enumerate(self.members))
+                print(f"  epoch {self.epochs_run:4d} "
+                      f"ep {self.epoch_cursor:5d} rewards [{row}]")
+        if self._ckpt is not None:
+            self._ckpt.wait()
+        return [SearchResult(history=histories[i], best=bests[i],
+                             ref_latency_s=m.ref_lat.total_s,
+                             ref_accuracy=m.ref_acc)
+                for i, m in enumerate(self.members)]

@@ -44,7 +44,11 @@ in other orders), updated leaves 1e-5, and the QAT step's loss within
 ``chip_smoke.QAT_LOSS_TOL``. The trainer path: K6, K7 and K8 under
 autograd, the forward bit-equal to the no-grad launch and each gradient
 the plain chain's on the same tensors (bit-equal, or within
-``chip_smoke.AUTOGRAD_REL_TOL`` of the largest element).
+``chip_smoke.AUTOGRAD_REL_TOL`` of the largest element). The slicer
+and the fleet: granite-3-8b's SMOKE sliced forward (f32) within
+``chip_smoke.SLICE_SMOKE_TOL`` of the masked one on the card and in
+argmax agreement >= 0.99 with the CPU's; a fleet resumed on the card
+bit for bit equal to its uninterrupted run.
 """
 import pathlib
 import sys
@@ -1483,3 +1487,34 @@ def test_gpu_fake_quant_expert_stack_view(cuda, E, R, C, dtype):
     assert build.LAUNCHES["fake_quant_slots"] == before + 1
     assert torch.equal(slots, fake_quant_slots_ref(
         view.expand(len(bits), *view.shape), bits, True))
+
+
+# ---------------------------------------------------------------------------
+# The deployment slicer and the fleet
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+def test_gpu_sliced_smoke_forward(cuda):
+    """``chip_smoke.py``'s ``[slice and fleet path]`` SMOKE check:
+    granite-3-8b's SMOKE config in f32 under a seeded FF-only policy, the
+    sliced forward on the card against the masked one (within
+    ``SLICE_SMOKE_TOL``) and against the CPU's sliced forward (argmax
+    agreement >= 0.99; ``check_slice_smoke`` raises otherwise)."""
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    out = chip_smoke.check_slice_smoke(cuda, seq=600)
+    assert out["vs_masked"] <= chip_smoke.SLICE_SMOKE_TOL
+    assert out["argmax_vs_cpu"] >= 0.99
+
+
+@pytest.mark.gpu
+def test_gpu_fleet_resume_is_bit_exact(cuda, tmp_path):
+    """``launch.fleet.main`` on the card, two members, 24 episodes: the
+    run stopped after 2 epochs and resumed by a fresh fleet equals the
+    uninterrupted run bit for bit (records, agent and ring tensors, host
+    mirrors, generators; ``fleet_cli_resume`` raises otherwise)."""
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    out = chip_smoke.fleet_cli_resume(cuda, str(tmp_path), [
+        "--members", "2", "--episodes", "24"])
+    assert all(out["same"].values()) and out["resumed_at"] == 16
