@@ -20,10 +20,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
    events (kernel, plain version, one library call where one computes
    the same function) beside its bound. K6 has two routes, chosen by
    its wrapper (``kernels.flash_attention.route``): bf16 at head dim 64,
-   128 or 256 on the tensor cores (wgmma on TMA-fed tiles, counted in
-   ``flash_attention_tc`` as well as ``flash_attention``), f32 and bf16
-   at head dims 16 / 32 / 80 on the CUDA cores; each K6 line prints its route
-   and TFLOP/s, and each call must have counted a launch of its route.
+   80, 128 or 256 on the tensor cores (wgmma on TMA-fed tiles, counted in
+   ``flash_attention_tc`` as well as ``flash_attention``), f32 at every
+   head dim and bf16 at 16 / 32 on the CUDA cores; each K6 line prints its
+   route and TFLOP/s, and each call must have counted a launch of its
+   route.
    K1 runs f32 and bf16 (and f16 at the testbed's shapes), plain and
    straight-through (against the chain of
    ``core.quantization.fake_quant``), exact, at every shape it meets
@@ -290,8 +291,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    plain version block by block, on layer 0's own stacks: arctic's
    4.46 G-element views), timed at its largest shape and most launched
    activation; K6 on the first attention layer's q/k/v at 1 x 32,768
-   against the chunked plain branch and the dense tail rows (D 128 on
-   the tensor cores; hubert's D 80 bidirectional on the CUDA cores),
+   against the chunked plain branch and the dense tail rows (D 128, and
+   hubert's D 80 bidirectional, on the tensor cores),
    timed beside the plain branch, SDPA and the bound; an MoE layer's
    dropped share of top-k choices at 32K; a warm-up and one timed
    prefill each (ms, tokens/s, MFU), the launches reset before and read
@@ -332,8 +333,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    validation's sites, member-episodes/s, the monitor's summary, a
    checkpoint's bytes and snapshot / write / restore seconds (restored
    bit-equal into the fleet's own tensors).
-21. Lines before the last: the kernels as JSON, then ``nvidia-smi``'s name
-   and power limit. Last line: ``{"ok": true, "device": {...}}``.
+21. Lines before the last: the script's seconds in all (``[done]``), the
+   kernels as JSON, then ``nvidia-smi``'s name and power limit. Last
+   line: ``{"ok": true, "device": {...}}``.
 
 K8 (SSD scan) joins phase 3: against the sequential ``ssd_scan_ref`` and
 the chunked plain version at the JAX tests' shapes (dA in [-0.5, 0]), a
@@ -1539,8 +1541,10 @@ FA_MASKS = ((True, 0), (False, 0), (True, 96))
 # heads (14 over 2 of 64) at S 4096 in bf16; head dim 256 as
 # recurrentgemma-2b has it (MQA, 10 over 1 heads): f32 at a ragged S, bf16
 # at S 128 and at S 4,096 with its window of 2,048; head dim 80 as
-# hubert-xlarge has it (the CUDA-core route): f32 at a ragged S, bf16 at
-# S 128, and its 16 / 16 heads bidirectional at S 4,096.
+# hubert-xlarge has it: f32 at a ragged S (the CUDA-core route), bf16 (the
+# tensor-core route: a 64-column and a 16-column box a row) at S 128, at a
+# ragged S over grouped heads (8 over 2), and its 16 / 16 heads
+# bidirectional at S 4,096.
 FA_CASES = (((2, 128, 4, 4, 32), "float32", 2e-5, FA_MASKS),
             ((2, 200, 8, 2, 16), "float32", 2e-5, FA_MASKS),
             ((2, 512, 4, 1, 64), "float32", 2e-5, FA_MASKS),
@@ -1553,6 +1557,7 @@ FA_CASES = (((2, 128, 4, 4, 32), "float32", 2e-5, FA_MASKS),
              ((True, 0), (True, 2048))),
             ((2, 200, 4, 4, 80), "float32", 2e-5, FA_MASKS),
             ((1, 128, 4, 4, 80), "bfloat16", 0.04, FA_MASKS),
+            ((2, 300, 8, 2, 80), "bfloat16", 0.04, FA_MASKS),
             ((1, 4096, 16, 16, 80), "bfloat16", 0.04,
              ((False, 0), (True, 0))))
 # (head dim, window) of the S 4096 masks timed: qwen2's causal heads and
@@ -5307,7 +5312,7 @@ def prefill_launches(cfg, cspec, seq: int) -> dict:
     """The launches one prefill forward over ``seq`` tokens must make on
     the card: K6 once per attention layer (its chunked branch), all of
     them on the tensor-core route where ``route`` gives it the config's
-    compute dtype and head dim (bf16 at 64, 128, 256), K8 once per SSM
+    compute dtype and head dim (bf16 at 64, 80, 128, 256), K8 once per SSM
     layer (on the tensor-core route where ``ssd_scan.route`` gives it the
     config's head dim, state and chunk), K7 once per RG-LRU layer, K1 as
     ``k1_calls`` counts."""
@@ -5919,8 +5924,8 @@ def moe_frontend_phase(device, results: dict, launches: dict) -> dict:
     (depth ``MOE_DEPTH``), internvl2-2b and hubert-xlarge at full width
     and depth, each raw and under a seeded pq policy: K1 exact at every
     (shape, bits) of the policy (an expert stack's view block by block),
-    K6 on the first attention layer's q/k/v at 1 x 32,768 (D 128 on the
-    tensor cores; hubert's D 80 on the CUDA cores, bidirectional), a
+    K6 on the first attention layer's q/k/v at 1 x 32,768 (D 128, and
+    hubert's D 80 bidirectional, on the tensor cores), a
     prefill of 1 x 32,768 (internvl2's first 256 positions seeded patch
     embeddings, hubert's seeded frames) with K6 and K1 counted per
     forward, a decode at batch 8 for 32 steps (not hubert: an encoder);
@@ -6501,6 +6506,7 @@ def slice_fleet_phase(device, lm_sens, results: dict, launches: dict, *,
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -6846,6 +6852,8 @@ def main() -> int:
     launches["flash_attention"] += trainer["launcher"]["k6"]
     launches["ssd_scan"] += trainer["mamba2"]["k8"]
     launches["rglru_scan"] += trainer["recurrentgemma"]["rglru_scan"]
+    log(f"[done] {time.perf_counter() - t_start:.1f} s in all, the "
+        f"kernels' build included")
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", **KERNELS[name],
          "launches": launches[name], "max_abs_err": r["max_abs_err"],

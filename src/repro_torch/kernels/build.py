@@ -138,20 +138,28 @@ def build_all() -> dict:
 
 
 def _ptxas_summary(log: str) -> list:
-    """Registers, shared memory and spills per kernel from -Xptxas -v."""
-    rows, kernel = [], None
+    """Registers, shared memory and spills per kernel from -Xptxas -v.
+    ptxas prints a function's spills under "Function properties for
+    <name>", before its "Used N registers" line, so they are matched by
+    name."""
+    rows, kernel, props, spills = [], None, None, {}
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             kernel = m.group(1)
+        m = re.search(r"Function properties for (\w+)", line)
+        if m:
+            props = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and props:
+            spills[props] = int(m.group(1))
         m = re.search(r"Used (\d+) registers", line)
         if m and kernel:
             smem = re.search(r"(\d+) bytes smem", line)
             rows.append({"kernel": kernel, "registers": int(m.group(1)),
                          "smem_bytes": int(smem.group(1)) if smem else 0})
-        m = re.search(r"(\d+) bytes spill stores", line)
-        if m and rows:
-            rows[-1]["spill_store_bytes"] = int(m.group(1))
+    for row in rows:
+        row["spill_store_bytes"] = spills.get(row["kernel"], 0)
     return rows
 
 

@@ -34,18 +34,18 @@
 // Design: two routes, chosen by the wrapper (kernels/flash_attention.py,
 // `route`) by dtype and head dim:
 //
-// "tc" -- bf16 at D 64, 128, 256 (the head dims of every full-width
+// "tc" -- bf16 at D 64, 80, 128, 256 (the head dims of every full-width
 // config served), flash_attention_tc_kernel below: both products on the
-// tensor cores with wgmma, K/V tiles fed by TMA, warp-specialised.
+// tensor cores with wgmma, K/V tiles fed by TMA, warp-specialised.  A
+// D 80 row (160 bytes) is two boxes: 64 columns with the 128-byte
+// swizzle and 16 with the 32-byte one.
 //
-// "simt" -- f32 at every head dim, and bf16 at D 16, 32 (which occur
-// only in the JAX tests' shapes) and 80 (hubert-xlarge's heads),
-// flash_attention_kernel: both products as f32 FMAs on the CUDA cores.
-// The tensor cores take f32 only as TF32 (about 3 decimal digits), which
-// would break the f32 parity of 2e-5, so f32 stays here; D 16 and 32
-// would need 32- and 64-byte swizzle atoms for a route that no served
-// model takes, and D 80 rows (160 bytes) fit none of the 128-byte
-// swizzled tiles of the tc route.  One block of 128 threads per
+// "simt" -- f32 at every head dim, and bf16 at D 16 and 32 (which occur
+// only in the JAX tests' shapes), flash_attention_kernel: both products
+// as f32 FMAs on the CUDA cores.  The tensor cores take f32 only as TF32
+// (about 3 decimal digits), which would break the f32 parity of 2e-5, so
+// f32 stays here; bf16 D 16 and 32 would need their own tile shapes for a
+// route that no served model takes.  One block of 128 threads per
 // (BQ-row q tile, q head, batch), BQ x BK = 64 x 64 up to D 128 and
 // 32 x 32 at D 256 (FaTile).  The q tile and each BK-key K and V tile are
 // staged in shared memory as f32 (read with element strides, so q/k/v
@@ -58,9 +58,10 @@
 // shared memory.  Row statistics reduce over the 16 lanes of a half-warp
 // with shuffles.  Row strides of the f32 tiles (D + 4, 80) keep the
 // float4 reads free of bank conflicts (at D 80, 84 floats: eight rows
-// land on eight distinct 4-bank groups).  At D 80 a thread's D/16 = 5
-// output columns are not a float4, so its P.V reads V by scalars.  Causal grids start with the q
-// tiles that have the most keys.  67 TFLOP/s is this route's ceiling.
+// land on eight distinct 4-bank groups).  At D 80 (f32) a thread's
+// D/16 = 5 output columns are not a float4, so its P.V reads V by
+// scalars.  Causal grids start with the q tiles that have the most keys.
+// 67 TFLOP/s is this route's ceiling.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -286,7 +287,7 @@ static int launch(const void* q, const void* k, const void* v, void* o,
     return (int)cudaGetLastError();
 }
 
-// bf16 takes this route at D 16, 32 and 80 only: at 64, 128 and 256 it
+// bf16 takes this route at D 16 and 32 only: at 64, 80, 128 and 256 it
 // takes the tensor cores (fa_tc below), so no bf16 instantiation exists
 // there.
 template <typename T>
@@ -298,13 +299,13 @@ static int launch_d(const void* q, const void* k, const void* v, void* o,
                                       causal, window, s);
         case 32: return launch<T, 32>(q, k, v, o, st, B, H, KV, S, scale,
                                       causal, window, s);
-        case 80: return launch<T, 80>(q, k, v, o, st, B, H, KV, S, scale,
-                                      causal, window, s);
         default: break;
     }
     if constexpr (std::is_same<T, float>::value) {
         switch (D) {
             case 64: return launch<T, 64>(q, k, v, o, st, B, H, KV, S, scale,
+                                          causal, window, s);
+            case 80: return launch<T, 80>(q, k, v, o, st, B, H, KV, S, scale,
                                           causal, window, s);
             case 128: return launch<T, 128>(q, k, v, o, st, B, H, KV, S,
                                             scale, causal, window, s);
@@ -331,10 +332,10 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
 }
 
 // ---------------------------------------------------------------------------
-// The "tc" route: bf16 at D 64, 128, 256 on the tensor cores.
+// The "tc" route: bf16 at D 64, 80, 128, 256 on the tensor cores.
 //
 // One block per (BM-row q tile, q head, batch) of NC + 1 warpgroups
-// (NC = 3 at D 64, 2 at D 128 and 256; BM = 64 NC):
+// (NC = 3 at D 64 and 80, 2 at D 128 and 256; BM = 64 NC):
 //   - warpgroup 0, the producer: gives up registers (setmaxnreg, 24 or
 //     32 left) and one thread issues every TMA load -- the q tile once,
 //     then the K and V tiles of BN keys through rings of STAGES buffers,
@@ -344,22 +345,29 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
 //     when it has read the buffer: K when S is done, V when P.V is);
 //   - warpgroups 1 .. NC, the consumers, 64 q rows each (up to 240 or
 //     160 registers).  Per key tile: S = Q.K^T with wgmma m64nBNk16 from
-//     shared memory (both operands K-major, 128-byte swizzle), the
-//     online softmax on the f32 accumulator fragment, then O += P.V with
-//     wgmma m64nDk16, A = P from registers (the S fragment packed in
-//     place into bf16 A fragments: no trip through shared memory), B = V
-//     from shared memory as MN-major (the transpose bit of 16-bit types:
-//     no transposed copy of V).  S of tile j and P.V of tile j - 1 are in
-//     flight together, and the softmax of j runs while P.V of j - 1 does;
-//     the consumers issue their products in turn (round robin on named
-//     barriers), so one's wgmma run beside the others' softmax.
+//     shared memory (both operands K-major), the online softmax on the
+//     f32 accumulator fragment, then O += P.V with wgmma m64nNk16, A = P
+//     from registers (the S fragment packed in place into bf16 A
+//     fragments: no trip through shared memory), B = V from shared memory
+//     as MN-major (the transpose bit of 16-bit types: no transposed copy
+//     of V).  S of tile j and P.V of tile j - 1 are in flight together,
+//     and the softmax of j runs while P.V of j - 1 does; the consumers
+//     issue their products in turn (round robin on named barriers), so
+//     one's wgmma run beside the others' softmax.
 //
-// Tensor maps: one 4-D map each for q, k, v and the output over
-// (d, s, head, batch) with the tensors' own element strides, so the
-// layer's [B,S,H,D] memory seen as [B,H,S,D] is read in place.  Each map
-// moves 64-column (128-byte) boxes with the 128-byte swizzle that wgmma
-// reads; D 128 and 256 take 2 and 4 of them per tile.  TMA zero-fills
-// rows past S (loads) and drops them (the output store); kpos < S still
+// Tensor maps: 4-D maps for q, k, v and the output over (d, s, head,
+// batch) with the tensors' own element strides, so the layer's [B,S,H,D]
+// memory seen as [B,H,S,D] is read in place.  A tile of R rows is CH =
+// D / 64 boxes of [R][64] (128-byte rows, the 128-byte swizzle) and, at
+// D 80, one box of [R][16] (32-byte rows, the 32-byte swizzle) from a
+// second map of each tensor, its columns 64 .. 79: 160-byte rows fit no
+// one swizzled box, and padding them to 96 or 128 columns would cost
+// 20-60% more MMA work and shared memory.  Each box is based on a
+// multiple of its swizzle's period (1,024 and 256 bytes).  S at D 80 is
+// 5 k-steps: 4 on the 64-column box, the 5th on the 16-column one; P.V
+// is m64n64k16 into O's 64 columns and m64n16k16 into a second
+// accumulator of 8 f32 a thread for the other 16.  TMA zero-fills rows
+// past S (loads) and drops them (the output store); kpos < S still
 // masks the scores.
 //
 // Fragment layout (m64nNk16, f32 accumulator, per warpgroup thread t,
@@ -386,11 +394,14 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
 // side, so its K/V tiles are read from L2), then q tiles from the
 // heaviest (most keys) down.
 //
-// Tiles: BN = 128 keys at D 64 and 128, 64 at D 256 (its O accumulator
-// is already 128 f32 registers a thread).  Shared memory: q 24 / 32 / 64
-// KB, K and V rings of 3 / 3 / 2 stages, 96 / 192 / 128 KB; one block per
-// SM.  The output goes through the consumer's own q rows in shared
-// memory (its last read of them is done) and out by a TMA store.
+// Tiles: BN = 128 keys at D 64 and 128, 96 at D 80, 64 at D 256 (its O
+// accumulator is already 128 f32 registers a thread).  At D 80 a
+// consumer's 160 registers hold S (48 f32 at BN 96), P (24) and O (40);
+// at BN 128 (64 + 32 + 40) ptxas spills and serialises the wgmma.
+// Shared memory: q 24 / 30 / 32 / 64 KB, K and V rings of 3 / 3 / 3 / 2
+// stages, 96 / 90 / 192 / 128 KB; one block per SM.  The output goes
+// through the consumer's own q rows in shared memory (its last read of
+// them is done) and out by TMA stores, one a box.
 #include <cuda.h>      // CUtensorMap and its enums (types only: no -lcuda)
 #include <stdint.h>
 
@@ -401,7 +412,7 @@ constexpr int ENCODE_ERROR = 2000;   // + CUresult of a failed encode
 constexpr int NO_ENCODE_ENTRY = 1999;
 
 template <int D> struct Cfg {
-    static constexpr int NC = D == 64 ? 3 : 2;      // consumer warpgroups
+    static constexpr int NC = D == 64 || D == 80 ? 3 : 2;  // consumer warpgroups
     static constexpr int BM = 64 * NC;              // q rows per block
     static constexpr int THREADS = 128 * (NC + 1);  // + the producer
     static constexpr int CONSUMERS = 128 * NC;
@@ -409,13 +420,15 @@ template <int D> struct Cfg {
     // the SM's 65,536 (launch: 65,536 / THREADS each)
     static constexpr int REG_PRODUCER = NC == 2 ? 24 : 32;
     static constexpr int REG_CONSUMER = NC == 2 ? 240 : 160;
-    static constexpr int BN = D > 128 ? 64 : 128;   // keys per tile
+    static constexpr int BN = D > 128 ? 64 : D == 80 ? 96 : 128;  // keys a tile
     static constexpr int STAGES = D > 128 ? 2 : 3;   // K/V ring depth
-    static constexpr int CH = D / 64;               // 128-byte column boxes
+    static constexpr int CH = D / 64;               // 64-column boxes
+    static constexpr int TAIL = D % 64;             // + one 16-column box
+    static_assert(TAIL == 0 || TAIL == 16, "D: 64 k or 64 k + 16");
     static constexpr int Q_BYTES = BM * D * 2;
     static constexpr int KV_BYTES = BN * D * 2;     // one K or one V tile
     // + 256 for the mbarriers, + 1024 to round the base up to the
-    // 1024-byte period of the swizzle
+    // 1024-byte period of the 128-byte swizzle
     static constexpr int SMEM = Q_BYTES + 2 * STAGES * KV_BYTES + 256 + 1024;
 };
 
@@ -471,16 +484,21 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src,
            "r"(h), "r"(b) : "memory");
 }
 
-// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
-// and stride byte offsets, all in 16-byte units.  K-major (q, k): the
-// leading offset is unused, the stride offset 1024 (8 rows of 128 bytes).
-// MN-major (v): leading = the distance between 64-column boxes, stride =
-// 1024 (8 keys).
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
+// wgmma shared-memory descriptor: start address, leading and stride byte
+// offsets, all in 16-byte units, and the swizzle in bits 62-63 (SW128,
+// SW32).  128-byte swizzle, K-major (q, k): the leading offset is unused,
+// the stride offset 1024 (8 rows of 128 bytes); MN-major (v): leading =
+// the distance between 64-column boxes, stride = 1024 (8 keys).  32-byte
+// swizzle (D 80's 16-column box): K-major stride 256 (8 rows of 32
+// bytes); MN-major stride 256 (8 keys), and its 16 columns are one
+// swizzle atom, so the leading offset is never stepped (the offsets of
+// CUTLASS's make_gmma_desc for Layout_K_SW32_Atom / Layout_MN_SW32_Atom).
+constexpr uint64_t SW128 = 1, SW32 = 3;
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint64_t swz) {
     return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
            | (static_cast<uint64_t>(lbo >> 4) << 16)
-           | (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+           | (static_cast<uint64_t>(sbo >> 4) << 32) | (swz << 62);
 }
 
 __device__ __forceinline__ void wg_fence() {
@@ -500,6 +518,17 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
     for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+// Each of a thread's two rows of an accumulator fragment times f[row].
+template <int N>
+__device__ __forceinline__ void scale_rows(float (&d)[N], const float (&f)[2]) {
+#pragma unroll
+    for (int j = 0; j < N / 4; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+            d[4 * j + 2 * i] *= f[i];
+            d[4 * j + 2 * i + 1] *= f[i];
+        }
 }
 
 __device__ __forceinline__ void named_sync(uint32_t id, uint32_t threads) {
@@ -523,6 +552,21 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 template <int N> struct Mma;
+template <> struct Mma<16> {
+    // D (64 x 16, f32) += P (64 x 16, registers) . V (16 x 16, MN-major)
+    __device__ __forceinline__ static void rs(float (&d)[8],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+            "%0, %1, %2, %3, %4, %5, %6, %7 "
+            "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+              "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+    }
+};
 template <> struct Mma<64> {
     // D (64 x 64, f32) (+)= Q (64 x 16) . K^T (16 x 64), both smem, K-major
     __device__ __forceinline__ static void ss(float (&d)[32], uint64_t a,
@@ -562,6 +606,31 @@ template <> struct Mma<64> {
               "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
               "+f"(d[30]), "+f"(d[31])
             : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+    }
+};
+template <> struct Mma<96> {
+    // D (64 x 96, f32) (+)= Q (64 x 16) . K^T (16 x 96), both smem, K-major
+    __device__ __forceinline__ static void ss(float (&d)[48], uint64_t a,
+                                              uint64_t b, int scale_d) {
+        asm volatile(
+            "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+            "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+            "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+            "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+            "%41, %42, %43, %44, %45, %46, %47 "
+            "}, %48, %49, p, 1, 1, 0, 0;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+              "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+              "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+              "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+              "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+              "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+              "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+              "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+              "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+              "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+            : "l"(a), "l"(b), "r"(scale_d));
     }
 };
 template <> struct Mma<128> {
@@ -676,19 +745,25 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS, 1)
 flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                           const __grid_constant__ CUtensorMap kmap,
                           const __grid_constant__ CUtensorMap vmap,
-                          const __grid_constant__ CUtensorMap omap, int H,
+                          const __grid_constant__ CUtensorMap omap,
+                          const __grid_constant__ CUtensorMap qtail,
+                          const __grid_constant__ CUtensorMap ktail,
+                          const __grid_constant__ CUtensorMap vtail,
+                          const __grid_constant__ CUtensorMap otail, int H,
                           int G, int S, int n_qt, float scale_log2,
                           int causal, int window) {
     using C = Cfg<D>;
     constexpr int BM = C::BM, NC = C::NC, BN = C::BN, ST = C::STAGES;
-    constexpr int CH = C::CH;
+    constexpr int CH = C::CH, TAIL = C::TAIL;
     constexpr float NEG = FA_NEG_INF;
     extern __shared__ __align__(1024) uint8_t smem_raw[];
     const uint32_t raw = smem_u32(smem_raw);
     const uint32_t base = (raw + 1023u) & ~1023u;
     uint8_t* const sQ_ptr = smem_raw + (base - raw);
-    const uint32_t sQ = base;                       // CH boxes of [BM][64]
-    const uint32_t sK = sQ + C::Q_BYTES;            // ST x CH boxes [BN][64]
+    // A tile of R rows: CH boxes [R][64], then (TAIL) one [R][16] box at
+    // CH * R * 128 bytes.
+    const uint32_t sQ = base;                       // a tile of BM rows
+    const uint32_t sK = sQ + C::Q_BYTES;            // ST tiles of BN rows
     const uint32_t sV = sK + ST * C::KV_BYTES;
     const uint32_t bar = sV + ST * C::KV_BYTES;
     const uint32_t q_full = bar;
@@ -728,28 +803,37 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                      :: "n"(C::REG_PRODUCER));
         if (threadIdx.x == 0) {
             const int kvh = h / G;
-            mbar_expect_tx(q_full, C::Q_BYTES);
+            // the tile of `rows` rows from s0: its CH boxes, then its tail
+            auto load_tile = [&](uint32_t dst, const CUtensorMap* map,
+                                 const CUtensorMap* tail, uint32_t full,
+                                 int rows, int s0, int hh) {
 #pragma unroll
-            for (int c = 0; c < CH; ++c)
-                tma_load(sQ + c * BM * 128, &qmap, q_full, c * 64, q0, h, b);
+                for (int c = 0; c < CH; ++c)
+                    tma_load(dst + c * rows * 128, map, full, c * 64, s0, hh,
+                             b);
+                if constexpr (TAIL > 0)
+                    tma_load(dst + CH * rows * 128, tail, full, CH * 64, s0,
+                             hh, b);
+            };
+            mbar_expect_tx(q_full, C::Q_BYTES);
+            load_tile(sQ, &qmap, &qtail, q_full, BM, q0, h);
             // In the order the consumers take them: K of tile it, then V
             // of tile it - 1 (P.V of it - 1 runs beside S of it).
-            auto load = [&](const CUtensorMap* map, uint32_t tiles,
-                            uint32_t full, uint32_t empty, int it) {
+            auto load = [&](const CUtensorMap* map, const CUtensorMap* tail,
+                            uint32_t tiles, uint32_t full, uint32_t empty,
+                            int it) {
                 const int s = it % ST;
                 mbar_wait(empty + 8u * s, ((it / ST) & 1) ^ 1);
                 mbar_expect_tx(full + 8u * s, C::KV_BYTES);
-#pragma unroll
-                for (int c = 0; c < CH; ++c)
-                    tma_load(tiles + s * C::KV_BYTES + c * BN * 128, map,
-                             full + 8u * s, c * 64, k_begin + it * BN, kvh,
-                             b);
+                load_tile(tiles + s * C::KV_BYTES, map, tail, full + 8u * s,
+                          BN, k_begin + it * BN, kvh);
             };
             for (int it = 0; it < n_kt; ++it) {
-                load(&kmap, sK, full_k(0), empty_k(0), it);
-                if (it > 0) load(&vmap, sV, full_v(0), empty_v(0), it - 1);
+                load(&kmap, &ktail, sK, full_k(0), empty_k(0), it);
+                if (it > 0)
+                    load(&vmap, &vtail, sV, full_v(0), empty_v(0), it - 1);
             }
-            load(&vmap, sV, full_v(0), empty_v(0), n_kt - 1);
+            load(&vmap, &vtail, sV, full_v(0), empty_v(0), n_kt - 1);
         }
     } else {
         // ---- consumer warpgroups: 64 q rows each ----
@@ -763,36 +847,56 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
         const int row_lo = q0 + 64 * cw;            // the warpgroup's rows
         const int row_hi = row_lo + 63;
         const int qpos[2] = {row_lo + r_in, row_lo + r_in + 8};
-        const uint32_t sQw = sQ + 64 * cw * 128;
+        const uint32_t sQw = sQ + 64 * cw * 128;    // its rows of box 0
+        const uint32_t sQt = sQ + CH * BM * 128 + 64 * cw * 32;  // of the tail
         float m[2] = {NEG, NEG}, l[2] = {0.0f, 0.0f};   // per row, base 2
-        float o[D / 2];
+        float o[(D - TAIL) / 2];        // O's columns in the 64-column boxes
+        float ot[TAIL > 0 ? TAIL / 2 : 1];  // and in the tail box
 #pragma unroll
-        for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+        for (int i = 0; i < (D - TAIL) / 2; ++i) o[i] = 0.0f;
+#pragma unroll
+        for (int i = 0; i < TAIL / 2; ++i) ot[i] = 0.0f;
         float sc[BN / 2], alpha[2];     // scores, then p; alpha per row
         uint32_t pa[BN / 16][4];        // p in bf16: P.V's A fragments
 
         // S = Q . K^T of stage s, issued (not waited for).  The q
-        // descriptor is rebuilt behind an empty asm each time, so the
+        // descriptors are rebuilt behind an empty asm each time, so the
         // compiler does not hoist D/16 of them into live registers.
         auto issue_qk = [&](int s) {
-            uint64_t qd = sw128_desc(sQw, 16, 1024);
+            uint64_t qd = smem_desc(sQw, 16, 1024, SW128);
             asm volatile("" : "+l"(qd));
-            const uint64_t kd = sw128_desc(sK + s * C::KV_BYTES, 16, 1024);
+            const uint32_t sKs = sK + s * C::KV_BYTES;
+            const uint64_t kd = smem_desc(sKs, 16, 1024, SW128);
             wg_fence();
 #pragma unroll
-            for (int ks = 0; ks < D / 16; ++ks)
+            for (int ks = 0; ks < 4 * CH; ++ks)
                 Mma<BN>::ss(sc, qd + (ks / 4) * BM * 8 + (ks % 4) * 2,
                             kd + (ks / 4) * BN * 8 + (ks % 4) * 2, ks > 0);
+            if constexpr (TAIL > 0) {
+                uint64_t qtd = smem_desc(sQt, 16, 256, SW32);
+                asm volatile("" : "+l"(qtd));
+                Mma<BN>::ss(sc, qtd,
+                            smem_desc(sKs + CH * BN * 128, 16, 256, SW32), 1);
+            }
             wg_commit();
         };
         // O += P . V of stage s, issued (not waited for).
         auto issue_pv = [&](int s) {
-            const uint64_t vd =
-                sw128_desc(sV + s * C::KV_BYTES, BN * 128, 1024);
+            const uint32_t sVs = sV + s * C::KV_BYTES;
+            const uint64_t vd = smem_desc(sVs, BN * 128, 1024, SW128);
+            const uint64_t vtd =
+                smem_desc(sVs + CH * BN * 128, BN * 32, 256, SW32);
 #pragma unroll
-            for (int kk = 0; kk < BN / 16; ++kk)
-                Mma<D>::rs(o, pa[kk], vd + kk * 128);   // 16 keys = 2048 B
+            for (int kk = 0; kk < BN / 16; ++kk) {
+                Mma<D - TAIL>::rs(o, pa[kk], vd + kk * 128);  // 16 keys: 2 KB
+                if constexpr (TAIL > 0)
+                    Mma<TAIL>::rs(ot, pa[kk], vtd + kk * 32);  // 512 B
+            }
             wg_commit();
+        };
+        auto fence_o = [&]() {
+            fence_regs(o);
+            if constexpr (TAIL > 0) fence_regs(ot);
         };
         // The online softmax of tile k0 on the scores in sc, in base 2:
         // leaves p (unrounded) in sc, updates m and l, sets alpha.
@@ -911,15 +1015,10 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
             mbar_arrive(empty_k(s));
             softmax(k_begin + it * BN);
             wg_wait<0>();
-            fence_regs(o);
+            fence_o();
             mbar_arrive(empty_v(sp));
-#pragma unroll
-            for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-                for (int i = 0; i < 2; ++i) {
-                    o[4 * j + 2 * i] *= alpha[i];
-                    o[4 * j + 2 * i + 1] *= alpha[i];
-                }
+            scale_rows(o, alpha);
+            if constexpr (TAIL > 0) scale_rows(ot, alpha);
             pack();
         }
         {
@@ -928,7 +1027,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
             wg_fence();
             issue_pv(sp);
             wg_wait<0>();
-            fence_regs(o);
+            fence_o();
             mbar_arrive(empty_v(sp));
         }
 
@@ -941,10 +1040,12 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
             inv[i] = 1.0f / fmaxf(l[i], 1e-30f);
         }
         // The warpgroup's own q rows (its last wgmma read of them is done)
-        // take the output tile, in the 128-byte swizzle the store reads.
+        // take the output tile, in the swizzles the stores read: 16-byte
+        // chunk j of row r at j ^ (r % 8) in a 128-byte row, at
+        // j ^ (r / 4 % 2) in a 32-byte one.
         uint8_t* const dst = sQ_ptr + 64 * cw * 128;
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j)
+        for (int j = 0; j < (D - TAIL) / 8; ++j)
 #pragma unroll
             for (int i = 0; i < 2; ++i) {
                 const int r = r_in + 8 * i;
@@ -954,12 +1055,28 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                     __floats2bfloat162_rn(o[4 * j + 2 * i] * inv[i],
                                           o[4 * j + 2 * i + 1] * inv[i]);
             }
+        if constexpr (TAIL > 0) {
+            uint8_t* const dst_t = sQ_ptr + (sQt - sQ);
+#pragma unroll
+            for (int j = 0; j < TAIL / 8; ++j)
+#pragma unroll
+                for (int i = 0; i < 2; ++i) {
+                    const int r = r_in + 8 * i;
+                    const int off = r * 32 + ((j ^ ((r / 4) % 2)) * 16)
+                                    + qc * 2;
+                    *reinterpret_cast<__nv_bfloat162*>(dst_t + off) =
+                        __floats2bfloat162_rn(ot[4 * j + 2 * i] * inv[i],
+                                              ot[4 * j + 2 * i + 1] * inv[i]);
+                }
+        }
         asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
         named_sync(1 + cw, 128);
         if (t == 0 && row_lo < S) {
 #pragma unroll
             for (int c = 0; c < CH; ++c)
                 tma_store(&omap, sQw + c * BM * 128, c * 64, row_lo, h, b);
+            if constexpr (TAIL > 0)
+                tma_store(&otail, sQt, CH * 64, row_lo, h, b);
             asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
             asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
         }
@@ -996,10 +1113,12 @@ static EncodeTiled encode_fn() {
 
 // A 4-D map over (d, s, head, batch) of a bf16 [B, NH, S, D] view with
 // element strides st = (b, h, s, d), d-stride 1 (the wrapper checks it),
-// moving [rows, 64] boxes with the 128-byte swizzle.  A dim of size 1
-// never moves its coordinate off 0, so its stride is any legal one.
+// moving [rows, box_d] boxes with the given swizzle (box_d * 2 bytes at
+// most its span).  A dim of size 1 never moves its coordinate off 0, so
+// its stride is any legal one.
 static int encode(CUtensorMap* map, const void* ptr, const long long* st,
-                  int B, int NH, int S, int rows, int D) {
+                  int B, int NH, int S, int rows, int D, int box_d,
+                  CUtensorMapSwizzle swizzle) {
     EncodeTiled fn = encode_fn();
     if (fn == nullptr) return NO_ENCODE_ENTRY;
     const long long ext[3] = {S, NH, B};
@@ -1015,12 +1134,11 @@ static int encode(CUtensorMap* map, const void* ptr, const long long* st,
     cuuint64_t strides[3];
     for (int i = 0; i < 3; ++i)
         strides[i] = ext[i] == 1 ? span : (cuuint64_t)(2 * el[i]);
-    const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
+    const cuuint32_t box[4] = {(cuuint32_t)box_d, (cuuint32_t)rows, 1, 1};
     const cuuint32_t unit[4] = {1, 1, 1, 1};
     const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                           const_cast<void*>(ptr), dims, strides, box, unit,
-                          CU_TENSOR_MAP_INTERLEAVE_NONE,
-                          CU_TENSOR_MAP_SWIZZLE_128B,
+                          CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                           CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
     return r == CUDA_SUCCESS ? 0 : ENCODE_ERROR + (int)r;
@@ -1031,14 +1149,22 @@ static int launch(const void* q, const void* k, const void* v, void* o,
                   const long long* st, int B, int H, int KV, int S,
                   float scale, int causal, int window, cudaStream_t stream) {
     using C = Cfg<D>;
-    CUtensorMap maps[4];
+    // q, k, v, o: the 64-column maps, then the 16-column ones (D 80; at
+    // other D copies the kernel never reads)
+    CUtensorMap maps[8];
     const void* ptrs[4] = {q, k, v, o};
     const int heads[4] = {H, KV, KV, H};
     const int rows[4] = {C::BM, C::BN, C::BN, 64};
     for (int t = 0; t < 4; ++t) {
-        const int err = encode(&maps[t], ptrs[t], st + 4 * t, B, heads[t], S,
-                               rows[t], D);
+        int err = encode(&maps[t], ptrs[t], st + 4 * t, B, heads[t], S,
+                         rows[t], D, 64, CU_TENSOR_MAP_SWIZZLE_128B);
         if (err) return err;
+        maps[4 + t] = maps[t];
+        if (C::TAIL > 0) {
+            err = encode(&maps[4 + t], ptrs[t], st + 4 * t, B, heads[t], S,
+                         rows[t], D, C::TAIL, CU_TENSOR_MAP_SWIZZLE_32B);
+            if (err) return err;
+        }
     }
     cudaError_t err = cudaFuncSetAttribute(
         flash_attention_tc_kernel<D>,
@@ -1047,14 +1173,14 @@ static int launch(const void* q, const void* k, const void* v, void* o,
     const int n_qt = (S + C::BM - 1) / C::BM;
     flash_attention_tc_kernel<D><<<n_qt * H * B, C::THREADS, C::SMEM,
                                    stream>>>(
-        maps[0], maps[1], maps[2], maps[3], H, H / KV, S, n_qt,
-        scale * LOG2E, causal, window);
+        maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], maps[6],
+        maps[7], H, H / KV, S, n_qt, scale * LOG2E, causal, window);
     return (int)cudaGetLastError();
 }
 
 }  // namespace fa_tc
 
-// The tensor-core route: bf16 q, k, v at D 64, 128 or 256, each with
+// The tensor-core route: bf16 q, k, v at D 64, 80, 128 or 256, each with
 // d-stride 1, the other strides multiples of 8 elements and a 16-byte
 // aligned base (TMA's terms; the wrapper checks them).  strides: 16
 // element strides, (b, h, s, d) of q, k, v and the output.  Returns 0, a
@@ -1069,6 +1195,8 @@ extern "C" int flash_attention_tc_launch(const void* q, const void* k,
     cudaStream_t s = (cudaStream_t)stream;
     switch (D) {
         case 64: return fa_tc::launch<64>(q, k, v, o, strides, B, H, KV, S,
+                                          scale, causal, window, s);
+        case 80: return fa_tc::launch<80>(q, k, v, o, strides, B, H, KV, S,
                                           scale, causal, window, s);
         case 128: return fa_tc::launch<128>(q, k, v, o, strides, B, H, KV, S,
                                             scale, causal, window, s);

@@ -3,9 +3,9 @@ bidirectional / sliding window (``csrc/flash_attention.cu``; replaces the
 JAX package's ``kernels/flash_attention.py::_flash_kernel``).
 
 Two routes, chosen here and nowhere else (``route``): bf16 at head dim
-64, 128 or 256 takes the tensor-core kernel (wgmma, TMA-fed tiles);
-f32, and bf16 at head dims 16, 32 and 80 (hubert-xlarge), the CUDA-core
-template."""
+64, 80 (hubert-xlarge: a 64-column and a 16-column TMA box per row), 128
+or 256 takes the tensor-core kernel (wgmma, TMA-fed tiles); f32, and
+bf16 at head dims 16 and 32, the CUDA-core template."""
 from __future__ import annotations
 
 import ctypes
@@ -17,15 +17,16 @@ from . import build
 from .ref import attention_ref
 
 HEAD_DIMS = (16, 32, 64, 80, 128, 256)
-TC_HEAD_DIMS = (64, 128, 256)
+TC_HEAD_DIMS = (64, 80, 128, 256)
 # flash_attention_tc_launch's codes past the cudaError_t range
 _NO_ENCODE_ENTRY, _ENCODE_ERROR = 1999, 2000
 
 
 def route(dtype: torch.dtype, head_dim: int) -> str:
     """"tc" (tensor cores: wgmma on TMA-fed tiles) for bf16 at head dim
-    64, 128 or 256; "simt" (f32 FMAs on the CUDA cores) otherwise — f32
-    must keep its 2e-5 parity, which the tensor cores' TF32 would not."""
+    64, 80, 128 or 256; "simt" (f32 FMAs on the CUDA cores) otherwise —
+    f32 must keep its 2e-5 parity, which the tensor cores' TF32 would
+    not."""
     if dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS:
         return "tc"
     return "simt"

@@ -164,13 +164,13 @@ def test_chip_smoke_k6_row_check_refuses_a_dropped_key_tile():
 
 
 def test_flash_attention_route_by_dtype_and_head_dim():
-    """The one place K6's route is decided: bf16 at head dims 64, 128 and
-    256 (every full-width config served) takes the tensor cores; f32 (its
-    2e-5 parity) and bf16 at 16 / 32 (the JAX tests' shapes only) the
-    CUDA-core template."""
+    """The one place K6's route is decided: bf16 at head dims 64, 80,
+    128 and 256 (every full-width config served, hubert-xlarge's 80
+    included) takes the tensor cores; f32 (its 2e-5 parity) and bf16 at
+    16 / 32 (the JAX tests' shapes only) the CUDA-core template."""
     from repro_torch.kernels import flash_attention as tfa
     for D in tfa.HEAD_DIMS:
-        want = "tc" if D in (64, 128, 256) else "simt"
+        want = "tc" if D in (64, 80, 128, 256) else "simt"
         assert tfa.route(torch.bfloat16, D) == want
         assert tfa.route(torch.float32, D) == "simt"
 
@@ -187,6 +187,7 @@ def _bf16(shape, strides=None, offset=0):
     ((1, 14, 64, 64), (14 * 64 * 64, 64, 14 * 64, 1), 0),   # layer view
     ((2, 1, 64, 256), (64 * 256, 7, 256, 1), 0),     # one kv head: free
     ((1, 2, 32, 128), None, 8),                      # base 16 bytes in
+    ((1, 16, 64, 80), (64 * 16 * 80, 80, 16 * 80, 1), 0),   # hubert's layer
 ])
 def test_tma_terms_accept_the_layouts_k6_is_given(shape, strides, offset):
     """``check_tma_terms`` passes the layer's transposed views, a size-1
@@ -201,6 +202,8 @@ def test_tma_terms_accept_the_layouts_k6_is_given(shape, strides, offset):
     ((1, 4, 64, 64), (4 * 64 * 64, 64, 4 * 64 + 4, 1), 0,
      "dim 2 has stride 260"),
     ((1, 4, 64, 64), None, 1, "16-byte aligned"),
+    ((1, 4, 64, 80), (4 * 64 * 80, 80, 4 * 80 + 4, 1), 0,
+     "dim 2 has stride 324"),
 ])
 def test_tma_terms_refuse_what_tma_cannot_read(shape, strides, offset, term):
     """Each of TMA's terms that fails is named in the ValueError; the

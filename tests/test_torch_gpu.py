@@ -715,13 +715,15 @@ def _layer_qkv(seed, B, S, H, KV, D, cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("H,KV,D,window", [(14, 2, 64, 0), (10, 1, 256, 2048)])
+@pytest.mark.parametrize("H,KV,D,window", [(14, 2, 64, 0), (10, 1, 256, 2048),
+                                           (16, 16, 80, 0)])
 def test_gpu_flash_attention_tc_reads_the_layers_views(cuda, H, KV, D,
                                                        window):
-    """qwen2-0.5b's and recurrentgemma-2b's heads at S 1,100 in the
-    layer's [B,S,H,D] layout: TMA reads the views in place, the output
-    comes back in q's layout, and the layer's chunked branch on the card
-    launches the same kernel."""
+    """qwen2-0.5b's, recurrentgemma-2b's and hubert-xlarge's heads at S
+    1,100 in the layer's [B,S,H,D] layout (hubert's strides (…, 1280, 80,
+    1)): TMA reads the views in place, the output comes back in q's
+    layout, and the layer's chunked branch on the card launches the same
+    kernel."""
     from repro_torch.models import layers as TL
     q, k, v = _layer_qkv(11, 1, 1100, H, KV, D, cuda)
     assert not q.is_contiguous()
@@ -740,12 +742,13 @@ def test_gpu_flash_attention_tc_reads_the_layers_views(cuda, H, KV, D,
 @pytest.mark.parametrize("S", [1, 37, 300, 4097])
 @pytest.mark.parametrize("H,KV,D,causal,window", [
     (14, 2, 64, True, 0), (10, 1, 256, True, 2048), (4, 2, 128, False, 0),
-    (4, 1, 64, False, 96)])
+    (4, 1, 64, False, 96), (16, 16, 80, False, 0), (4, 2, 80, True, 96)])
 def test_gpu_flash_attention_tc_ragged_s(cuda, S, H, KV, D, causal, window):
     """S that is a multiple of neither the 64 · NC q rows nor the 64 /
-    128 keys of a tile, down to one row (one key tile, boxes taller than
+    96 / 128 keys of a tile, down to one row (one key tile, boxes taller than
     S): TMA zero-fills the ragged loads and drops the ragged output rows;
-    the mask keeps kpos < S."""
+    the mask keeps kpos < S. D 80 (both of its boxes) bidirectional as
+    hubert-xlarge runs it, and causal with a window."""
     q, k, v = _qkv(S + D, 1, S, H, KV, D, torch.bfloat16, cuda)
     got = _k6_tc(q, k, v, causal=causal, window=window)
     _assert_bf16_close(got, ref.attention_ref(q, k, v, causal=causal,
@@ -754,7 +757,7 @@ def test_gpu_flash_attention_tc_ragged_s(cuda, S, H, KV, D, causal, window):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("H,KV", [(14, 2), (10, 1)])
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [64, 80, 128, 256])
 def test_gpu_flash_attention_tc_grouped_heads(cuda, H, KV, D):
     """GQA with groups of 7 (qwen2-0.5b's 14 over 2) and MQA (10 over
     1), batch 2, at every head dim of the route, causal and with a
@@ -782,6 +785,25 @@ def test_gpu_flash_attention_tc_refuses_views_tma_cannot_read(cuda):
                       (shifted, "16-byte aligned")):
         with pytest.raises(ValueError, match=term):
             flash_attention(bad, k, v)
+    assert dict(build.LAUNCHES) == before
+
+
+@pytest.mark.gpu
+def test_gpu_flash_attention_tc_d80_refuses_views_tma_cannot_read(cuda):
+    """At D 80 too a bf16 view outside TMA's terms raises ValueError and
+    launches nothing (no fallback to the CUDA cores): [B,S,H,D] rows
+    padded to 84 (a stride of 4 · 84 elements, no multiple of 8) and a
+    base off 16 bytes."""
+    q, k, v = _qkv(4, 1, 256, 4, 4, 80, torch.bfloat16, cuda)
+    padded = torch.zeros((1, 256, 4, 84), dtype=torch.bfloat16,
+                         device=cuda)[..., :80].transpose(1, 2)
+    shifted = torch.zeros(k.numel() + 4, dtype=torch.bfloat16,
+                          device=cuda)[4:].view(k.shape)
+    before = dict(build.LAUNCHES)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        flash_attention(padded, k, v, causal=False)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention(q, shifted, v, causal=False)
     assert dict(build.LAUNCHES) == before
 
 
@@ -1436,18 +1458,18 @@ def test_gpu_kernels_under_autograd(cuda, case):
 @pytest.mark.parametrize("causal,window", FA_MASKS)
 def test_gpu_flash_attention_d80(cuda, dtype, S, H, causal, window):
     """hubert-xlarge's head dim 80 (MHA: 16 / 16 heads at S 4096, and a
-    ragged S) takes the CUDA-core route in f32 and bf16: one
-    ``flash_attention`` launch and no ``flash_attention_tc`` one; against
-    the dense plain version at f32's 2e-5, bf16's 0.04 and each row
-    within 2^-6."""
+    ragged S): bf16 takes the tensor-core route (one ``flash_attention``
+    and one ``flash_attention_tc`` launch), f32 the CUDA-core route (no
+    ``flash_attention_tc`` launch); against the dense plain version at
+    f32's 2e-5, bf16's 0.04 and each row within 2^-6."""
     dt = getattr(torch, dtype)
     q, k, v = _qkv(80 + S, 1, S, H, H, 80, dt, cuda)
     before = (build.LAUNCHES["flash_attention"],
               build.LAUNCHES["flash_attention_tc"])
     got = flash_attention(q, k, v, causal=causal, window=window)
     assert (build.LAUNCHES["flash_attention"],
-            build.LAUNCHES["flash_attention_tc"]) == (before[0] + 1,
-                                                      before[1])
+            build.LAUNCHES["flash_attention_tc"]) == (
+        before[0] + 1, before[1] + int(dt == torch.bfloat16))
     assert got.dtype == dt
     want = ref.attention_ref(q, k, v, causal=causal, window=window)
     if dt == torch.float32:

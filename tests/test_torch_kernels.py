@@ -699,3 +699,24 @@ def test_split_tf32_holds_k8_to_2e4_where_plain_tf32_misses():
     assert not torch.allclose(plain, want, atol=2e-4, rtol=2e-4)
     assert float((plain - want).abs().max()) > 100 * float(
         (split - want).abs().max())
+
+
+def test_ptxas_summary_gives_each_kernel_its_own_spills():
+    """ptxas prints a function's spills before its register count; the
+    summary matches them to the function by name, so one kernel's spills
+    are never given to the kernel compiled before it."""
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_Z1aPf' for 'sm_90a'",
+        "ptxas info    : Function properties for _Z1aPf",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 40 registers, 1024 bytes smem",
+        "ptxas info    : Compiling entry function '_Z1bPf' for 'sm_90a'",
+        "ptxas info    : Function properties for _Z1bPf",
+        "    48 bytes stack frame, 48 bytes spill stores, 48 bytes spill "
+        "loads",
+        "ptxas info    : Used 168 registers"])
+    assert build._ptxas_summary(log) == [
+        {"kernel": "_Z1aPf", "registers": 40, "smem_bytes": 1024,
+         "spill_store_bytes": 0},
+        {"kernel": "_Z1bPf", "registers": 168, "smem_bytes": 0,
+         "spill_store_bytes": 48}]
